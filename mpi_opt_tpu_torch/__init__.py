@@ -1,0 +1,14 @@
+"""mpi_opt_tpu_torch: the PyTorch/CUDA port of mpi_opt_tpu.
+
+Fused PBT over a population of networks, trained as one program on an
+NVIDIA GPU, with the JAX package's TPU kernels rewritten as CUDA
+kernels (``csrc/``). Entry points run on CUDA unless the caller passes
+``device="cpu"``; nothing falls back to the CPU on its own.
+"""
+
+from mpi_opt_tpu_torch.device import resolve_device
+from mpi_opt_tpu_torch.ops.pbt import PBTConfig
+from mpi_opt_tpu_torch.train.fused_pbt import fused_pbt
+from mpi_opt_tpu_torch.workloads import get_workload
+
+__all__ = ["resolve_device", "PBTConfig", "fused_pbt", "get_workload"]

@@ -1,0 +1,206 @@
+"""Fused GroupNorm(+ReLU) with its gradient: hand-written CUDA kernels.
+
+Port of ``mpi_opt_tpu/ops/pallas_gn.py``. ``group_norm_relu`` is a
+``torch.autograd.Function`` over channel-last ``[B, ..., C]`` input:
+
+- a CUDA tensor goes to the kernels of ``csrc/group_norm.cu`` (forward:
+  ``gn_fwd``; backward: ``gn_bwd``), or the call raises;
+- a CPU tensor goes to the plain versions in this module
+  (``group_norm_relu_plain`` / ``group_norm_relu_bwd_plain``), which do
+  the same arithmetic in torch ops. The tests run them against the JAX
+  package; ``chip_smoke.py`` holds the kernels against them on the card.
+
+Statistics are f32 whatever the activation dtype, var is
+``E[x^2] - mean^2``, eps sits inside the rsqrt, and the backward
+recomputes the ReLU mask from x and the saved statistics. dgamma/dbeta
+come out of the kernel as per-sample partials ``[N, C]`` and are summed
+over N here, as the JAX package leaves that sum to XLA.
+
+A population folded into channels (member p's channel c at p*C + c,
+``P*G`` groups, gamma/beta flattened to ``[P*C]``) is exactly per-member
+GroupNorm, because each member's groups are a contiguous run of
+channels; its dgamma/dbeta stay per member since they sum over N only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+# launches of each kernel, and calls of the plain versions (forward or
+# backward); ``chip_smoke.py`` zeroes them around the main path
+LAUNCHES = {"gn_fwd": 0, "gn_bwd": 0, "plain": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "gn_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P],
+    "gn_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _check(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, groups: int):
+    if x.dim() < 2:
+        raise ValueError(f"group_norm_relu takes [B, ..., C], got shape {tuple(x.shape)}")
+    c = x.shape[-1]
+    if c % groups:
+        raise ValueError(
+            f"number of channels ({c}) must be divisible by num_groups ({groups})"
+        )
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"group_norm_relu takes float32 or bfloat16 x, got {x.dtype}")
+    for name, t in (("gamma", gamma), ("beta", beta)):
+        if t.shape != (c,) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 [{c}], got {t.dtype} {tuple(t.shape)}")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"group_norm_relu runs on cuda or cpu, not {x.device}")
+
+
+# -- plain versions (the CPU path, and the kernels' yardstick) -----------
+
+
+def group_norm_relu_plain(x, gamma, beta, groups: int, eps: float = 1e-6, relu: bool = True):
+    """(y [N,S,C] in x's dtype, mean [N,G] f32, rstd [N,G] f32) for x [N,S,C]."""
+    n, s, c = x.shape
+    xg = x.float().reshape(n, s, groups, c // groups)
+    mean = xg.mean(dim=(1, 3))
+    var = (xg * xg).mean(dim=(1, 3)) - mean * mean
+    rstd = torch.rsqrt(var + eps)
+    xhat = ((xg - mean[:, None, :, None]) * rstd[:, None, :, None]).reshape(n, s, c)
+    y = xhat * gamma + beta
+    if relu:
+        y = torch.where(y < 0, torch.zeros_like(y), y)  # NaN passes, as jnp.maximum
+    return y.to(x.dtype), mean, rstd
+
+
+def group_norm_relu_bwd_plain(x, dy, gamma, beta, mean, rstd, groups: int, relu: bool = True):
+    """(dx [N,S,C] in x's dtype, dgamma, dbeta partials [N,C] f32)."""
+    n, s, c = x.shape
+    gs = c // groups
+    expand = lambda t: t.repeat_interleave(gs, dim=1)[:, None, :]  # [N,G] -> [N,1,C]
+    xhat = (x.float() - expand(mean)) * expand(rstd)
+    d = dy.float()
+    if relu:
+        d = torch.where(xhat * gamma + beta > 0, d, torch.zeros_like(d))
+    dgamma = (d * xhat).sum(dim=1)
+    dbeta = d.sum(dim=1)
+    dz = d * gamma
+    m1 = dz.reshape(n, s, groups, gs).mean(dim=(1, 3))
+    m2 = (dz * xhat).reshape(n, s, groups, gs).mean(dim=(1, 3))
+    dx = expand(rstd) * (dz - expand(m1) - xhat * expand(m2))
+    return dx.to(x.dtype), dgamma, dbeta
+
+
+# -- kernels --------------------------------------------------------------
+
+
+def _block_shape(c: int, gs: int) -> tuple[int, int]:
+    """(channels per block, row lanes): a block's channels hold whole
+    groups and divide C; 64 channels where they can (a warp then reads
+    64 contiguous bytes of bf16), 256 threads a block."""
+    cands = [cb for cb in range(gs, min(c, 1024) + 1, gs) if c % cb == 0]
+    if not cands:
+        raise ValueError(f"group size {gs} over 1024 channels: the kernel does not take it")
+    cb = next((k for k in cands if k >= 64), cands[-1])
+    return cb, max(1, 256 // cb)
+
+
+def _lib():
+    from mpi_opt_tpu_torch.ops import _build
+
+    return _build.load("group_norm", _SIGNATURES)
+
+
+def _grid_check(n: int):
+    if n > 65535:
+        raise ValueError(f"the kernels take at most 65535 samples a call, got {n}")
+
+
+def gn_fwd(x, gamma, beta, groups: int, eps: float, relu: bool):
+    """Forward on x [N,S,C]: the kernel for a CUDA tensor, the plain
+    version for a CPU one. Returns (y, mean [N,G], rstd [N,G])."""
+    _check(x, gamma, beta, groups)
+    if x.device.type == "cpu":
+        LAUNCHES["plain"] += 1
+        return group_norm_relu_plain(x, gamma, beta, groups, eps, relu)
+    if not (x.is_contiguous() and gamma.is_contiguous() and beta.is_contiguous()):
+        raise ValueError("gn_fwd takes contiguous x, gamma and beta")
+    n, s, c = x.shape
+    _grid_check(n)
+    cb, rl = _block_shape(c, c // groups)
+    y = torch.empty_like(x)
+    mean = torch.empty((n, groups), dtype=torch.float32, device=x.device)
+    rstd = torch.empty_like(mean)
+    with torch.cuda.device(x.device):
+        err = _lib().gn_fwd(
+            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
+            mean.data_ptr(), rstd.data_ptr(), n, s, c, groups, cb, rl, eps,
+            int(relu), int(x.dtype == torch.bfloat16),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"gn_fwd kernel launch failed with CUDA error {err}")
+    LAUNCHES["gn_fwd"] += 1
+    return y, mean, rstd
+
+
+def gn_bwd(x, dy, gamma, beta, mean, rstd, groups: int, relu: bool):
+    """Backward on x, dy [N,S,C]: returns (dx, dgamma [N,C], dbeta [N,C])
+    per-sample partials; the kernel for CUDA tensors, plain for CPU."""
+    _check(x, gamma, beta, groups)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError("dy must match x in shape, dtype and device")
+    if x.device.type == "cpu":
+        LAUNCHES["plain"] += 1
+        return group_norm_relu_bwd_plain(x, dy, gamma, beta, mean, rstd, groups, relu)
+    tensors = (x, dy, gamma, beta, mean, rstd)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("gn_bwd takes contiguous tensors")
+    n, s, c = x.shape
+    _grid_check(n)
+    cb, rl = _block_shape(c, c // groups)
+    dx = torch.empty_like(x)
+    dgamma = torch.empty((n, c), dtype=torch.float32, device=x.device)
+    dbeta = torch.empty_like(dgamma)
+    with torch.cuda.device(x.device):
+        err = _lib().gn_bwd(
+            x.data_ptr(), dy.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+            mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), dgamma.data_ptr(),
+            dbeta.data_ptr(), n, s, c, groups, cb, rl, int(relu),
+            int(x.dtype == torch.bfloat16),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"gn_bwd kernel launch failed with CUDA error {err}")
+    LAUNCHES["gn_bwd"] += 1
+    return dx, dgamma, dbeta
+
+
+class _GroupNormReLU(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, groups, eps, relu):
+        x3 = x.reshape(x.shape[0], -1, x.shape[-1])
+        y, mean, rstd = gn_fwd(x3, gamma, beta, groups, eps, relu)
+        ctx.save_for_backward(x3, gamma, beta, mean, rstd)
+        ctx.groups, ctx.relu, ctx.shape = groups, relu, x.shape
+        return y.reshape(x.shape)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x3, gamma, beta, mean, rstd = ctx.saved_tensors
+        dy3 = dy.reshape(x3.shape).contiguous()
+        dx, dgamma, dbeta = gn_bwd(x3, dy3, gamma, beta, mean, rstd, ctx.groups, ctx.relu)
+        return dx.reshape(ctx.shape), dgamma.sum(dim=0), dbeta.sum(dim=0), None, None, None
+
+
+def group_norm_relu(x, gamma, beta, groups: int = 32, eps: float = 1e-6, relu: bool = True):
+    """Fused GroupNorm(+ReLU) over channel-last ``[B, ..., C]``."""
+    return _GroupNormReLU.apply(x, gamma, beta, groups, eps, relu)

@@ -1,0 +1,202 @@
+"""The population trainer (port of ``mpi_opt_tpu/train/population.py``).
+
+One shared minibatch per step, per-member augmentation (per-sample flip,
+per-member circular shift), and a per-member SGD + momentum + coupled
+weight decay update, with the hyperparameters as ``[P]`` tensors. The
+JAX package ``vmap``s one member's step; here the model runs all
+members at once in population form (``models/resnet.py``), and the loss
+is the sum of the members' mean losses, so autograd gives each member
+its own gradient.
+
+Every random draw takes an explicit ``torch.Generator`` and is split
+into a draw and an apply (``draw_batch``, ``draw_augment`` /
+``apply_augment``), so tests can feed the JAX package's draws to the
+apply.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch.func import functional_call
+
+from mpi_opt_tpu_torch.device import resolve_device
+from mpi_opt_tpu_torch.models.resnet import fold_members
+
+
+@dataclasses.dataclass
+class OptHParams:
+    """Per-member hyperparameters; every field is a float32 [P] tensor."""
+
+    lr: torch.Tensor
+    momentum: torch.Tensor
+    weight_decay: torch.Tensor
+    flip_prob: torch.Tensor  # per-sample horizontal flip probability
+    shift: torch.Tensor  # max augmentation shift in pixels (continuous)
+
+    @staticmethod
+    def defaults(n: int, lr: float = 0.1, device=None) -> "OptHParams":
+        f = lambda v: torch.full((n,), v, dtype=torch.float32, device=device)
+        return OptHParams(f(lr), f(0.9), f(1e-4), f(0.5), f(3.0))
+
+
+@dataclasses.dataclass
+class PopState:
+    """Population training state; every tensor's leading axis is the member."""
+
+    params: dict
+    momentum: dict
+    step: torch.Tensor  # int32[P]
+
+
+def draw_batch(generator: torch.Generator, n_data: int, batch_size: int) -> torch.Tensor:
+    """Minibatch indices, int64[batch_size] in [0, n_data)."""
+    return torch.randint(0, n_data, (batch_size,), generator=generator, device=generator.device)
+
+
+def draw_augment(generator: torch.Generator, flip_prob, shift, batch: int):
+    """(do_flip bool[P, B], dy int64[P], dx int64[P]): a per-sample flip
+    with each member's probability, and per-member shifts rounded (half
+    to even, as ``jnp.round``) from uniform draws on [-shift, shift]."""
+    p = flip_prob.shape[0]
+    dev = generator.device
+    do_flip = torch.rand((p, batch), generator=generator, device=dev) < flip_prob[:, None]
+    max_s = torch.clamp(shift, min=0.0)
+    u = torch.rand((2, p), generator=generator, device=dev)
+    dy, dx = torch.round(-max_s + 2.0 * max_s * u).long()
+    return do_flip, dy, dx
+
+
+def apply_augment(x: torch.Tensor, do_flip, dy, dx) -> torch.Tensor:
+    """Shared ``[B, H, W, C]`` batch -> per-member ``[B, H, W, P, C]``:
+    flip the flagged samples along W, then roll each member's images by
+    (dy, dx) with wrap-around (``jnp.roll``), as one gather."""
+    b, h, w, _ = x.shape
+    p = dy.shape[0]
+    dev = x.device
+    rows = (torch.arange(h, device=dev)[None, :] - dy[:, None]) % h  # [P, H]
+    cols = (torch.arange(w, device=dev)[None, :] - dx[:, None]) % w  # [P, W]
+    cols = torch.where(do_flip[:, :, None], w - 1 - cols[:, None, :], cols[:, None, :])  # [P,B,W]
+    bi = torch.arange(b, device=dev).view(b, 1, 1, 1)
+    return x[bi, rows.t().reshape(1, h, 1, p), cols.permute(1, 2, 0).reshape(b, 1, w, p)]
+
+
+def _member_loss(logits: torch.Tensor, by: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy per member, in f32: logits [P, B, K] -> [P]."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    idx = by[None, :, None].expand(logp.shape[0], -1, 1)
+    return -logp.gather(2, idx).squeeze(2).mean(dim=1)
+
+
+class PopulationTrainer:
+    """Trains and scores a population of one model.
+
+    Args:
+        model_fn: ``model_fn(population, device) -> nn.Module`` in
+            population form (input ``[B, P*C, H, W]``, logits ``[P, B, K]``).
+        batch_size: per-step minibatch size (shared across members).
+        augment: whether image augmentation applies.
+        member_chunk: if >0, members run in slices of this size
+            (activation-memory relief; params/momentum stay resident).
+        device: where the population lives.
+    """
+
+    def __init__(self, model_fn, batch_size: int = 256, augment: bool = True,
+                 member_chunk: int = 0, device=None):
+        self.model_fn = model_fn
+        self.batch_size = batch_size
+        self.augment = augment
+        self.member_chunk = member_chunk
+        self.device = resolve_device(device)
+        # parameters are always passed in (functional_call), so the
+        # module itself holds none: built on the meta device
+        self.template = model_fn(1, "meta")
+
+    def init_population(self, generator: torch.Generator, n: int) -> PopState:
+        model = self.model_fn(n, self.device)
+        model.init_params(generator)
+        params = {k: v.detach() for k, v in model.named_parameters()}
+        momentum = {k: torch.zeros_like(v) for k, v in params.items()}
+        return PopState(params, momentum, torch.zeros(n, dtype=torch.int32, device=self.device))
+
+    def _chunks(self, n: int):
+        size = self.member_chunk if self.member_chunk > 0 else n
+        return [(a, min(a + size, n)) for a in range(0, n, size)]
+
+    def logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        """Population forward: folded input -> logits [P, B, K]."""
+        return functional_call(self.template, params, (x,))
+
+    def _inputs(self, bx, aug, a: int, b: int):
+        """Folded ``[B, P'*C, H, W]`` input of members [a, b)."""
+        if aug is None:
+            xp = bx[:, :, :, None, :].expand(-1, -1, -1, b - a, -1).contiguous()
+        else:
+            do_flip, dy, dx = aug
+            xp = apply_augment(bx, do_flip[a:b], dy[a:b], dx[a:b])
+        return fold_members(xp)
+
+    def _pop_update(self, state: PopState, hp: OptHParams, aug, bx, by) -> torch.Tensor:
+        """One step for the whole population on a shared batch; returns
+        the members' losses [P]. Updates ``state`` IN PLACE: each member
+        slice's params and momentum are rewritten as soon as its
+        gradient exists, so no second copy of the population is held."""
+        losses = []
+        for a, b in self._chunks(state.step.shape[0]):
+            params = {k: v[a:b].detach().requires_grad_() for k, v in state.params.items()}
+            loss = _member_loss(self.logits(params, self._inputs(bx, aug, a, b)), by)
+            grads = torch.autograd.grad(loss.sum(), list(params.values()))
+            lr, mu, wd = hp.lr[a:b], hp.momentum[a:b], hp.weight_decay[a:b]
+            with torch.no_grad():
+                for k, g in zip(params, grads):
+                    p, m = state.params[k][a:b], state.momentum[k][a:b]
+                    shape = (-1,) + (1,) * (p.dim() - 1)
+                    # m = mu*m + g + wd*p; p -= lr*m (f32, coupled decay)
+                    m.mul_(mu.view(shape)).add_(g).add_(wd.view(shape) * p)
+                    p.sub_(lr.view(shape) * m)
+            losses.append(loss.detach())
+        state.step += 1
+        return torch.cat(losses)
+
+    def train_segment(self, state: PopState, hp: OptHParams, train_x, train_y,
+                      generator: torch.Generator, steps: int):
+        """``steps`` shared-batch steps; returns (state, mean losses [steps])."""
+        losses = []
+        for _ in range(steps):
+            idx = draw_batch(generator, train_x.shape[0], self.batch_size)
+            bx, by = train_x[idx], train_y[idx]
+            aug = None
+            if self.augment and bx.dim() == 4:
+                aug = draw_augment(generator, hp.flip_prob, hp.shift, self.batch_size)
+            losses.append(self._pop_update(state, hp, aug, bx, by).mean())
+        return state, torch.stack(losses)
+
+    @torch.no_grad()
+    def eval_population(self, state: PopState, val_x, val_y, eval_chunk: int = 1024):
+        """Validation accuracy per member: float32[P].
+
+        The val set runs in fixed chunks of ``eval_chunk`` (members in
+        ``member_chunk`` slices); the tail chunk is padded and masked,
+        not dropped, so every chunk has one shape.
+        """
+        n_val = val_x.shape[0]
+        n_chunks = -(-n_val // eval_chunk)
+        pad = n_chunks * eval_chunk - n_val
+        vx = torch.cat([val_x, val_x.new_zeros((pad,) + tuple(val_x.shape[1:]))])
+        vy = torch.cat([val_y, val_y.new_full((pad,), -1)])
+        n = state.step.shape[0]
+        correct = torch.zeros(n, dtype=torch.int64, device=val_x.device)
+        for i in range(n_chunks):
+            cx, cy = vx[i * eval_chunk:(i + 1) * eval_chunk], vy[i * eval_chunk:(i + 1) * eval_chunk]
+            for a, b in self._chunks(n):
+                params = {k: v[a:b] for k, v in state.params.items()}
+                pred = self.logits(params, self._inputs(cx, None, a, b)).argmax(dim=-1)
+                correct[a:b] += ((pred == cy) & (cy >= 0)).sum(dim=1)
+        return correct.float() / n_val
+
+    @staticmethod
+    def gather_members(state: PopState, src_idx: torch.Tensor) -> PopState:
+        """Exploit: member i continues from member src_idx[i]'s state."""
+        take = lambda d: {k: v.index_select(0, src_idx) for k, v in d.items()}
+        return PopState(take(state.params), take(state.momentum), state.step.index_select(0, src_idx))

@@ -1,0 +1,64 @@
+"""The population workload protocol (port of ``mpi_opt_tpu/workloads/base.py``)."""
+
+from __future__ import annotations
+
+import torch
+
+
+class PopulationWorkload:
+    """A network trained as rows of a population.
+
+    Subclasses set ``name``, ``dataset``, ``batch_size``, ``augment`` and
+    implement ``_model(n_classes, population, device)`` and
+    ``default_space()``.
+    """
+
+    name: str = "base"
+    dataset: str = ""
+    batch_size: int = 256
+    augment: bool = True
+    default_n_train: int = 16384
+    default_n_val: int = 2048
+
+    def __init__(self, n_train: int | None = None, n_val: int | None = None):
+        self.n_train = n_train if n_train is not None else self.default_n_train
+        self.n_val = n_val if n_val is not None else self.default_n_val
+        self._data = None
+
+    def default_space(self):
+        raise NotImplementedError
+
+    def _model(self, n_classes: int, population: int, device):
+        raise NotImplementedError
+
+    def data(self) -> dict:
+        """Host numpy dict(train_x, train_y, val_x, val_y, n_classes)."""
+        if self._data is None:
+            from mpi_opt_tpu_torch.data import load_dataset
+
+            self._data = load_dataset(self.dataset, n_train=self.n_train, n_val=self.n_val)
+        return self._data
+
+    def make_trainer(self, member_chunk: int = 0, device=None):
+        from mpi_opt_tpu_torch.train.population import PopulationTrainer
+
+        n_classes = self.data()["n_classes"]
+        return PopulationTrainer(
+            model_fn=lambda population, device: self._model(n_classes, population, device),
+            batch_size=self.batch_size,
+            augment=self.augment,
+            member_chunk=member_chunk,
+            device=device,
+        )
+
+    def make_hparams(self, values: dict):
+        from mpi_opt_tpu_torch.train.population import OptHParams
+
+        zeros = torch.zeros_like(values["lr"])
+        return OptHParams(
+            lr=values["lr"],
+            momentum=values["momentum"],
+            weight_decay=values["weight_decay"],
+            flip_prob=values.get("flip_prob", zeros),
+            shift=values.get("shift", zeros),
+        )

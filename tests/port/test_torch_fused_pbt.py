@@ -1,0 +1,95 @@
+"""The port's fused PBT end to end on the CPU, at a tiny size.
+
+Full ResNet-18 depth at width 8, population 4, 2 generations x 2 steps,
+256 train / 128 val images.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from mpi_opt_tpu_torch import fused_pbt, get_workload
+from mpi_opt_tpu_torch.ops import group_norm as gn
+
+KEYS = {"best_score", "best_params", "diverged", "best_curve", "mean_curve",
+        "member_failures", "state", "unit", "launch_gens", "launch_walls"}
+RUN = dict(population=4, generations=2, steps_per_gen=2, seed=0, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def workload():
+    return get_workload("cifar100_resnet18", n_train=256, n_val=128, width=8)
+
+
+@pytest.fixture(scope="module")
+def runs(workload):
+    gn.reset_launches()
+    whole = fused_pbt(workload, **RUN)
+    plain_calls = gn.LAUNCHES["plain"]
+    return whole, plain_calls, fused_pbt(workload, gen_chunk=1, **RUN), fused_pbt(workload, **RUN)
+
+
+def test_result_keys_and_finite(runs):
+    res, plain_calls, _, _ = runs
+    assert set(res) == KEYS
+    assert math.isfinite(res["best_score"]) and not res["diverged"]
+    assert res["best_curve"].shape == (2,) and np.isfinite(res["mean_curve"]).all()
+    assert res["member_failures"] == [0, 0]
+    assert res["unit"].shape == (4, 5) and ((res["unit"] >= 0) & (res["unit"] <= 1)).all()
+    assert set(res["best_params"]) == {"lr", "momentum", "weight_decay", "flip_prob", "shift"}
+    assert res["launch_gens"] == [2] and len(res["launch_walls"]) == 1
+    assert res["state"].step.tolist() == [4] * 4
+    # 20 GN sites: forward + backward per step, forward per eval chunk
+    assert plain_calls == 2 * (2 * 40 + 20)
+
+
+def test_gen_chunk_equals_one_launch(runs):
+    whole, _, chunked, _ = runs
+    assert chunked["launch_gens"] == [1, 1]
+    np.testing.assert_array_equal(chunked["best_curve"], whole["best_curve"])
+    np.testing.assert_array_equal(chunked["mean_curve"], whole["mean_curve"])
+    np.testing.assert_array_equal(chunked["unit"], whole["unit"])
+    assert chunked["best_score"] == whole["best_score"]
+    for k, v in whole["state"].params.items():
+        assert torch.equal(chunked["state"].params[k], v), k
+
+
+def test_same_seed_twice_identical(runs):
+    whole, _, _, again = runs
+    np.testing.assert_array_equal(again["unit"], whole["unit"])
+    np.testing.assert_array_equal(again["best_curve"], whole["best_curve"])
+    for k, v in whole["state"].momentum.items():
+        assert torch.equal(again["state"].momentum[k], v), k
+
+
+def test_default_device_raises_without_cuda(workload, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fused_pbt(workload, population=4, generations=1, steps_per_gen=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        workload.make_trainer()
+
+
+@pytest.mark.parametrize(
+    "arg,value",
+    [("mesh", object()), ("step_chunk", 2), ("wave_size", 2), ("checkpoint_dir", "ck"),
+     ("ledger", object()), ("warm_obs", [1]), ("objectives", object()), ("oom_backoff", 0)],
+)
+def test_out_of_scope_arguments_raise(workload, arg, value):
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        fused_pbt(workload, **RUN, **{arg: value})
+
+
+def test_momentum_dtype_knob_raises(workload, monkeypatch):
+    monkeypatch.setenv("MPI_OPT_TPU_MOMENTUM_DTYPE", "bfloat16")
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        fused_pbt(workload, **RUN)
+
+
+def test_unknown_argument_and_zero_generations_raise(workload):
+    with pytest.raises(TypeError):
+        fused_pbt(workload, **RUN, no_such_option=1)
+    with pytest.raises(ValueError, match="generations"):
+        fused_pbt(workload, population=4, generations=0, steps_per_gen=1, device="cpu")

@@ -1,0 +1,29 @@
+"""The port stands alone: no file of mpi_opt_tpu_torch/, and not
+chip_smoke.py, imports JAX, flax, optax, orbax or the JAX package."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[2]
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "mpi_opt_tpu"}
+FILES = sorted((ROOT / "mpi_opt_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_scan_covers_the_package():
+    assert len(FILES) > 10
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    bad = sorted(set(_imported_roots(path)) & FORBIDDEN)
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
