@@ -37,9 +37,10 @@ def _nvcc() -> str:
     return found
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists."""
-    src = CSRC / f"{name}.cu"
+def build(name: str, src: Path | None = None) -> Path:
+    """Compile ``csrc/<name>.cu`` (or ``src``) unless an up-to-date
+    library exists."""
+    src = Path(src) if src is not None else CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     if out.exists():
@@ -59,14 +60,14 @@ def build(name: str) -> Path:
     return out
 
 
-def load(name: str, signatures: dict) -> ctypes.CDLL:
+def load(name: str, signatures: dict, src: Path | None = None) -> ctypes.CDLL:
     """The built library, with ``argtypes`` set from ``signatures``
     (function name -> list of ctypes types); every function returns a
-    CUDA error code as int."""
+    CUDA error code as int. ``src`` builds another source under ``name``."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
+            lib = ctypes.CDLL(str(build(name, src)))
             for fn, argtypes in signatures.items():
                 f = getattr(lib, fn)
                 f.argtypes = argtypes

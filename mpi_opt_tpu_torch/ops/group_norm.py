@@ -4,7 +4,8 @@ Port of ``mpi_opt_tpu/ops/pallas_gn.py``. ``group_norm_relu`` is a
 ``torch.autograd.Function`` over channel-last ``[B, ..., C]`` input:
 
 - a CUDA tensor goes to the kernels of ``csrc/group_norm.cu`` (forward:
-  ``gn_fwd``; backward: ``gn_bwd``), or the call raises;
+  ``gn_fwd``; backward: ``gn_bwd``), launched as ``gn_plan`` cuts the
+  shape, or the call raises;
 - a CPU tensor goes to the plain versions in this module
   (``group_norm_relu_plain`` / ``group_norm_relu_bwd_plain``), which do
   the same arithmetic in torch ops. The tests run them against the JAX
@@ -25,6 +26,9 @@ channels; its dgamma/dbeta stay per member since they sum over N only.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
+import math
 
 import torch
 
@@ -35,8 +39,8 @@ LAUNCHES = {"gn_fwd": 0, "gn_bwd": 0, "plain": 0}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "gn_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P],
-    "gn_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "gn_fwd": [_P] * 6 + [_I] * 7 + [ctypes.c_float, _I, _I, _P],
+    "gn_bwd": [_P] * 9 + [_I] * 9 + [_P],
 }
 
 
@@ -101,16 +105,81 @@ def group_norm_relu_bwd_plain(x, dy, gamma, beta, mean, rstd, groups: int, relu:
 
 # -- kernels --------------------------------------------------------------
 
+SMEM_MAX = 232448  # dynamic shared memory one block may use on sm_90
+MAX_THREADS = 256
+MAX_CLUSTER = 8  # the portable cluster size
+TILE_BYTES = 32 << 10  # target bytes of each staged tensor a block
+MIN_ROW_BYTES = 128  # a block's slice of a row: at least one 128-byte line
 
-def _block_shape(c: int, gs: int) -> tuple[int, int]:
-    """(channels per block, row lanes): a block's channels hold whole
-    groups and divide C; 64 channels where they can (a warp then reads
-    64 contiguous bytes of bf16), 256 threads a block."""
-    cands = [cb for cb in range(gs, min(c, 1024) + 1, gs) if c % cb == 0]
+
+@dataclasses.dataclass(frozen=True)
+class GNPlan:
+    """How a kernel launch cuts ``[N, S, C]``: the grid is
+    ``(cluster, C // cb, N)``, and the ``cluster`` blocks of one slice
+    split its S rows, ``rb`` each. The kernels take ``cb``, ``rb`` and
+    ``cluster``; ``rl``, ``threads`` and ``smem`` are what the C side
+    derives from them (``Geom``, ``smem_bytes``), kept here to check the
+    plan against the card's limits and to report it."""
+
+    cb: int  # channels a block: whole groups, a multiple of 16 bytes
+    rb: int  # rows a block
+    rl: int  # row lanes: threads that share a 16-byte column of the slice
+    cluster: int  # blocks a cluster
+    threads: int  # threads a block
+    smem: int  # dynamic shared memory a block, bytes
+
+
+@functools.lru_cache(maxsize=None)
+def gn_plan(n: int, s: int, c: int, groups: int, dtype: torch.dtype, backward: bool) -> GNPlan:
+    """The launch plan of ``gn_fwd`` (``backward=False``) or ``gn_bwd``
+    on ``[n, s, c]`` with ``groups`` groups; raises ``ValueError`` for a
+    shape that no plan holds.
+
+    Sized by bytes: a block's channel slice holds whole groups, is a
+    multiple of 16 bytes and spans at least 128 bytes of a row where C
+    allows; it widens while all S rows of it stay within ``TILE_BYTES``
+    a staged tensor, and where they do not, a cluster of up to 8 blocks
+    splits the rows. ``threads`` and ``smem`` follow ``Geom`` and
+    ``smem_bytes`` in ``csrc/group_norm.cu``, which derive them again
+    and refuse a plan over the card's limits.
+    """
+    elt = torch.empty((), dtype=dtype).element_size()
+    shape = (
+        f"[{n}, {s}, {c}] with {groups} groups in {dtype}, "
+        f"{'backward' if backward else 'forward'}"
+    )
+    if groups < 1 or c % groups or not 1 <= n <= 65535 or s < 1 or elt not in (2, 4):
+        raise ValueError(f"no GroupNorm plan holds {shape}")
+    vec = 16 // elt
+    gs = c // groups
+    quantum = math.lcm(gs, vec)
+    cands = [cb for cb in range(quantum, c + 1, quantum) if c % cb == 0 and cb // vec <= MAX_THREADS]
     if not cands:
-        raise ValueError(f"group size {gs} over 1024 channels: the kernel does not take it")
-    cb = next((k for k in cands if k >= 64), cands[-1])
-    return cb, max(1, 256 // cb)
+        raise ValueError(
+            f"no GroupNorm plan holds {shape}: no slice of whole groups is a multiple of "
+            f"16 bytes within {MAX_THREADS} 16-byte columns"
+        )
+    narrow = next((cb for cb in cands if cb * elt >= MIN_ROW_BYTES), cands[-1])
+    if s * narrow * elt <= TILE_BYTES:
+        cb = max(cb for cb in cands if cb >= narrow and s * cb * elt <= TILE_BYTES)
+        cluster = 1
+    else:
+        cb = narrow
+        cluster = min(MAX_CLUSTER, -(-s * cb * elt // TILE_BYTES))
+    rb = -(-s // cluster)
+    v = cb // vec
+    rl = max(1, MAX_THREADS // v)
+    threads = -(-v * rl // 32) * 32
+    slots = threads // 32 if v < 32 and 32 % v == 0 else rl
+    gib = cb // gs
+    floats = 2 * slots * cb + (2 * cb if backward else 2 * cluster * gib) + 2 * gib
+    smem = (2 if backward else 1) * rb * cb * elt + 4 * floats
+    if smem > SMEM_MAX:
+        raise ValueError(
+            f"no GroupNorm plan holds {shape}: a block would need {smem} bytes of shared "
+            f"memory, over {SMEM_MAX}"
+        )
+    return GNPlan(cb, rb, rl, cluster, threads, smem)
 
 
 def _lib():
@@ -119,9 +188,13 @@ def _lib():
     return _build.load("group_norm", _SIGNATURES)
 
 
-def _grid_check(n: int):
-    if n > 65535:
-        raise ValueError(f"the kernels take at most 65535 samples a call, got {n}")
+def _check_launch(name: str, vectors, scalars) -> None:
+    """The kernels move ``vectors`` (x, dy) 16 bytes at a time and read
+    ``scalars`` (gamma, beta, statistics) one float at a time."""
+    if not all(t.is_contiguous() for t in (*vectors, *scalars)):
+        raise ValueError(f"{name} takes contiguous tensors")
+    if any(t.data_ptr() % 16 for t in vectors):
+        raise ValueError(f"{name} takes activations aligned to 16 bytes")
 
 
 def gn_fwd(x, gamma, beta, groups: int, eps: float, relu: bool):
@@ -131,23 +204,21 @@ def gn_fwd(x, gamma, beta, groups: int, eps: float, relu: bool):
     if x.device.type == "cpu":
         LAUNCHES["plain"] += 1
         return group_norm_relu_plain(x, gamma, beta, groups, eps, relu)
-    if not (x.is_contiguous() and gamma.is_contiguous() and beta.is_contiguous()):
-        raise ValueError("gn_fwd takes contiguous x, gamma and beta")
+    _check_launch("gn_fwd", (x,), (gamma, beta))
     n, s, c = x.shape
-    _grid_check(n)
-    cb, rl = _block_shape(c, c // groups)
+    p = gn_plan(n, s, c, groups, x.dtype, False)
     y = torch.empty_like(x)
     mean = torch.empty((n, groups), dtype=torch.float32, device=x.device)
     rstd = torch.empty_like(mean)
     with torch.cuda.device(x.device):
         err = _lib().gn_fwd(
             x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
-            mean.data_ptr(), rstd.data_ptr(), n, s, c, groups, cb, rl, eps,
-            int(relu), int(x.dtype == torch.bfloat16),
+            mean.data_ptr(), rstd.data_ptr(), n, s, c, groups,
+            p.cb, p.rb, p.cluster, eps, int(relu), int(x.dtype == torch.bfloat16),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err:
-        raise RuntimeError(f"gn_fwd kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"gn_fwd kernel launch failed with CUDA error {err} (plan {p})")
     LAUNCHES["gn_fwd"] += 1
     return y, mean, rstd
 
@@ -161,12 +232,9 @@ def gn_bwd(x, dy, gamma, beta, mean, rstd, groups: int, relu: bool):
     if x.device.type == "cpu":
         LAUNCHES["plain"] += 1
         return group_norm_relu_bwd_plain(x, dy, gamma, beta, mean, rstd, groups, relu)
-    tensors = (x, dy, gamma, beta, mean, rstd)
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("gn_bwd takes contiguous tensors")
+    _check_launch("gn_bwd", (x, dy), (gamma, beta, mean, rstd))
     n, s, c = x.shape
-    _grid_check(n)
-    cb, rl = _block_shape(c, c // groups)
+    p = gn_plan(n, s, c, groups, x.dtype, True)
     dx = torch.empty_like(x)
     dgamma = torch.empty((n, c), dtype=torch.float32, device=x.device)
     dbeta = torch.empty_like(dgamma)
@@ -174,12 +242,12 @@ def gn_bwd(x, dy, gamma, beta, mean, rstd, groups: int, relu: bool):
         err = _lib().gn_bwd(
             x.data_ptr(), dy.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
             mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), dgamma.data_ptr(),
-            dbeta.data_ptr(), n, s, c, groups, cb, rl, int(relu),
-            int(x.dtype == torch.bfloat16),
+            dbeta.data_ptr(), n, s, c, groups,
+            p.cb, p.rb, p.cluster, int(relu), int(x.dtype == torch.bfloat16),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err:
-        raise RuntimeError(f"gn_bwd kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"gn_bwd kernel launch failed with CUDA error {err} (plan {p})")
     LAUNCHES["gn_bwd"] += 1
     return dx, dgamma, dbeta
 
