@@ -6,23 +6,35 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. device: require CUDA, print the card's name and power limit;
 2. build: compile the CUDA kernels from csrc/ (timed; with
    ``--baseline-cu``, the baseline source alongside, in parallel);
-3. kernels: at the four ResNet-18 GroupNorm shapes of the main path
-   (16 members folded into channels, batch 128), print each kernel's
-   launch plan, hold the forward and backward kernels against their
-   plain PyTorch versions in bf16 and f32, ReLU on and off, and time
-   kernel, plain version and library call against the bytes bound;
-   with ``--baseline-cu``, time the baseline kernels beside them in
-   turns (baseline, kernel, kernel, baseline). Then a full-width
-   two-member ResNet-18 on the card (kernels) against the same model on
-   the CPU (plain);
+3. kernels: at every GroupNorm shape of the paths below (``SPECS``:
+   ResNet-18's four, 16 members folded into channels, batch 128, bf16
+   and f32, ReLU on and off; the SmallCNN's two at a member chunk of 32,
+   batch 256, bf16 and f32, and at an eval chunk of 1024 images, bf16),
+   print each kernel's launch plan, hold the forward and backward
+   kernels against their plain PyTorch versions, and time kernel, plain
+   version and library call against the bytes bound; with
+   ``--baseline-cu``, time the baseline kernels beside them at the
+   ResNet shapes in turns (baseline, kernel, kernel, baseline). Then the
+   variance clamp on near-constant groups at a large mean; a full-width
+   two-member ResNet-18 and SmallCNN on the card (kernels) against the
+   same models on the CPU (plain), with the SmallCNN's max-pool ties
+   routed to the same element on both;
 4. slice: fused PBT over cifar100_resnet18 at full width, population 16,
-   2 generations x 25 steps, with the launch counts zeroed just before
-   and read just after: both kernels must have run, the plain versions
-   never;
+   2 generations x 25 steps;
 5. profile: ``torch.profiler`` over 3 steady population steps of the
    slice's population: top device kernels, GroupNorm's share, copy
    kernels, device idle share (measurement only);
-6. the ``kernels`` line (JSON), then the device line (JSON, last).
+6. north star: ``mpi_opt_tpu_torch.bench`` (fused PBT over 256
+   full-width SmallCNN members on CIFAR-10, member chunk 32, one
+   generation a launch) at 2 generations x 20 steps; its record;
+7. profile of 3 steady north-star steps, as phase 5;
+8. a fashion_mlp sweep, population 16, 2 generations x 5 steps;
+9. the ``kernels`` line (JSON), then the device line (JSON, last).
+
+Each path (4, 6, 8) runs through the entry points a user calls, with the
+launch counts zeroed just before and read just after: where the model
+has GroupNorm both kernels must have run, the plain versions never; the
+best score must be finite and the curves in [0, 1].
 
 Run from the repo root: ``python3 chip_smoke.py``. Details also go to
 chiprun_out/chip_smoke.json.
@@ -51,13 +63,33 @@ import torch
 import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# The ResNet-18 slice: 16 members folded into channels, batch 128. GN
+# sites per member: (spatial S, channels C, sites a population step with
+# ReLU, without); 32 groups each. Stage 0 = stem + gn1 x2 with ReLU, gn2
+# x2 without; later stages = gn1 x2 with ReLU, gn2 x2 + gn_proj without
 P, BATCH = 16, 128
-# ResNet-18 GN sites per member: (spatial S, channels C); 32 groups each.
-# Sites a population step runs at each shape: (with ReLU, without):
-# stage 0 = stem + gn1 x2 with ReLU, gn2 x2 without; later stages =
-# gn1 x2 with ReLU, gn2 x2 + gn_proj without
 SHAPES = [(1024, 64, 3, 2), (256, 128, 2, 3), (64, 256, 2, 3), (16, 512, 2, 3)]
 GROUPS = 32
+# The north star: SmallCNN, 256 members run in chunks of 32, batch 256,
+# eval chunks of 1024 images. GN(8)+ReLU sites per member: (S, C), two
+# at each a member chunk
+CNN_P, CNN_CHUNK, CNN_BATCH, CNN_EVAL = 256, 32, 256, 1024
+CNN_SHAPES = [(1024, 32), (256, 64)]
+CNN_GROUPS = 8
+NS_GENS, NS_STEPS = 2, 20  # the north star's depth here (the bench's: 4 x 100)
+_BF16, _F32 = torch.bfloat16, torch.float32
+# every GN shape the paths run: (path, N, S, C, groups, {relu: sites a
+# population step, or an eval chunk}, dtypes checked); bf16 is timed
+SPECS = [
+    *[("resnet18_p16", BATCH, s, P * c, P * GROUPS, {True: n_relu, False: n_plain}, (_BF16, _F32))
+      for s, c, n_relu, n_plain in SHAPES],
+    *[("smallcnn_p256", CNN_BATCH, s, CNN_CHUNK * c, CNN_CHUNK * CNN_GROUPS,
+       {True: 2 * CNN_P // CNN_CHUNK}, (_BF16, _F32)) for s, c in CNN_SHAPES],
+    *[("smallcnn_p256_eval", CNN_EVAL, s, CNN_CHUNK * c, CNN_CHUNK * CNN_GROUPS,
+       {True: 2 * CNN_P // CNN_CHUNK}, (_BF16,)) for s, c in CNN_SHAPES],
+]
+# the paths whose population step the kernels line sums
+STEP_PATHS = ("resnet18_p16", "smallcnn_p256")
 # data-sheet memory bandwidth by card name, bytes/s
 BANDWIDTH = [("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H100", 3.35e12), ("H200", 4.8e12)]
 TOL = {  # (atol, rtol) per output, kernel against plain on the same inputs
@@ -69,10 +101,6 @@ TOL = {  # (atol, rtol) per output, kernel against plain on the same inputs
     # f32 statistics and partial sums: summation order differs
     "mean": (1e-5, 1e-4), "rstd": (1e-5, 1e-4), "dgamma": (1e-3, 1e-4), "dbeta": (1e-3, 1e-4),
 }
-
-
-# per-kernel numbers of the ``kernels`` line
-LINE_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms", "bound_share")
 
 
 def fail(msg: str) -> int:
@@ -165,103 +193,154 @@ class Baseline:
 
 
 def kernel_phase(gn, bandwidth, base):
-    """Kernel vs plain at the main path's shapes; returns per-kernel totals."""
+    """Kernel vs plain at every GN shape of the paths (``SPECS``); returns
+    (totals per path and kernel, one row per timed shape). A path's
+    totals are the sums over one population step's sites (for the eval
+    path, over one 1024-image eval chunk of the population)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     keys = ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")
     keys += ("baseline_ms",) if base else ()
-    tot = {k: dict.fromkeys(keys, 0.0) for k in ("gn_fwd", "gn_bwd")}
+    tot = {path: {k: dict.fromkeys(keys, 0.0) for k in ("gn_fwd", "gn_bwd")}
+           for path in dict.fromkeys(spec[0] for spec in SPECS)}
     rows = []
-    for s, c_member, n_relu, n_plain in SHAPES:
-        c, g = P * c_member, P * GROUPS
-        for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
-            plans = {k: gn.gn_plan(BATCH, s, c, g, dtype, k == "bwd") for k in ("fwd", "bwd")}
-            print(f"plan S={s} C={c} G={g} {tag}: " + "; ".join(
+    for path, n, s, c, g, sites, dtypes in SPECS:
+        pbase = base if path == "resnet18_p16" else None
+        for dtype in dtypes:
+            tag = "bf16" if dtype == torch.bfloat16 else "f32"
+            plans = {k: gn.gn_plan(n, s, c, g, dtype, k == "bwd") for k in ("fwd", "bwd")}
+            print(f"plan {path} N={n} S={s} C={c} G={g} {tag}: " + "; ".join(
                 f"{k} {p.cb} channels x {p.rb} rows a block, cluster {p.cluster}, "
                 f"{p.threads} threads, {p.smem} B shared" for k, p in plans.items()))
-            x = torch.randn((BATCH, s, c), generator=gen, device="cuda").to(dtype)
-            dy = torch.randn((BATCH, s, c), generator=gen, device="cuda").to(dtype)
+            x = torch.randn((n, s, c), generator=gen, device="cuda").to(dtype)
+            dy = torch.randn((n, s, c), generator=gen, device="cuda").to(dtype)
             gamma = 1.0 + 0.5 * torch.randn(c, generator=gen, device="cuda")
             beta = 0.1 * torch.randn(c, generator=gen, device="cuda")
-            elt = x.element_size()
-            for relu in (True, False):
-                y, mean, rstd = gn.gn_fwd(x, gamma, beta, g, 1e-6, relu)
-                yp, meanp, rstdp = gn.group_norm_relu_plain(x, gamma, beta, g, 1e-6, relu)
-                # backward: both sides from the kernel's statistics, so the
-                # ReLU masks are decided on bit-identical z
-                dx, dgm, dbt = gn.gn_bwd(x, dy, gamma, beta, mean, rstd, g, relu)
-                dxp, dgmp, dbtp = gn.group_norm_relu_bwd_plain(x, dy, gamma, beta, mean, rstd, g, relu)
-                torch.cuda.synchronize()
-                errs_f = [
-                    check(f"y {tag} S={s} C={c} relu={relu}", y, yp, *TOL[(tag, "y")]),
-                    check("mean", mean, meanp, *TOL["mean"]),
-                    check("rstd", rstd, rstdp, *TOL["rstd"]),
-                ]
-                errs_b = [
-                    check(f"dx {tag} S={s} C={c} relu={relu}", dx, dxp, *TOL[(tag, "dx")]),
-                    check("dgamma", dgm, dgmp, *TOL["dgamma"]),
-                    check("dbeta", dbt, dbtp, *TOL["dbeta"]),
-                ]
-                tot["gn_fwd"]["max_abs_err"] = max(tot["gn_fwd"]["max_abs_err"], *errs_f)
-                tot["gn_bwd"]["max_abs_err"] = max(tot["gn_bwd"]["max_abs_err"], *errs_b)
+            for relu, n_sites in sites.items():
+                errs = check_shape(gn, x, dy, gamma, beta, g, relu, tag, pbase)
+                for k in ("gn_fwd", "gn_bwd"):
+                    tot[path][k]["max_abs_err"] = max(tot[path][k]["max_abs_err"], errs[k])
                 if tag != "bf16":
-                    continue  # the main path runs bf16: time that
-                if base:  # the baseline computes the same function
-                    check(f"baseline y S={s} C={c} relu={relu}",
-                          base.fwd(x, gamma, beta, g, 1e-6, relu)[0], yp, *TOL[(tag, "y")])
-                    check(f"baseline dx S={s} C={c} relu={relu}",
-                          base.bwd(x, dy, gamma, beta, mean, rstd, g, relu)[0], dxp, *TOL[(tag, "dx")])
-                # library yardstick: PyTorch's own GroupNorm on an NCHW copy
-                hw = int(math.isqrt(s))
-                xn = x.view(BATCH, hw, hw, c).permute(0, 3, 1, 2).contiguous()
-                dyn = dy.view(BATCH, hw, hw, c).permute(0, 3, 1, 2).contiguous()
-                gb, bb = gamma.to(dtype), beta.to(dtype)
-                _, lmean, lrstd = torch.ops.aten.native_group_norm(xn, gb, bb, BATCH, c, s, g, 1e-6)
-
-                def lib_fwd():
-                    out = F.group_norm(xn, g, gb, bb, 1e-6)
-                    return F.relu(out) if relu else out
-
-                times = {}
-                times["fwd"], times["fwd_baseline"] = in_turns(
-                    lambda: gn.gn_fwd(x, gamma, beta, g, 1e-6, relu),
-                    base and (lambda: base.fwd(x, gamma, beta, g, 1e-6, relu)), flush)
-                times["fwd_plain"] = time_ms(lambda: gn.group_norm_relu_plain(x, gamma, beta, g, 1e-6, relu), flush)
-                times["fwd_lib"] = time_ms(lib_fwd, flush)
-                times["bwd"], times["bwd_baseline"] = in_turns(
-                    lambda: gn.gn_bwd(x, dy, gamma, beta, mean, rstd, g, relu),
-                    base and (lambda: base.bwd(x, dy, gamma, beta, mean, rstd, g, relu)), flush)
-                times["bwd_plain"] = time_ms(lambda: gn.group_norm_relu_bwd_plain(x, dy, gamma, beta, mean, rstd, g, relu), flush)
-                times["bwd_lib"] = time_ms(lambda: torch.ops.aten.native_group_norm_backward(
-                    dyn, xn, lmean, lrstd, gb, BATCH, c, s, g, [True, True, True]), flush)
-                act = BATCH * s * c * elt
-                small = 2 * c * 4 + 2 * BATCH * g * 4
-                bound = {
-                    "fwd": (2 * act + small) / bandwidth * 1e3,
-                    "bwd": (3 * act + small + 2 * BATCH * c * 4) / bandwidth * 1e3,
-                }
-                sites = n_relu if relu else n_plain
+                    continue  # the paths run bf16: time that
+                row = time_shape(gn, x, dy, gamma, beta, g, relu, pbase, flush, bandwidth)
                 for k, kk in (("gn_fwd", "fwd"), ("gn_bwd", "bwd")):
-                    tot[k]["ms"] += sites * times[kk]
-                    tot[k]["plain_ms"] += sites * times[kk + "_plain"]
-                    tot[k]["library_ms"] += sites * times[kk + "_lib"]
-                    tot[k]["bound_ms"] += sites * bound[kk]
-                    if base:
-                        tot[k]["baseline_ms"] += sites * times[kk + "_baseline"]
-                row = {"S": s, "C": c, "groups": g, "relu": relu, "sites_per_step": sites,
-                       **{k + "_ms": v for k, v in times.items() if v is not None},
-                       "fwd_bound_ms": bound["fwd"], "bwd_bound_ms": bound["bwd"],
-                       "fwd_bound_share": bound["fwd"] / times["fwd"],
-                       "bwd_bound_share": bound["bwd"] / times["bwd"],
-                       "fwd_plan": dataclasses.asdict(plans["fwd"]),
+                    tot[path][k]["ms"] += n_sites * row[kk + "_ms"]
+                    tot[path][k]["plain_ms"] += n_sites * row[kk + "_plain_ms"]
+                    tot[path][k]["library_ms"] += n_sites * row[kk + "_lib_ms"]
+                    tot[path][k]["bound_ms"] += n_sites * row[kk + "_bound_ms"]
+                    if pbase:
+                        tot[path][k]["baseline_ms"] += n_sites * row[kk + "_baseline_ms"]
+                row = {"path": path, "N": n, "S": s, "C": c, "groups": g, "relu": relu,
+                       "sites": n_sites, **row, "fwd_plan": dataclasses.asdict(plans["fwd"]),
                        "bwd_plan": dataclasses.asdict(plans["bwd"])}
                 rows.append(row)
                 print("kernel-shape " + json.dumps(row))
             del x, dy
-    for k in tot:
-        tot[k]["bound_share"] = tot[k]["bound_ms"] / tot[k]["ms"]
+            torch.cuda.empty_cache()
+    for path in tot:
+        for k in tot[path]:
+            tot[path][k]["bound_share"] = tot[path][k]["bound_ms"] / tot[path][k]["ms"]
     return tot, rows
+
+
+def check_shape(gn, x, dy, gamma, beta, g, relu, tag, base):
+    """Both kernels against their plain versions on one input; returns
+    the largest error of each kernel's outputs."""
+    n, s, c = x.shape
+    y, mean, rstd = gn.gn_fwd(x, gamma, beta, g, 1e-6, relu)
+    yp, meanp, rstdp = gn.group_norm_relu_plain(x, gamma, beta, g, 1e-6, relu)
+    at = f"{tag} N={n} S={s} C={c} relu={relu}"
+    errs_f = [check(f"y {at}", y, yp, *TOL[(tag, "y")]),
+              check(f"mean {at}", mean, meanp, *TOL["mean"]),
+              check(f"rstd {at}", rstd, rstdp, *TOL["rstd"])]
+    # backward: both sides from the kernel's statistics, so the ReLU
+    # masks are decided on bit-identical z
+    dx, dgm, dbt = gn.gn_bwd(x, dy, gamma, beta, mean, rstd, g, relu)
+    dxp, dgmp, dbtp = gn.group_norm_relu_bwd_plain(x, dy, gamma, beta, mean, rstd, g, relu)
+    torch.cuda.synchronize()
+    errs_b = [check(f"dx {at}", dx, dxp, *TOL[(tag, "dx")]),
+              check(f"dgamma {at}", dgm, dgmp, *TOL["dgamma"]),
+              check(f"dbeta {at}", dbt, dbtp, *TOL["dbeta"])]
+    if base:  # the baseline computes the same function
+        check(f"baseline y {at}", base.fwd(x, gamma, beta, g, 1e-6, relu)[0], yp, *TOL[(tag, "y")])
+        check(f"baseline dx {at}", base.bwd(x, dy, gamma, beta, mean, rstd, g, relu)[0], dxp,
+              *TOL[(tag, "dx")])
+    return {"gn_fwd": max(errs_f), "gn_bwd": max(errs_b)}
+
+
+def time_shape(gn, x, dy, gamma, beta, g, relu, base, flush, bandwidth):
+    """ms of kernel, plain version and library call (and baseline), each
+    forward and backward, with the bytes bound and the share of it."""
+    n, s, c = x.shape
+    y, mean, rstd = gn.gn_fwd(x, gamma, beta, g, 1e-6, relu)
+    del y
+    # library yardstick: PyTorch's own GroupNorm on an NCHW copy
+    hw = int(math.isqrt(s))
+    xn = x.view(n, hw, hw, c).permute(0, 3, 1, 2).contiguous()
+    dyn = dy.view(n, hw, hw, c).permute(0, 3, 1, 2).contiguous()
+    gb, bb = gamma.to(x.dtype), beta.to(x.dtype)
+    _, lmean, lrstd = torch.ops.aten.native_group_norm(xn, gb, bb, n, c, s, g, 1e-6)
+
+    def lib_fwd():
+        out = F.group_norm(xn, g, gb, bb, 1e-6)
+        return F.relu(out) if relu else out
+
+    t = {}
+    t["fwd_ms"], t["fwd_baseline_ms"] = in_turns(
+        lambda: gn.gn_fwd(x, gamma, beta, g, 1e-6, relu),
+        base and (lambda: base.fwd(x, gamma, beta, g, 1e-6, relu)), flush)
+    t["fwd_plain_ms"] = time_ms(lambda: gn.group_norm_relu_plain(x, gamma, beta, g, 1e-6, relu), flush)
+    t["fwd_lib_ms"] = time_ms(lib_fwd, flush)
+    t["bwd_ms"], t["bwd_baseline_ms"] = in_turns(
+        lambda: gn.gn_bwd(x, dy, gamma, beta, mean, rstd, g, relu),
+        base and (lambda: base.bwd(x, dy, gamma, beta, mean, rstd, g, relu)), flush)
+    t["bwd_plain_ms"] = time_ms(
+        lambda: gn.group_norm_relu_bwd_plain(x, dy, gamma, beta, mean, rstd, g, relu), flush)
+    t["bwd_lib_ms"] = time_ms(lambda: torch.ops.aten.native_group_norm_backward(
+        dyn, xn, lmean, lrstd, gb, n, c, s, g, [True, True, True]), flush)
+    act = n * s * c * x.element_size()
+    small = 2 * c * 4 + 2 * n * g * 4
+    t["fwd_bound_ms"] = (2 * act + small) / bandwidth * 1e3
+    t["bwd_bound_ms"] = (3 * act + small + 2 * n * c * 4) / bandwidth * 1e3
+    t["fwd_bound_share"] = t["fwd_bound_ms"] / t["fwd_ms"]
+    t["bwd_bound_share"] = t["bwd_bound_ms"] / t["bwd_ms"]
+    return {k: v for k, v in t.items() if v is not None}
+
+
+def clamp_check(gn):
+    """Near-constant groups at a large mean (x = base + N(0, 1e-3), base
+    in [50, 3000], f32) at the north star's 32x32 GN shape: there
+    E[x^2] - mean^2 is rounding noise and often below -eps, so unclamped
+    the kernel would give NaN. The kernel's and the plain version's sums
+    round differently, so their rstd differ; what must hold is finite
+    outputs, rstd <= 1/sqrt(eps), the means, and with gamma = 0 the
+    output relu(beta) itself."""
+    n, s, c, g = 4, 1024, CNN_CHUNK * 32, CNN_CHUNK * CNN_GROUPS
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    base = 50 + 2950 * torch.rand((n, 1, g, 1), generator=gen, device="cuda", dtype=torch.float64)
+    noise = 1e-3 * torch.randn((n, s, g, c // g), generator=gen, device="cuda", dtype=torch.float64)
+    x = (base + noise).reshape(n, s, c).float()
+    xg = x.reshape(n, s, g, c // g)
+    var = (xg * xg).mean(dim=(1, 3)) - xg.mean(dim=(1, 3)) ** 2
+    negative = int((var < -1e-6).sum())
+    if negative == 0:
+        raise AssertionError("clamp case: no group's unclamped variance is below -eps")
+    ones, zeros = torch.ones(c, device="cuda"), torch.zeros(c, device="cuda")
+    y, mean, rstd = gn.gn_fwd(x, ones, zeros, g, 1e-6, True)
+    dx, _, _ = gn.gn_bwd(x, torch.ones_like(x), ones, zeros, mean, rstd, g, True)
+    _, meanp, _ = gn.group_norm_relu_plain(x, ones, zeros, g, 1e-6, True)
+    if not (bool(torch.isfinite(y).all()) and bool(torch.isfinite(dx).all())):
+        raise AssertionError("clamp case: non-finite y or dx")
+    if not bool((rstd <= 1e3 * (1 + 1e-6)).all()):
+        raise AssertionError(f"clamp case: rstd up to {float(rstd.max())}, over 1/sqrt(eps)")
+    check("clamp mean", mean, meanp, 0.0, 4e-6)
+    beta = torch.randn(c, generator=gen, device="cuda")
+    y0, _, _ = gn.gn_fwd(x, zeros, beta, g, 1e-6, True)
+    err = check("clamp y at gamma 0", y0, torch.relu(beta).expand_as(x), 1e-6, 0.0)
+    return {"shape": [n, s, c], "groups": g, "groups_with_negative_var_unclamped": negative,
+            "rstd_max": float(rstd.max()), "y_gamma0_max_abs_err": err}
 
 
 def model_check(ResNet18):
@@ -297,9 +376,67 @@ def model_check(ResNet18):
     return {"logits_max_abs_err": err, "logits_scale": scale, "grad_rel_l2_err": grad_err}
 
 
-def profile_phase(wl, res, steps: int = 3):
+def smallcnn_check(SmallCNN):
+    """Full-width two-member SmallCNN: logits and gradients on the card
+    (kernels, cuDNN in f32 without TF32) against the CPU (plain), on
+    images with constant patches, whose conv outputs are equal inside
+    them, so the pools' windows there hold ties. Then the max-pool's
+    gradient on the card's own pre-pool activations, f32 and bf16,
+    against the CPU's on the same values: one element a window, the same
+    one (the first maximum in row-major order, as XLA's select-and-scatter)."""
+    gen = torch.Generator()
+    gen.manual_seed(2)
+    model = SmallCNN(n_classes=10, dtype=torch.float32, population=2)
+    model.init_params(gen)
+    x = torch.randn((4, 32, 32, 6), generator=gen)
+    x[:, 4:12, 4:12, :] = 0.5
+    x[:, 16:24, 0:8, :] = -1.0
+    x = x.permute(0, 3, 1, 2)  # channels_last
+    y = torch.randint(0, 10, (4,), generator=gen)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        m = model.to(dev)
+        m.zero_grad()
+        logits = m(x.to(dev))
+        F.cross_entropy(logits.reshape(8, 10), y.to(dev).repeat(2)).backward()
+        out[dev] = (logits.detach().cpu(), {k: p.grad.detach().cpu() for k, p in m.named_parameters()})
+    err = float((out["cuda"][0] - out["cpu"][0]).abs().max())
+    scale = float(out["cpu"][0].abs().max())
+    if not err <= 1e-3 * max(1.0, scale):
+        raise AssertionError(f"SmallCNN logits: max abs err {err} over scale {scale}")
+    sq = lambda d: sum(float((t.double() ** 2).sum()) for t in d.values())
+    diff = {k: out["cuda"][1][k] - g for k, g in out["cpu"][1].items()}
+    grad_err = (sq(diff) / sq(out["cpu"][1])) ** 0.5
+    if not grad_err <= 1e-2:  # as model_check: rare ReLU-mask flips at z ~ 0
+        raise AssertionError(f"SmallCNN gradients: relative L2 err {grad_err}")
+    res = {"logits_max_abs_err": err, "logits_scale": scale, "grad_rel_l2_err": grad_err}
+    with torch.no_grad():
+        m = model.to("cuda")
+        pre = m.gn1(m.conv1(m.gn0(m.conv0(x.cuda()))))  # the first pool's input, [4, 64, 32, 32]
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        grads = {}
+        for dev in ("cuda", "cpu"):
+            a = pre.to(dev, dtype).detach().requires_grad_()
+            cot = torch.randn((4, 64, 16, 16), generator=torch.Generator().manual_seed(4)).to(dev, dtype)
+            (F.max_pool2d(a, 2, 2) * cot).sum().backward()
+            grads[dev] = a.grad.float().cpu()
+        win = lambda t: t.reshape(4, 64, 16, 2, 16, 2).permute(0, 1, 2, 4, 3, 5).reshape(4, 64, 16, 16, 4)
+        vals = win(pre.to(dtype).float().cpu())
+        top = vals.max(dim=-1, keepdim=True).values
+        ties = int((((vals == top).sum(-1) > 1) & (top[..., 0] > 0)).sum())
+        if ties == 0:
+            raise AssertionError(f"pool check {tag}: no window holds tied positive maxima")
+        if not torch.equal(grads["cuda"], grads["cpu"]):
+            raise AssertionError(f"pool check {tag}: the card routes the gradient elsewhere than the CPU")
+        if int(((win(grads["cuda"]) != 0).sum(-1) > 1).sum()):
+            raise AssertionError(f"pool check {tag}: a window's gradient is split")
+        res[f"pool_tied_windows_{tag}"] = ties
+    return res
+
+
+def profile_phase(wl, res, member_chunk: int = 0, steps: int = 3, label: str = "profile"):
     """``torch.profiler`` over ``steps`` steady population steps of the
-    slice's own population and hyperparameters (one warm-up step first)."""
+    path's own population and hyperparameters (one warm-up step first)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -308,7 +445,7 @@ def profile_phase(wl, res, steps: int = 3):
     d = wl.data()
     train_x = torch.from_numpy(d["train_x"]).cuda()
     train_y = torch.from_numpy(d["train_y"]).cuda().long()
-    trainer = wl.make_trainer(device="cuda")
+    trainer = wl.make_trainer(member_chunk=member_chunk, device="cuda")
     hp = hparams_fn(wl.default_space(), wl)(torch.from_numpy(res["unit"]).cuda())
     state = res["state"]
     gen = torch.Generator(device="cuda")
@@ -329,7 +466,7 @@ def profile_phase(wl, res, steps: int = 3):
         trainer.train_segment(state, hp, train_x, train_y, gen, steps)
         end.record()
         torch.cuda.synchronize()
-        print("profile: the profiler showed no device time; timed with CUDA events instead")
+        print(f"{label}: the profiler showed no device time; timed with CUDA events instead")
         out.update(profiler_device_time=False, event_step_ms=start.elapsed_time(end) / steps)
         return out
     dur = lambda e: e.time_range.end - e.time_range.start  # us
@@ -365,12 +502,28 @@ def profile_phase(wl, res, steps: int = 3):
     for k in ("step_ms", "device_ms_per_step", "device_busy_ms_per_step", "idle_share", "streams",
               "ms_per_step_by_stream", "gn_ms_per_step", "gn_share_of_device_time",
               "gn_share_of_busy_time"):
-        print(f"profile {k}: {out[k]}")
+        print(f"{label} {k}: {out[k]}")
     for kind in ("top", "copies"):
         for r in out[kind]:
-            print(f"profile {kind}: {r['ms_per_step']:.4f} ms/step, "
+            print(f"{label} {kind}: {r['ms_per_step']:.4f} ms/step, "
                   f"{r['calls_per_step']:.1f} calls/step, {r['name']}")
     return out
+
+
+def sweep_fault(res, gens: int, launches: dict, what: str, kernels: bool = True) -> str | None:
+    """What is wrong with a sweep's result and launch counts, or None:
+    both kernels launched (where the model has GroupNorm), the plain
+    version never, a finite best score, curves of ``gens`` values in [0, 1]."""
+    if kernels and not (launches["gn_fwd"] > 0 and launches["gn_bwd"] > 0):
+        return f"{what} did not launch both kernels: {launches}"
+    if launches["plain"] != 0:
+        return f"{what} called the plain GroupNorm: {launches}"
+    curves = (res["best_curve"], res["mean_curve"])
+    if not (math.isfinite(res["best_score"]) and all(c.shape == (gens,) for c in curves)):
+        return f"{what}: bad sweep result: best {res['best_score']}, curves {curves}"
+    if not all(bool((c >= 0).all() and (c <= 1).all()) for c in curves):
+        return f"{what}: accuracies outside [0, 1]: {curves}"
+    return None
 
 
 def main() -> int:
@@ -382,8 +535,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         return fail("CUDA is not available")
     sys.path.insert(0, ROOT)
-    from mpi_opt_tpu_torch import fused_pbt, get_workload
-    from mpi_opt_tpu_torch.models import ResNet18
+    from mpi_opt_tpu_torch import bench, fused_pbt, get_workload
+    from mpi_opt_tpu_torch.models import ResNet18, SmallCNN
     from mpi_opt_tpu_torch.ops import _build
     from mpi_opt_tpu_torch.ops import group_norm as gn
 
@@ -418,17 +571,22 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s")
     print(_build.BUILD_INFO["group_norm"][1].strip())
 
-    # 3. kernels against their plain versions, then the model on card vs
-    # CPU; f32 comparisons without TF32, restored for the slice after
+    # 3. kernels against their plain versions, then the models on card vs
+    # CPU; f32 comparisons without TF32, restored for the paths after
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     tot, rows = kernel_phase(gn, bandwidth, base)
+    clamp = clamp_check(gn)
+    print("clamp-check " + json.dumps(clamp))
     model = model_check(ResNet18)
-    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     print("model-check " + json.dumps(model))
+    cnn_model = smallcnn_check(SmallCNN)
+    print("smallcnn-check " + json.dumps(cnn_model))
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     print("kernel-totals " + json.dumps(tot))
+    launches = {}  # path -> kernel launches while it ran
 
-    # 4. the slice, through the entry points a user calls
+    # 4. the ResNet-18 slice, through the entry points a user calls
     wl = get_workload("cifar100_resnet18")
     wl.data()  # host data generation is set-up, outside the timed sweep
     gens, steps = 2, 25
@@ -438,16 +596,10 @@ def main() -> int:
     res = fused_pbt(wl, population=P, generations=gens, steps_per_gen=steps, seed=0, gen_chunk=1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(gn.LAUNCHES)
-    if not (launches["gn_fwd"] > 0 and launches["gn_bwd"] > 0):
-        return fail(f"the slice did not launch both kernels: {launches}")
-    if launches["plain"] != 0:
-        return fail(f"the slice called the plain GroupNorm: {launches}")
-    curves = (res["best_curve"], res["mean_curve"])
-    if not (math.isfinite(res["best_score"]) and all(c.shape == (gens,) for c in curves)):
-        return fail(f"bad sweep result: best {res['best_score']}, curves {curves}")
-    if not all(bool((c >= 0).all() and (c <= 1).all()) for c in curves):
-        return fail(f"accuracies outside [0, 1]: {curves}")
+    launches["resnet18_p16"] = dict(gn.LAUNCHES)
+    bad = sweep_fault(res, gens, launches["resnet18_p16"], "the ResNet-18 slice")
+    if bad:
+        return fail(bad)
     slice_out = {
         "population": P, "generations": gens, "steps_per_gen": steps,
         "wall_s": wall, "launch_walls_s": res["launch_walls"],
@@ -455,28 +607,62 @@ def main() -> int:
         "member_steps_per_s_last_launch": P * steps / res["launch_walls"][-1],
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
         "best_score": res["best_score"], "best_curve": res["best_curve"].tolist(),
-        "mean_curve": res["mean_curve"].tolist(), "launches": launches,
+        "mean_curve": res["mean_curve"].tolist(), "launches": launches["resnet18_p16"],
     }
     print("slice " + json.dumps(slice_out))
 
     # 5. where a steady step's device time goes (measurement only)
     prof = profile_phase(wl, res)
 
-    # 6. the kernels line, then the device line
+    # 6. the north star: fused PBT over 256 full-width SmallCNN members
+    # on CIFAR-10 through the port's bench, at a cut depth
+    gn.reset_launches()
+    record, ns = bench.run(population=CNN_P, generations=NS_GENS, steps=NS_STEPS, seed=0,
+                           member_chunk=CNN_CHUNK, gen_chunk=1)
+    launches["smallcnn_p256"] = dict(gn.LAUNCHES)
+    bad = sweep_fault(ns, NS_GENS, launches["smallcnn_p256"], "the north star")
+    if bad:
+        return fail(bad)
+    record["launches"] = launches["smallcnn_p256"]
+    print("north-star " + json.dumps(record))
+
+    # 7. where a steady north-star step's device time goes
+    cnn_prof = profile_phase(get_workload("cifar10_cnn"), ns, member_chunk=CNN_CHUNK,
+                             label="profile-smallcnn")
+
+    # 8. a few steps of fashion_mlp (no GroupNorm): finite results
+    wl = get_workload("fashion_mlp")
+    wl.data()
+    gn.reset_launches()
+    mlp = fused_pbt(wl, population=16, generations=2, steps_per_gen=5, seed=0, gen_chunk=1)
+    launches["fashion_mlp"] = dict(gn.LAUNCHES)
+    bad = sweep_fault(mlp, 2, launches["fashion_mlp"], "the fashion_mlp sweep", kernels=False)
+    if bad:
+        return fail(bad)
+    mlp_out = {"best_score": mlp["best_score"], "best_curve": mlp["best_curve"].tolist(),
+               "mean_curve": mlp["mean_curve"].tolist(), "launch_walls_s": mlp["launch_walls"]}
+    print("fashion-mlp " + json.dumps(mlp_out))
+
+    # 9. the kernels line (a population step of each path, summed; launches
+    # summed over every path), then the device line
     src = "mpi_opt_tpu_torch/csrc/group_norm.cu"
-    kernels = [
-        {"name": "gn_fwd", "route": "cuda", "source": src,
-         "replaces": "mpi_opt_tpu/ops/pallas_gn.py:167", "launches": launches["gn_fwd"],
-         **{key: tot["gn_fwd"][key] for key in LINE_KEYS}, "bound_by": "bytes"},
-        {"name": "gn_bwd", "route": "cuda", "source": src,
-         "replaces": "mpi_opt_tpu/ops/pallas_gn.py:207", "launches": launches["gn_bwd"],
-         **{key: tot["gn_bwd"][key] for key in LINE_KEYS}, "bound_by": "bytes"},
-    ]
+    kernels = []
+    for k, line in (("gn_fwd", "mpi_opt_tpu/ops/pallas_gn.py:167"), ("gn_bwd", "mpi_opt_tpu/ops/pallas_gn.py:207")):
+        entry = {"name": k, "route": "cuda", "source": src, "replaces": line,
+                 "launches": sum(n[k] for n in launches.values()), "bound_by": "bytes"}
+        for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+            entry[key] = sum(tot[path][k][key] for path in STEP_PATHS)
+        entry["max_abs_err"] = max(t[k]["max_abs_err"] for t in tot.values())
+        entry["bound_share"] = entry["bound_ms"] / entry["ms"]
+        entry["by_path"] = {path: {**tot[path][k], "launches": launches[path][k]} for path in STEP_PATHS}
+        kernels.append(entry)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     out = os.path.join(ROOT, "chiprun_out", "chip_smoke.json")
     with open(out + ".tmp", "w") as f:
-        json.dump({"card": smi, "kernels": kernels, "totals": tot, "shapes": rows,
-                   "model_check": model, "slice": slice_out, "profile": prof}, f, indent=1)
+        json.dump({"card": smi, "kernels": kernels, "totals": tot, "shapes": rows, "clamp": clamp,
+                   "model_check": model, "smallcnn_check": cnn_model, "slice": slice_out,
+                   "profile": prof, "north_star": record, "profile_smallcnn": cnn_prof,
+                   "fashion_mlp": mlp_out, "launches": launches}, f, indent=1)
     os.replace(out + ".tmp", out)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

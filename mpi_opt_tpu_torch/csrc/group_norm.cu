@@ -3,8 +3,9 @@
 // Replaces the Pallas TPU kernels of mpi_opt_tpu/ops/pallas_gn.py:
 // _fwd_kernel (launched by _forward) and _bwd_kernel (launched by
 // _bwd_rule). Same contract: x is channel-last [N, S, C]; statistics
-// per (sample, group) in f32 with var = E[x^2] - mean^2 and
-// rsqrt(var + eps) inside; the backward recomputes the ReLU mask from x
+// per (sample, group) in f32 with var = E[x^2] - mean^2 clamped at 0
+// (as flax's GroupNorm: rounding can make it negative at a large mean)
+// and rsqrt(var + eps) inside; the backward recomputes the ReLU mask from x
 // and the saved statistics (z = gamma * xhat + beta > 0) and never
 // re-reads y; dgamma/dbeta leave as per-sample partials [N, C] f32 that
 // the caller sums over N.
@@ -287,7 +288,8 @@ __global__ void __launch_bounds__(kMaxThreads)
     }
     const float cnt = (float)g.S * (float)g.gs;
     const float m = a / cnt;
-    const float var = b / cnt - m * m;
+    float var = b / cnt - m * m;
+    var = var < 0.f ? 0.f : var;  // not fmaxf: a NaN variance stays NaN
     const float rs = rsqrtf(var + eps);
     stat[grp] = m;
     stat[g.gib + grp] = rs;

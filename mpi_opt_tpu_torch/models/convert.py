@@ -1,11 +1,14 @@
 """Carries a flax parameter tree across to the port's parameters.
 
-Input: the flax ``params`` tree of ``mpi_opt_tpu.models.ResNet`` as
-nested dicts of numpy arrays, for one member or stacked over a leading
-member axis. Output: a dict ``name -> tensor [P, ...]`` keyed as the
-port's ``ResNet.named_parameters()``. Conv kernels HWIO become OIHW,
-Dense kernels ``[in, out]`` become ``[out, in]``, GroupNorm
-``scale``/``bias`` become ``gamma``/``beta``.
+Input: the flax ``params`` tree of ``mpi_opt_tpu.models`` ``ResNet``,
+``SmallCNN`` or ``MLP`` as nested dicts of numpy arrays, for one member
+or stacked over a leading member axis. Output: a dict ``name -> tensor
+[P, ...]`` keyed as the port model's ``named_parameters()``. Conv
+kernels HWIO become OIHW, Dense kernels ``[in, out]`` become
+``[out, in]``, GroupNorm ``scale``/``bias`` become ``gamma``/``beta``,
+conv and Dense biases keep their name. The port flattens each member's
+activations in H, W, C order, as flax does, so a Dense kernel after a
+flatten (SmallCNN's ``fc1``) needs no row permutation.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ def _leaves(tree, prefix=()):
 
 
 def flax_to_torch(tree, stacked: bool = False, device=None) -> dict[str, torch.Tensor]:
-    """flax ResNet params -> the port's ``{name: tensor[P, ...]}``."""
+    """flax params -> the port's ``{name: tensor[P, ...]}``."""
     out = {}
     for path, a in _leaves(tree):
         if not stacked:

@@ -56,17 +56,51 @@ def fold_members(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, h, w, p * c).permute(0, 3, 1, 2)
 
 
-class Conv(nn.Module):
-    """Population conv without bias; weight ``[P, Cout, Cin, k, k]``."""
+def flatten_members(x: torch.Tensor, population: int) -> torch.Tensor:
+    """``[B, P*C, H, W]`` (channels_last) -> ``[P, B, H*W*C]``: each
+    member's activations flattened in H, W, C order, as flax flattens NHWC."""
+    b, pc, h, w = x.shape
+    c = pc // population
+    x = x.permute(0, 2, 3, 1).reshape(b, h, w, population, c)
+    return x.permute(3, 0, 1, 2, 4).reshape(population, b, h * w * c)
 
-    def __init__(self, cin, cout, k, stride=1, population=1, dtype=torch.bfloat16, device=None):
+
+class Dense(nn.Module):
+    """Population dense layer, a ``torch.bmm`` over members: weight
+    ``[P, out, in]`` (flax's kernel transposed), bias ``[P, out]``."""
+
+    def __init__(self, cin, cout, population=1, dtype=torch.bfloat16, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(population, cout, cin, device=device))
+        self.bias = nn.Parameter(torch.empty(population, cout, device=device))
+
+    def init_params(self, generator):
+        _lecun_normal_(self.weight, self.weight.shape[-1], generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        """``[P, B, in]`` -> ``[P, B, out]`` in ``dtype``."""
+        w = self.weight.to(self.dtype).transpose(1, 2)
+        return torch.bmm(x.to(self.dtype), w) + self.bias.to(self.dtype)[:, None, :]
+
+
+class Conv(nn.Module):
+    """Population conv; weight ``[P, Cout, Cin, k, k]``, and with
+    ``bias`` a ``[P, Cout]`` bias (flax's ``use_bias``, zeros at init)."""
+
+    def __init__(self, cin, cout, k, stride=1, population=1, dtype=torch.bfloat16, device=None,
+                 bias: bool = False):
         super().__init__()
         self.k, self.stride, self.dtype = k, stride, dtype
         self.weight = nn.Parameter(torch.empty(population, cout, cin, k, k, device=device))
+        self.bias = nn.Parameter(torch.empty(population, cout, device=device)) if bias else None
 
     def init_params(self, generator):
         _, _, cin, k, _ = self.weight.shape
         _lecun_normal_(self.weight, cin * k * k, generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def forward(self, x):
         p, cout, cin, k, _ = self.weight.shape
@@ -78,7 +112,8 @@ class Conv(nn.Module):
             x = F.pad(x, (wl, wr, ht, hb)).contiguous(memory_format=torch.channels_last)
             pad = (0, 0)
         w = self.weight.reshape(p * cout, cin, k, k).to(self.dtype)
-        return F.conv2d(x, w, stride=self.stride, padding=pad, groups=p)
+        b = None if self.bias is None else self.bias.reshape(p * cout).to(self.dtype)
+        return F.conv2d(x, w, b, stride=self.stride, padding=pad, groups=p)
 
 
 class GroupNorm(nn.Module):
@@ -105,6 +140,15 @@ class GroupNorm(nn.Module):
             p * self.groups, 1e-6, self.relu,
         )
         return y.permute(0, 3, 1, 2)
+
+
+@torch.no_grad()
+def init_params(model: nn.Module, generator: torch.Generator) -> None:
+    """Draw every population layer's parameters from ``generator``, in
+    module order (flax's default initialisers)."""
+    for m in model.modules():
+        if isinstance(m, (Conv, GroupNorm, Dense)):
+            m.init_params(generator)
 
 
 class BasicBlock(nn.Module):
@@ -163,18 +207,12 @@ class ResNet(nn.Module):
                 self.add_module(name, BasicBlock(cin, channels, stride, **kw))
                 self.block_names.append(name)
                 cin = channels
-        self.head = nn.Module()
-        self.head.weight = nn.Parameter(torch.empty(population, n_classes, cin, device=device))
-        self.head.bias = nn.Parameter(torch.empty(population, n_classes, device=device))
+        self.head = Dense(cin, n_classes, **kw)
 
     @torch.no_grad()
     def init_params(self, generator: torch.Generator):
         """flax's default initialisers, drawn from ``generator``."""
-        for m in self.modules():
-            if isinstance(m, (Conv, GroupNorm)):
-                m.init_params(generator)
-        _lecun_normal_(self.head.weight, self.head.weight.shape[-1], generator)
-        nn.init.zeros_(self.head.bias)
+        init_params(self, generator)
 
     def forward(self, x):
         x = self.gn_stem(self.stem(x.to(self.dtype)))
@@ -183,9 +221,7 @@ class ResNet(nn.Module):
         b = x.shape[0]
         p = self.head.weight.shape[0]
         x = x.mean(dim=(2, 3)).reshape(b, p, -1).transpose(0, 1)  # global pool -> [P, B, C]
-        w = self.head.weight.to(self.dtype).transpose(1, 2)
-        y = torch.bmm(x, w) + self.head.bias.to(self.dtype)[:, None, :]
-        return y.float()
+        return self.head(x).float()
 
 
 def ResNet18(n_classes: int = 100, width: int = 64, **kw) -> ResNet:

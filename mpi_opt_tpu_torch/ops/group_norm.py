@@ -9,10 +9,14 @@ Port of ``mpi_opt_tpu/ops/pallas_gn.py``. ``group_norm_relu`` is a
 - a CPU tensor goes to the plain versions in this module
   (``group_norm_relu_plain`` / ``group_norm_relu_bwd_plain``), which do
   the same arithmetic in torch ops. The tests run them against the JAX
-  package; ``chip_smoke.py`` holds the kernels against them on the card.
+  package; ``chip_smoke.py`` holds the kernels against them on the card;
+- a meta tensor (shapes only, as the trainer's ``member_flops`` counts a step)
+  goes through the plain versions too, uncounted: nothing is computed.
 
 Statistics are f32 whatever the activation dtype, var is
-``E[x^2] - mean^2``, eps sits inside the rsqrt, and the backward
+``E[x^2] - mean^2`` clamped at 0 (as flax's ``nn.GroupNorm``: rounding
+can make it negative at a large mean, and ``rsqrt`` of a negative
+``var + eps`` is NaN), eps sits inside the rsqrt, and the backward
 recomputes the ReLU mask from x and the saved statistics. dgamma/dbeta
 come out of the kernel as per-sample partials ``[N, C]`` and are summed
 over N here, as the JAX package leaves that sum to XLA.
@@ -32,8 +36,8 @@ import math
 
 import torch
 
-# launches of each kernel, and calls of the plain versions (forward or
-# backward); ``chip_smoke.py`` zeroes them around the main path
+# launches of each kernel, and calls of the plain versions on CPU tensors
+# (forward or backward); ``chip_smoke.py`` zeroes them around the main path
 LAUNCHES = {"gn_fwd": 0, "gn_bwd": 0, "plain": 0}
 
 _P = ctypes.c_void_p
@@ -64,8 +68,8 @@ def _check(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, groups: int
             raise ValueError(f"{name} must be float32 [{c}], got {t.dtype} {tuple(t.shape)}")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-    if x.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"group_norm_relu runs on cuda or cpu, not {x.device}")
+    if x.device.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"group_norm_relu runs on cuda, cpu or meta, not {x.device}")
 
 
 # -- plain versions (the CPU path, and the kernels' yardstick) -----------
@@ -76,7 +80,7 @@ def group_norm_relu_plain(x, gamma, beta, groups: int, eps: float = 1e-6, relu: 
     n, s, c = x.shape
     xg = x.float().reshape(n, s, groups, c // groups)
     mean = xg.mean(dim=(1, 3))
-    var = (xg * xg).mean(dim=(1, 3)) - mean * mean
+    var = ((xg * xg).mean(dim=(1, 3)) - mean * mean).clamp(min=0.0)  # NaN passes
     rstd = torch.rsqrt(var + eps)
     xhat = ((xg - mean[:, None, :, None]) * rstd[:, None, :, None]).reshape(n, s, c)
     y = xhat * gamma + beta
@@ -201,8 +205,11 @@ def gn_fwd(x, gamma, beta, groups: int, eps: float, relu: bool):
     """Forward on x [N,S,C]: the kernel for a CUDA tensor, the plain
     version for a CPU one. Returns (y, mean [N,G], rstd [N,G])."""
     _check(x, gamma, beta, groups)
-    if x.device.type == "cpu":
-        LAUNCHES["plain"] += 1
+    if x.device.type != "cuda":
+        # meta carries shapes only (the FLOP count) and is never on the
+        # card; no other device type gets this far
+        if x.device.type == "cpu":
+            LAUNCHES["plain"] += 1
         return group_norm_relu_plain(x, gamma, beta, groups, eps, relu)
     _check_launch("gn_fwd", (x,), (gamma, beta))
     n, s, c = x.shape
@@ -229,8 +236,10 @@ def gn_bwd(x, dy, gamma, beta, mean, rstd, groups: int, relu: bool):
     _check(x, gamma, beta, groups)
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError("dy must match x in shape, dtype and device")
-    if x.device.type == "cpu":
-        LAUNCHES["plain"] += 1
+    if x.device.type != "cuda":
+        # meta: shapes only, never on the card (see gn_fwd)
+        if x.device.type == "cpu":
+            LAUNCHES["plain"] += 1
         return group_norm_relu_bwd_plain(x, dy, gamma, beta, mean, rstd, groups, relu)
     _check_launch("gn_bwd", (x, dy), (gamma, beta, mean, rstd))
     n, s, c = x.shape

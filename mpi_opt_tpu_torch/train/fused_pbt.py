@@ -10,7 +10,6 @@ of one launch.
 
 from __future__ import annotations
 
-import os
 import time
 
 import numpy as np
@@ -68,8 +67,6 @@ def fused_pbt(
             raise TypeError(f"fused_pbt() got an unexpected keyword argument {name!r}")
         if value != _NOT_PORTED[name]:
             raise NotImplementedError(f"fused_pbt({name}=...) is not ported yet")
-    if os.environ.get("MPI_OPT_TPU_MOMENTUM_DTYPE", "") not in ("", "float32"):
-        raise NotImplementedError("MPI_OPT_TPU_MOMENTUM_DTYPE is not ported yet")
     if generations < 1:
         raise ValueError(f"generations must be >= 1, got {generations}")
     dev = resolve_device(device)

@@ -100,15 +100,18 @@ class PopulationTrainer:
         member_chunk: if >0, members run in slices of this size
             (activation-memory relief; params/momentum stay resident).
         device: where the population lives.
+        momentum_dtype: the momentum's storage dtype (None: f32, as the
+            parameters); the update runs in f32 whatever it is.
     """
 
     def __init__(self, model_fn, batch_size: int = 256, augment: bool = True,
-                 member_chunk: int = 0, device=None):
+                 member_chunk: int = 0, device=None, momentum_dtype: torch.dtype | None = None):
         self.model_fn = model_fn
         self.batch_size = batch_size
         self.augment = augment
         self.member_chunk = member_chunk
         self.device = resolve_device(device)
+        self.momentum_dtype = momentum_dtype
         # parameters are always passed in (functional_call), so the
         # module itself holds none: built on the meta device
         self.template = model_fn(1, "meta")
@@ -117,7 +120,7 @@ class PopulationTrainer:
         model = self.model_fn(n, self.device)
         model.init_params(generator)
         params = {k: v.detach() for k, v in model.named_parameters()}
-        momentum = {k: torch.zeros_like(v) for k, v in params.items()}
+        momentum = {k: torch.zeros_like(v, dtype=self.momentum_dtype) for k, v in params.items()}
         return PopState(params, momentum, torch.zeros(n, dtype=torch.int32, device=self.device))
 
     def _chunks(self, n: int):
@@ -152,9 +155,13 @@ class PopulationTrainer:
                 for k, g in zip(params, grads):
                     p, m = state.params[k][a:b], state.momentum[k][a:b]
                     shape = (-1,) + (1,) * (p.dim() - 1)
-                    # m = mu*m + g + wd*p; p -= lr*m (f32, coupled decay)
-                    m.mul_(mu.view(shape)).add_(g).add_(wd.view(shape) * p)
-                    p.sub_(lr.view(shape) * m)
+                    # m32 = mu*m + g + wd*p; p -= lr*m32 (f32, coupled
+                    # decay); then m = m32 in its storage dtype. An f32
+                    # m is its own .float(), so it updates in place
+                    m32 = m.float().mul_(mu.view(shape)).add_(g).add_(wd.view(shape) * p)
+                    p.sub_(lr.view(shape) * m32)
+                    if m32 is not m:
+                        m.copy_(m32)
             losses.append(loss.detach())
         state.step += 1
         return torch.cat(losses)
@@ -194,6 +201,37 @@ class PopulationTrainer:
                 pred = self.logits(params, self._inputs(cx, None, a, b)).argmax(dim=-1)
                 correct[a:b] += ((pred == cy) & (cy >= 0)).sum(dim=1)
         return correct.float() / n_val
+
+    def member_flops(self, image_shape: tuple, eval_chunk: int = 1024) -> tuple[int, int]:
+        """(FLOPs of one member's training step, of one member's eval of
+        one ``eval_chunk``-image chunk) on ``image_shape`` images, counted
+        by ``FlopCounterMode`` on the meta device: shapes only, nothing is
+        computed or allocated."""
+        from torch.utils.flop_counter import FlopCounterMode
+
+        meta = torch.device("meta")
+
+        def count(fn) -> int:
+            with FlopCounterMode(display=False) as counter:
+                fn()
+            return counter.get_total_flops()
+
+        params = {k: torch.zeros_like(v) for k, v in self.template.named_parameters()}
+        state = PopState(params, {k: torch.zeros_like(v) for k, v in params.items()},
+                         torch.zeros(1, dtype=torch.int32, device=meta))
+        image, b = tuple(image_shape), self.batch_size
+        bx = torch.empty((b,) + image, device=meta)
+        by = torch.zeros(b, dtype=torch.long, device=meta)
+        aug = None
+        if self.augment and bx.dim() == 4:
+            aug = (torch.zeros((1, b), dtype=torch.bool, device=meta),
+                   torch.zeros(1, dtype=torch.long, device=meta),
+                   torch.zeros(1, dtype=torch.long, device=meta))
+        f_step = count(lambda: self._pop_update(state, OptHParams.defaults(1, device=meta), aug, bx, by))
+        vx = torch.empty((eval_chunk,) + image, device=meta)
+        vy = torch.zeros(eval_chunk, dtype=torch.long, device=meta)
+        f_eval = count(lambda: self.eval_population(state, vx, vy, eval_chunk))
+        return f_step, f_eval
 
     @staticmethod
     def gather_members(state: PopState, src_idx: torch.Tensor) -> PopState:

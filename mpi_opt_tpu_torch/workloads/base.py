@@ -2,7 +2,34 @@
 
 from __future__ import annotations
 
+import os
+
 import torch
+
+# spellings of the momentum storage dtype that ``jnp.dtype`` maps to
+# these names in the JAX package
+_DTYPE_NAMES = {
+    "float32": "float32", "f4": "float32", "f": "float32", "single": "float32",
+    "bfloat16": "bfloat16",
+    "float16": "float16", "f2": "float16", "e": "float16", "half": "float16",
+}
+
+
+def resolve_momentum_dtype() -> str | None:
+    """The momentum storage dtype from ``MPI_OPT_TPU_MOMENTUM_DTYPE``,
+    normalised to a dtype name ("f4" -> "float32"), or None when unset
+    (momentum matches the f32 parameters). Resolved once, by
+    ``make_trainer``."""
+    raw = os.environ.get("MPI_OPT_TPU_MOMENTUM_DTYPE")
+    if not raw:
+        return None
+    try:
+        return _DTYPE_NAMES[raw]
+    except KeyError:
+        raise ValueError(
+            f"MPI_OPT_TPU_MOMENTUM_DTYPE={raw!r} is not a dtype the port stores "
+            f"momentum in; use one of {sorted(_DTYPE_NAMES)}"
+        ) from None
 
 
 class PopulationWorkload:
@@ -39,16 +66,19 @@ class PopulationWorkload:
             self._data = load_dataset(self.dataset, n_train=self.n_train, n_val=self.n_val)
         return self._data
 
-    def make_trainer(self, member_chunk: int = 0, device=None):
+    def make_trainer(self, member_chunk: int = 0, device=None, momentum_dtype: str | None = None):
         from mpi_opt_tpu_torch.train.population import PopulationTrainer
 
         n_classes = self.data()["n_classes"]
+        if momentum_dtype is None:
+            momentum_dtype = resolve_momentum_dtype()
         return PopulationTrainer(
             model_fn=lambda population, device: self._model(n_classes, population, device),
             batch_size=self.batch_size,
             augment=self.augment,
             member_chunk=member_chunk,
             device=device,
+            momentum_dtype=getattr(torch, momentum_dtype) if momentum_dtype else None,
         )
 
     def make_hparams(self, values: dict):

@@ -2,7 +2,9 @@
 
 from __future__ import annotations
 
-from mpi_opt_tpu_torch.models import ResNet18
+import math
+
+from mpi_opt_tpu_torch.models import MLP, ResNet18, SmallCNN
 from mpi_opt_tpu_torch.space import LogUniform, SearchSpace, Uniform
 from mpi_opt_tpu_torch.workloads import register
 from mpi_opt_tpu_torch.workloads.base import PopulationWorkload
@@ -19,6 +21,40 @@ class _VisionWorkload(PopulationWorkload):
                 "shift": Uniform(0.0, 4.0),
             }
         )
+
+
+@register
+class FashionMLP(_VisionWorkload):
+    """Config 2: 2-layer MLP on (synthetic) Fashion-MNIST."""
+
+    name = "fashion_mlp"
+    dataset = "fashion_mnist"
+
+    def _model(self, n_classes, population, device):
+        n_in = math.prod(self.data()["train_x"].shape[1:])
+        return MLP(n_in, hidden=128, n_classes=n_classes, population=population, device=device)
+
+
+@register
+class Cifar10CNN(_VisionWorkload):
+    """Config 3: SmallCNN on (synthetic) CIFAR-10, the PBT target of the
+    north-star sweep, at width 32 as the JAX workload."""
+
+    name = "cifar10_cnn"
+    dataset = "cifar10"
+    width = 32
+
+    def _model(self, n_classes, population, device):
+        return SmallCNN(n_classes=n_classes, width=type(self).width, population=population, device=device)
+
+
+@register
+class Cifar100CNN(Cifar10CNN):
+    """The SmallCNN at width 64 on (synthetic) CIFAR-100."""
+
+    name = "cifar100_cnn"
+    dataset = "cifar100"
+    width = 64
 
 
 @register

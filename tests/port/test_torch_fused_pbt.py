@@ -83,9 +83,15 @@ def test_out_of_scope_arguments_raise(workload, arg, value):
 
 
 def test_momentum_dtype_knob_raises(workload, monkeypatch):
-    monkeypatch.setenv("MPI_OPT_TPU_MOMENTUM_DTYPE", "bfloat16")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    """The knob is ported: a dtype it names stores the momentum, and a
+    spelling that names none raises."""
+    monkeypatch.setenv("MPI_OPT_TPU_MOMENTUM_DTYPE", "float8")
+    with pytest.raises(ValueError, match="MPI_OPT_TPU_MOMENTUM_DTYPE"):
         fused_pbt(workload, **RUN)
+    monkeypatch.setenv("MPI_OPT_TPU_MOMENTUM_DTYPE", "bfloat16")
+    res = fused_pbt(workload, population=2, generations=1, steps_per_gen=1, device="cpu")
+    assert {v.dtype for v in res["state"].momentum.values()} == {torch.bfloat16}
+    assert math.isfinite(res["best_score"])
 
 
 def test_unknown_argument_and_zero_generations_raise(workload):

@@ -6,6 +6,7 @@ machine without them: ``python -m pytest tests/port/test_torch_kernels.py
 rest check, on the CPU, what the wrapper decides before a launch.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -15,8 +16,9 @@ from mpi_opt_tpu_torch.ops import group_norm as gn
 # (S, C, groups) of every GN call on the main path: ResNet-18's four
 # stages at 32 groups, folded over 1, 2 and 16 members
 MAIN_PATH = [(s, p * c, p * 32) for p in (1, 2, 16) for s, c in ((1024, 64), (256, 128), (64, 256), (16, 512))]
-# SmallCNN (the next slice): C = P*32 at 32x32, P*64 at 16x16, 8 groups a member
-SMALL_CNN = [(s, p * c, p * 8) for p in (1, 2, 16, 256) for s, c in ((1024, 32), (256, 64))]
+# SmallCNN: C = P*32 at 32x32, P*64 at 16x16, 8 groups a member; the
+# north-star sweep runs members in chunks of 32
+SMALL_CNN = [(s, p * c, p * 8) for p in (1, 2, 16, 32, 256) for s, c in ((1024, 32), (256, 64))]
 ODD = [(64, 8, 4), (64, 48, 3), (64, 96, 32)]
 
 
@@ -62,6 +64,17 @@ def test_launch_check_takes_unaligned_parameter_views():
     x = torch.zeros(1 + 2 * 16 * 64)[1:].view(2, 16, 64)  # moved 16 bytes at a time
     with pytest.raises(ValueError, match="aligned to 16 bytes"):
         gn._check_launch("gn_fwd", (x,), (gamma, beta))
+
+
+def test_meta_tensors_take_the_plain_path_uncounted():
+    # shapes only, as utils/flops.py counts a step: nothing runs, nothing counts
+    x = torch.empty(2, 16, 64, device="meta", requires_grad=True)
+    gamma = torch.ones(64, device="meta", requires_grad=True)
+    gn.reset_launches()
+    y = gn.group_norm_relu(x, gamma, torch.zeros(64, device="meta"), 32)
+    y.sum().backward()
+    assert y.device.type == "meta" and x.grad.shape == x.shape
+    assert gn.LAUNCHES == {"gn_fwd": 0, "gn_bwd": 0, "plain": 0}
 
 
 def test_cpu_path_never_builds(monkeypatch):
@@ -198,3 +211,43 @@ def test_autograd_on_card_launches_kernels_only(cuda_device):
     gn.group_norm_relu(x, gamma, beta, 32).float().sum().backward()
     assert gn.LAUNCHES == {"gn_fwd": 1, "gn_bwd": 1, "plain": 0}
     assert gamma.grad.shape == (128,) and x.grad.dtype == torch.bfloat16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,c,groups", [(s, p * c, p * 8) for p in (32, 256) for s, c in ((1024, 32), (256, 64))],
+                         ids=["p32-32x32", "p32-16x16", "p256-32x32", "p256-16x16"])
+def test_kernels_match_plain_at_small_cnn_shapes(cuda_device, s, c, groups, dtype):
+    # groups of 4 channels: half of a 16-byte bf16 vector, a quarter of f32 ones
+    x, dy, gamma, beta = _card_inputs(cuda_device, 4, s, c, dtype, c + s)
+    _assert_kernels_match_plain(x, dy, gamma, beta, groups, relu=True)
+
+
+def _near_constant_groups(n, s, c, groups, seed):
+    """x = base + N(0, 1e-3) with base uniform in [50, 3000] per group, f32:
+    there E[x^2] - mean^2 is f32 rounding noise, often below -eps."""
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(50, 3000, (n, 1, groups, 1))
+    x = base + rng.normal(0.0, 1e-3, (n, s, groups, c // groups))
+    return torch.from_numpy(x.reshape(n, s, c).astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s,c,groups", [(50, 64, 4, 1), (6, 64, 32, 8), (4, 1024, 1024, 256)])
+def test_variance_is_clamped_on_card(cuda_device, n, s, c, groups):
+    """The kernel's variance sums in another order than the plain
+    version's, so at these inputs their rstd differ (both rounding
+    noise); what must hold is finite output, rstd <= 1/sqrt(eps), the
+    means, and with gamma = 0 the output relu(beta) itself."""
+    x = _near_constant_groups(n, s, c, groups, seed=c).to(cuda_device)
+    gamma = torch.ones(c, device=cuda_device)
+    beta = torch.zeros(c, device=cuda_device)
+    y, mean, rstd = gn.gn_fwd(x, gamma, beta, groups, 1e-6, True)
+    _, meanp, _ = gn.group_norm_relu_plain(x, gamma, beta, groups, 1e-6, True)
+    dx, _, _ = gn.gn_bwd(x, torch.ones_like(x), gamma, beta, mean, rstd, groups, True)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(dx).all())
+    assert bool((rstd <= 1e3 * (1 + 1e-6)).all())
+    torch.testing.assert_close(mean, meanp, atol=0.0, rtol=4e-6)
+    beta = torch.randn(c, generator=torch.Generator(device=cuda_device).manual_seed(1), device=cuda_device)
+    y0, _, _ = gn.gn_fwd(x, torch.zeros_like(gamma), beta, groups, 1e-6, True)
+    torch.testing.assert_close(y0, torch.relu(beta).expand_as(x), atol=1e-6, rtol=0.0)
