@@ -26,15 +26,32 @@ Phases, in order; any failure exits non-zero and prints no result:
    kernels, device idle share (measurement only);
 6. north star: ``mpi_opt_tpu_torch.bench`` (fused PBT over 256
    full-width SmallCNN members on CIFAR-10, member chunk 32, one
-   generation a launch) at 2 generations x 20 steps; its record;
+   generation a launch) at 2 generations x 20 steps; its record. Then
+   the same run with ``torch.backends.cudnn.deterministic`` on, twice,
+   and off again, for the member-generations/s with and without it
+   (measurement only: phase 9 checks determinism with the defaults);
 7. profile of 3 steady north-star steps, as phase 5;
 8. a fashion_mlp sweep, population 16, 2 generations x 5 steps;
-9. the ``kernels`` line (JSON), then the device line (JSON, last).
+9. durability: full-width cifar10_cnn at population 32, 4 generations x
+   20 steps, one generation a launch, with snapshots and a ledger. Two
+   unkilled runs in this process must end in the same state digest and
+   journal the same records; then the CLI (``python -m
+   mpi_opt_tpu_torch``) in subprocesses: SIGTERM once generation 1 is
+   journaled must exit 75 with the preempted line, SIGKILL in launch 3,
+   and a ``--step-chunk 7`` run (snapshots every 2 launches) SIGKILLed
+   once generation 2 is journaled; each ``--resume`` must exit 0 with
+   the unkilled run's ledger records, best score and curve. A resume
+   against a tampered ledger must exit 65, and a population whose
+   parameters do not fit the card (65536 members) 74. Last, two
+   256-member runs (1 x 5 steps) must agree, and one snapshot of their
+   state is timed: save, restore and verify, bytes on disk;
+10. the ``kernels`` line (JSON), then the device line (JSON, last).
 
-Each path (4, 6, 8) runs through the entry points a user calls, with the
-launch counts zeroed just before and read just after: where the model
-has GroupNorm both kernels must have run, the plain versions never; the
-best score must be finite and the curves in [0, 1].
+Each path (4, 6, 8, 9) runs through the entry points a user calls, with
+the launch counts zeroed just before and read just after (in phase 9,
+its runs in this process): where the model has GroupNorm both kernels
+must have run, the plain versions never; the best score must be finite
+and the curves in [0, 1].
 
 Run from the repo root: ``python3 chip_smoke.py``. Details also go to
 chiprun_out/chip_smoke.json.
@@ -55,6 +72,7 @@ import hashlib
 import json
 import math
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -77,6 +95,8 @@ CNN_P, CNN_CHUNK, CNN_BATCH, CNN_EVAL = 256, 32, 256, 1024
 CNN_SHAPES = [(1024, 32), (256, 64)]
 CNN_GROUPS = 8
 NS_GENS, NS_STEPS = 2, 20  # the north star's depth here (the bench's: 4 x 100)
+# the durability path: full-width SmallCNN, BASELINE.json config 3's population
+DUR_P, DUR_GENS, DUR_STEPS = 32, 4, 20
 _BF16, _F32 = torch.bfloat16, torch.float32
 # every GN shape the paths run: (path, N, S, C, groups, {relu: sites a
 # population step, or an eval chunk}, dtypes checked); bf16 is timed
@@ -526,6 +546,271 @@ def sweep_fault(res, gens: int, launches: dict, what: str, kernels: bool = True)
     return None
 
 
+def _records(path):
+    """A ledger's member records without their wall-clock and per-ledger
+    random fields (ts, sweep_id)."""
+    with open(path) as f:
+        recs = [json.loads(x) for x in f.read().splitlines()[1:]]
+    return [{k: v for k, v in r.items() if k not in ("ts", "sweep_id")} for r in recs]
+
+
+def _cli(tmp, name, *extra):
+    """argv of the port's CLI on the durability path, in ``tmp/name``."""
+    return [sys.executable, "-m", "mpi_opt_tpu_torch", "--workload", "cifar10_cnn",
+            "--algorithm", "pbt", "--fused", "--population", str(DUR_P), "--generations",
+            str(DUR_GENS), "--steps-per-generation", str(DUR_STEPS), "--gen-chunk", "1",
+            "--seed", "0", "--device", "cuda", "--checkpoint-dir", os.path.join(tmp, name, "ck"),
+            "--ledger", os.path.join(tmp, name, "ledger.jsonl"), *extra]
+
+
+def _interrupt(argv, ready, sig, label: str):
+    """Start the CLI, wait until ``ready()`` holds, send ``sig``; returns
+    (exit code, stdout). The process is killed if it outlives its
+    deadline."""
+    proc = subprocess.Popen(argv, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        deadline = time.monotonic() + 300
+        while not ready():
+            if proc.poll() is not None or time.monotonic() > deadline:
+                out, err = proc.communicate(timeout=60)
+                raise AssertionError(f"{label}: the run ended (rc {proc.returncode}) before the "
+                                     f"signal point:\n{out[-2000:]}\n{err[-4000:]}")
+            time.sleep(0.02)
+        proc.send_signal(sig)
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return proc.returncode, out, err
+
+
+def _resume(argv, label: str):
+    """Run the CLI with --resume to its end; returns its summary line."""
+    proc = subprocess.run([*argv, "--resume"], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"{label}: --resume exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _run_to_end(argv):
+    """(exit code, last stdout line as JSON) of a CLI run."""
+    proc = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    lines = proc.stdout.strip().splitlines()
+    return proc.returncode, json.loads(lines[-1]) if lines else {}
+
+
+def _journaled(path, boundaries: int):
+    """Does the ledger at ``path`` hold every record of ``boundaries``
+    generations?"""
+    def ready():
+        try:
+            with open(path) as f:
+                return sum(1 for x in f if '"boundary"' in x) >= boundaries * DUR_P
+        except OSError:
+            return False
+    return ready
+
+
+def _committed(ckpt, step: int, after_s: float = 0.0):
+    """Is snapshot ``step`` committed (and ``after_s`` past)?"""
+    seen = {}
+
+    def ready():
+        if not os.path.exists(os.path.join(ckpt, str(step), "COMMIT")):
+            return False
+        seen.setdefault("t", time.monotonic())
+        return time.monotonic() - seen["t"] >= after_s
+    return ready
+
+
+def durability_phase(gn, fused_pbt, get_workload, smi):
+    """The durability path: full-width cifar10_cnn at population 32,
+    DUR_GENS generations x DUR_STEPS steps, one generation a launch,
+    with snapshots and a ledger. Returns (result dict, GN launches of its
+    in-process runs, problem or None)."""
+    import shutil
+
+    from mpi_opt_tpu_torch.ledger import SweepLedger, validate_ledger
+    from mpi_opt_tpu_torch.utils import integrity
+    from mpi_opt_tpu_torch.utils.checkpoint import SweepCheckpointer
+    from mpi_opt_tpu_torch.utils.exitcodes import EX_DATAERR, EX_IOERR, EX_TEMPFAIL
+
+    tmp = os.path.join(ROOT, "build", "chip_smoke_durability")
+    shutil.rmtree(tmp, ignore_errors=True)
+    out = {"population": DUR_P, "generations": DUR_GENS, "steps_per_gen": DUR_STEPS}
+    try:
+        wl = get_workload("cifar10_cnn")
+        wl.data()
+        space = wl.default_space()
+        # 1. two unkilled runs in this process: the determinism precondition
+        gn.reset_launches()
+        runs = []
+        for name in ("unkilled_a", "unkilled_b"):
+            led = SweepLedger(os.path.join(tmp, name, "ledger.jsonl"), read_only=False)
+            led.ensure_header({"mode": "fused", "granularity": "generation", "algorithm": "pbt",
+                               "seed": 0, "space_hash": space.space_hash()}, space_spec=space.spec())
+            t0 = time.perf_counter()
+            res = fused_pbt(wl, population=DUR_P, generations=DUR_GENS, steps_per_gen=DUR_STEPS,
+                            seed=0, gen_chunk=1, checkpoint_dir=os.path.join(tmp, name, "ck"), ledger=led)
+            torch.cuda.synchronize()
+            led.close()
+            st = res["state"]
+            runs.append((res, integrity.tree_digest(
+                {"params": st.params, "momentum": st.momentum, "step": st.step}),
+                time.perf_counter() - t0))
+        launches = dict(gn.LAUNCHES)
+        (ref, dig_a, wall_a), (other, dig_b, wall_b) = runs
+        out.update(state_digest_a=dig_a, state_digest_b=dig_b, wall_s=[wall_a, wall_b],
+                   launch_walls_s=ref["launch_walls"], best_score=ref["best_score"],
+                   best_curve=ref["best_curve"].tolist(), launches=launches)
+        print(f"durability unkilled: digests {dig_a} {dig_b}, best {ref['best_score']}, "
+              f"curve {ref['best_curve'].tolist()}, walls {wall_a:.3f} {wall_b:.3f} s")
+        bad = sweep_fault(ref, DUR_GENS, launches, "the durability path")
+        if bad:
+            return out, launches, bad
+        if dig_a != dig_b:
+            return out, launches, f"two unkilled runs differ: state digests {dig_a} vs {dig_b}"
+        want = _records(os.path.join(tmp, "unkilled_a", "ledger.jsonl"))
+        if _records(os.path.join(tmp, "unkilled_b", "ledger.jsonl")) != want:
+            return out, launches, "two unkilled runs journaled different records"
+        want_best = (round(ref["best_score"], 6), [round(float(v), 4) for v in ref["best_curve"]])
+
+        def same_as_unkilled(name, summary):
+            recs = _records(os.path.join(tmp, name, "ledger.jsonl"))
+            if recs != want:
+                n = sum(a != b for a, b in zip(recs, want)) + abs(len(recs) - len(want))
+                return f"{name}: ledger differs from the unkilled run's in {n} records"
+            if (summary["best_score"], summary["best_curve"]) != want_best:
+                return f"{name}: best {summary['best_score']} {summary['best_curve']} vs {want_best}"
+            return None
+
+        # 2. the CLI: SIGTERM once generation 1 is journaled -> 75, resume -> 0
+        argv = _cli(tmp, "sigterm")
+        t0 = time.perf_counter()
+        rc, stdout, err = _interrupt(argv, _journaled(os.path.join(tmp, "sigterm", "ledger.jsonl"), 1),
+                                     signal.SIGTERM, "SIGTERM run")
+        last = json.loads(stdout.strip().splitlines()[-1]) if stdout.strip() else {}
+        if rc != EX_TEMPFAIL or not last.get("preempted"):
+            return out, launches, f"SIGTERM run: exit {rc}, last line {last}:\n{err[-3000:]}"
+        summary = _resume(argv, "SIGTERM run")
+        out["sigterm"] = {"exit": rc, "preempted_line": last, "resumed": summary,
+                          "wall_s": time.perf_counter() - t0}
+        print(f"durability SIGTERM: exit {rc} at {last['at']}, resume journal {summary.get('journal')}")
+        bad = same_as_unkilled("sigterm", summary)
+        if bad:
+            return out, launches, bad
+        # SIGKILL in the middle of launch 3 -> resume -> 0
+        argv = _cli(tmp, "sigkill")
+        rc, _, _ = _interrupt(argv, _committed(os.path.join(tmp, "sigkill", "ck"), 2, 0.15),
+                              signal.SIGKILL, "SIGKILL run")
+        steps = integrity._committed_steps(os.path.join(tmp, "sigkill", "ck"))
+        summary = _resume(argv, "SIGKILL run")
+        out["sigkill"] = {"exit": rc, "committed_at_kill": steps, "resumed": summary}
+        print(f"durability SIGKILL: exit {rc}, snapshots {steps}, resume journal {summary.get('journal')}")
+        if rc != -signal.SIGKILL:
+            return out, launches, f"SIGKILL run exited {rc}, not by the signal"
+        bad = same_as_unkilled("sigkill", summary)
+        if bad:
+            return out, launches, bad
+        # a tampered ledger -> 65: the newest two snapshots removed, one
+        # journaled score of generation 2 edited; the resume re-computes
+        # generation 2 and refuses the journal
+        for step in (3, 4):
+            shutil.rmtree(os.path.join(tmp, "sigkill", "ck", str(step)))
+        path = os.path.join(tmp, "sigkill", "ledger.jsonl")
+        with open(path) as f:
+            lines = f.read().splitlines()
+        i = next(i for i, x in enumerate(lines) if '"boundary": 2' in x)
+        rec = json.loads(lines[i])
+        rec["score"] += 0.25
+        lines[i] = json.dumps(rec)
+        with open(path, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        rc, last = _run_to_end([*argv, "--resume"])
+        out["tampered_ledger"] = {"exit": rc, "last_line": last}
+        print(f"durability tampered ledger: exit {rc}")
+        if rc != EX_DATAERR or "data_error" not in last:
+            return out, launches, f"tampered ledger: exit {rc}, last line {last}"
+        # a real device OOM -> 74: 65536 members' parameters do not fit
+        argv = _cli(tmp, "oom")
+        argv[argv.index("--population") + 1] = "65536"
+        rc, last = _run_to_end(argv)
+        out["device_oom"] = {"exit": rc, "last_line": last}
+        print(f"durability device OOM: exit {rc}, {str(last)[:300]}")
+        if rc != EX_IOERR or last.get("kind") != "device_oom":
+            return out, launches, f"device OOM: exit {rc}, last line {last}"
+        # 3. step_chunk 7, snapshots every 2 launches, SIGKILL once generation
+        # 2 is journaled: the resume re-computes generation 2 and verifies it
+        argv = _cli(tmp, "step_chunk", "--step-chunk", "7", "--checkpoint-every", "2")
+        rc, _, _ = _interrupt(argv, _journaled(os.path.join(tmp, "step_chunk", "ledger.jsonl"), 3),
+                              signal.SIGKILL, "step_chunk run")
+        summary = _resume(argv, "step_chunk run")
+        problems = validate_ledger(os.path.join(tmp, "step_chunk", "ledger.jsonl"))
+        out["step_chunk"] = {"exit": rc, "resumed": summary, "ledger_problems": problems}
+        print(f"durability step_chunk 7: exit {rc}, resume journal {summary.get('journal')}")
+        if problems or summary["journal"]["verified"] < DUR_P:
+            return out, launches, f"step_chunk run: journal {summary['journal']}, problems {problems}"
+        bad = same_as_unkilled("step_chunk", summary)  # the port's step_chunk is bit-identical
+        if bad:
+            return out, launches, bad
+
+        # 4. a snapshot at the north star's population: 256 members, 1 x 5
+        # steps, twice (the same digest), saved once and restored
+        gn.reset_launches()
+        ns = []
+        for _ in range(2):
+            res = fused_pbt(wl, population=CNN_P, generations=1, steps_per_gen=5, seed=0,
+                            member_chunk=CNN_CHUNK)
+            st = res["state"]
+            ns.append((res, integrity.tree_digest(
+                {"params": st.params, "momentum": st.momentum, "step": st.step})))
+        for k, v in gn.LAUNCHES.items():
+            launches[k] += v
+        if ns[0][1] != ns[1][1]:
+            return out, launches, f"two population-256 runs differ: {ns[0][1]} vs {ns[1][1]}"
+        res = ns[0][0]
+        ck = SweepCheckpointer(os.path.join(tmp, "snapshot_p256"), {"population": CNN_P})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # the payload fused_pbt saves; the scores' values do not matter here
+        ck.save_population_sweep(1, res["state"], torch.from_numpy(res["unit"]).cuda(),
+                                 torch.Generator(device="cuda"), torch.zeros(CNN_P),
+                                 {"launches_done": 1})
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(r, f))
+                     for r, _, fs in os.walk(os.path.join(tmp, "snapshot_p256")) for f in fs)
+        t0 = time.perf_counter()
+        state, *_ = ck.restore_population_sweep()
+        restore_s = time.perf_counter() - t0
+        back = integrity.tree_digest({"params": state.params, "momentum": state.momentum,
+                                      "step": state.step})
+        # where the save's time goes: the same three steps one at a time
+        st = res["state"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = {"params": {k: v.to("cpu") for k, v in st.params.items()},
+                "momentum": {k: v.to("cpu") for k, v in st.momentum.items()}, "step": st.step.cpu()}
+        copy_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        integrity.tree_digest(host)
+        digest_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        integrity.write_step(os.path.join(tmp, "snapshot_p256"), 2, host, {}, {})
+        write_s = time.perf_counter() - t0
+        out["snapshot_p256"] = {"card": smi, "save_s": save_s, "restore_verify_s": restore_s,
+                                "bytes": nbytes, "state_digest": ns[0][1], "host_copy_s": copy_s,
+                                "digest_s": digest_s, "write_fsync_s": write_s}
+        print(f"snapshot p256 ({smi}): save {save_s} s (host copy {copy_s} s, digest {digest_s} s, "
+              f"write+fsync {write_s} s), restore+verify {restore_s} s, {nbytes} bytes on disk")
+        if back != ns[0][1]:
+            return out, launches, "the population-256 snapshot restored other bytes"
+        out["launches"] = launches
+        return out, launches, None
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline-cu", default=None,
@@ -625,6 +910,19 @@ def main() -> int:
         return fail(bad)
     record["launches"] = launches["smallcnn_p256"]
     print("north-star " + json.dumps(record))
+    # the same run with cuDNN's deterministic algorithms, in turns with
+    # the defaults: default (above), deterministic, deterministic, default
+    det = {"card": smi, "default": [record["value"]], "deterministic": [], "same_curve": []}
+    for on in (True, True, False):
+        torch.backends.cudnn.deterministic = on
+        try:
+            r, _ = bench.run(population=CNN_P, generations=NS_GENS, steps=NS_STEPS, seed=0,
+                             member_chunk=CNN_CHUNK, gen_chunk=1)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        det["deterministic" if on else "default"].append(r["value"])
+        det["same_curve"].append(r["best_curve"] == record["best_curve"])
+    print("determinism-cost " + json.dumps(det))
 
     # 7. where a steady north-star step's device time goes
     cnn_prof = profile_phase(get_workload("cifar10_cnn"), ns, member_chunk=CNN_CHUNK,
@@ -643,7 +941,14 @@ def main() -> int:
                "mean_curve": mlp["mean_curve"].tolist(), "launch_walls_s": mlp["launch_walls"]}
     print("fashion-mlp " + json.dumps(mlp_out))
 
-    # 9. the kernels line (a population step of each path, summed; launches
+    # 9. durability: snapshots, ledger, drain and crash resumes through the
+    # CLI, step_chunk, and the snapshot's cost at the north star's population
+    durability, launches["durability"], bad = durability_phase(gn, fused_pbt, get_workload, smi)
+    print("durability " + json.dumps(durability))
+    if bad:
+        return fail(bad)
+
+    # 10. the kernels line (a population step of each path, summed; launches
     # summed over every path), then the device line
     src = "mpi_opt_tpu_torch/csrc/group_norm.cu"
     kernels = []
@@ -655,14 +960,16 @@ def main() -> int:
         entry["max_abs_err"] = max(t[k]["max_abs_err"] for t in tot.values())
         entry["bound_share"] = entry["bound_ms"] / entry["ms"]
         entry["by_path"] = {path: {**tot[path][k], "launches": launches[path][k]} for path in STEP_PATHS}
+        entry["by_path"]["durability"] = {"launches": launches["durability"][k]}
         kernels.append(entry)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     out = os.path.join(ROOT, "chiprun_out", "chip_smoke.json")
     with open(out + ".tmp", "w") as f:
         json.dump({"card": smi, "kernels": kernels, "totals": tot, "shapes": rows, "clamp": clamp,
                    "model_check": model, "smallcnn_check": cnn_model, "slice": slice_out,
-                   "profile": prof, "north_star": record, "profile_smallcnn": cnn_prof,
-                   "fashion_mlp": mlp_out, "launches": launches}, f, indent=1)
+                   "profile": prof, "north_star": record, "determinism_cost": det,
+                   "profile_smallcnn": cnn_prof,
+                   "fashion_mlp": mlp_out, "durability": durability, "launches": launches}, f, indent=1)
     os.replace(out + ".tmp", out)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,10 @@
 
 Fused PBT over a population of networks, trained as one program on an
 NVIDIA GPU, with the JAX package's TPU kernels rewritten as CUDA
-kernels (``csrc/``). Entry points run on CUDA unless the caller passes
-``device="cpu"``; nothing falls back to the CPU on its own.
+kernels (``csrc/``), made crash-recoverable by verified snapshots and a
+member-granular ledger journal. ``python -m mpi_opt_tpu_torch`` is the
+command line (``cli.py``). Entry points run on CUDA unless the caller
+passes ``device="cpu"``; nothing falls back to the CPU on its own.
 """
 
 from mpi_opt_tpu_torch.device import resolve_device

@@ -1,0 +1,381 @@
+"""Command line of the port (port of the ``--fused --algorithm pbt`` path
+of ``mpi_opt_tpu/cli.py``).
+
+    python -m mpi_opt_tpu_torch --workload cifar10_cnn --algorithm pbt --fused \\
+        --population 32 --generations 4 --steps-per-generation 20 \\
+        --checkpoint-dir ck --ledger sweep.jsonl [--resume] [--device cpu]
+
+It runs on CUDA unless ``--device cpu`` is given. The summary is the JAX
+CLI's single JSON line (after the metrics events), and so are the exit
+codes: 0 done; 2 usage; 65 a data dead-end (no verified snapshot, or a
+ledger that diverges from or lags the sweep); 74 a device OOM or a
+full disk; 75 a graceful drain on SIGTERM/SIGINT, with the snapshot
+flushed: rerun with ``--resume``. A flag or subcommand of the JAX CLI
+that the port does not take yet is a usage error that says so; none is
+silently ignored.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+from mpi_opt_tpu_torch.health import SweepInterrupted
+from mpi_opt_tpu_torch.health import heartbeat as _heartbeat
+from mpi_opt_tpu_torch.health import shutdown as _shutdown
+from mpi_opt_tpu_torch.ops.pbt import PBTConfig
+from mpi_opt_tpu_torch.utils import integrity, resources
+from mpi_opt_tpu_torch.utils.exitcodes import EX_DATAERR, EX_IOERR, EX_TEMPFAIL
+from mpi_opt_tpu_torch.utils.integrity import NoVerifiedSnapshotError
+from mpi_opt_tpu_torch.utils.metrics import stdout_logger
+from mpi_opt_tpu_torch.workloads import _REGISTRY, get_workload
+
+# the JAX CLI's algorithms; only pbt runs in the port
+ALGORITHMS = ("asha", "bohb", "hyperband", "pbt", "random", "tpe")
+# the JAX CLI's subcommands
+_SUBCOMMANDS = ("report", "fsck", "lint", "trace", "serve", "submit", "status", "cancel",
+                "drain", "corpus", "suggest-client")
+# the JAX CLI's flags that the port does not take yet: valued, then boolean
+_NOT_PORTED_FLAGS = (
+    "--backend", "--trials", "--budget", "--workers", "--warm-start", "--profile-dir",
+    "--profile-launches", "--min-budget", "--max-budget", "--eta", "--wave-size",
+    "--oom-backoff", "--objectives", "--coordinator", "--num-processes", "--process-id",
+    "--platform", "--local-devices", "--n-data", "--n-pop", "--trial-retries",
+    "--trial-timeout", "--max-failure-rate", "--chaos", "--coord-dir",
+    "--coord-epoch", "--coord-timeout", "--rank-kill", "--suggest-serve",
+    "--suggest-idle-timeout", "--http-port", "--http-queue", "--http-state-dir",
+)
+_NOT_PORTED_SWITCHES = ("--trace", "--multihost", "--no-mesh", "--isolate-stateful")
+
+
+class _NotPorted(argparse.Action):
+    """A JAX CLI flag the port does not take yet: a usage error."""
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        parser.error(f"{option_string} is not ported yet (mpi_opt_tpu_torch runs "
+                     "--fused --algorithm pbt only)")
+
+
+def _wire_integrity_observer(metrics):
+    """Snapshot-corruption events into this run's metrics stream; each
+    ``snapshot_corrupt`` also counts one quarantine."""
+
+    def observe(event, **fields):
+        metrics.log(event, **fields)
+        if event == "snapshot_corrupt":
+            metrics.count_quarantined()
+
+    integrity.set_observer(observe)
+
+
+def _wire_resource_observer(metrics):
+    """Resource events (``snapshot_pruned``) into the metrics stream."""
+
+    def observe(event, **fields):
+        metrics.log(event, **fields)
+        if event == "snapshot_pruned":
+            metrics.count_pruned()
+
+    resources.set_observer(observe)
+
+
+def _resource_exit(e, metrics, kind: str, **summary_fields) -> int:
+    """A device OOM or a disk still full after the prune retry: durable
+    state is intact, but a retry without operator action fails the same
+    way, so exit ``EX_IOERR`` (74)."""
+    metrics.summary(final=True)
+    print(json.dumps({"resource_exhausted": str(e), "kind": kind, **summary_fields}))
+    hint = ("free disk space, then relaunch with --resume" if kind == "storage_full"
+            else "reduce residency: a smaller --population or --member-chunk")
+    print(f"{e}\n({hint}; exit {EX_IOERR})", file=sys.stderr)
+    return EX_IOERR
+
+
+def _data_error_exit(e, metrics, **summary_fields) -> int:
+    """No verified snapshot remains, or the journal diverges from the
+    sweep: a retry re-reads the same state, so exit ``EX_DATAERR`` (65)."""
+    metrics.summary(final=True)
+    print(json.dumps({"data_error": str(e), **summary_fields}))
+    print(f"{e}\n(no retry can help: exit {EX_DATAERR})", file=sys.stderr)
+    return EX_DATAERR
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="mpi_opt_tpu_torch",
+        description="hyperparameter optimization on an NVIDIA GPU (the PyTorch port)",
+    )
+    p.add_argument("--workload", required=True, choices=sorted(_REGISTRY))
+    p.add_argument("--algorithm", default="random", choices=ALGORITHMS,
+                   help="only pbt is ported")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--metrics-file", default=None, help="JSONL metrics output path")
+    p.add_argument("--ledger", default=None, metavar="PATH",
+                   help="journal one record per population member at every generation "
+                   "(fsync'd per record, before the generation's snapshot); with --resume "
+                   "the re-trained generations are verified against it")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="verified launch-granular snapshots written here")
+    p.add_argument("--checkpoint-every", type=int, default=1, help="launches between snapshots")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the newest verified snapshot in --checkpoint-dir "
+                   "(starts fresh if it holds none)")
+    p.add_argument("--population", type=int, default=32)
+    p.add_argument("--generations", type=int, default=10)
+    p.add_argument("--steps-per-generation", type=int, default=200)
+    p.add_argument("--truncation", type=float, default=0.25)
+    p.add_argument("--fused", action="store_true",
+                   help="run the whole sweep on the device (required: the driver path "
+                   "is not ported)")
+    p.add_argument("--member-chunk", type=int, default=0,
+                   help="process members in chunks of this size (activation memory)")
+    p.add_argument("--gen-chunk", type=int, default=0,
+                   help="generations per launch (the split is bit-identical)")
+    p.add_argument("--step-chunk", type=int, default=0,
+                   help="training steps per sub-launch within a generation (bit-identical "
+                   "in the port; recorded in the snapshot config)")
+    p.add_argument("--retries", type=int, default=0,
+                   help="retry the sweep this many times on a transient I/O failure; "
+                   "with --checkpoint-dir each retry resumes at the last snapshot")
+    p.add_argument("--heartbeat-file", default=None, metavar="PATH",
+                   help="write a monotonic progress beat (atomic JSON rewrite) to this file "
+                   "at every launch boundary and, with --step-chunk, every training "
+                   "sub-launch: the liveness signal an external watchdog reads")
+    p.add_argument("--device", default=None, choices=("cuda", "cpu"),
+                   help="where the sweep runs (default cuda; the port never falls "
+                   "back to the CPU on its own)")
+    for flag in _NOT_PORTED_FLAGS:
+        p.add_argument(flag, nargs="?", action=_NotPorted, help=argparse.SUPPRESS)
+    for flag in _NOT_PORTED_SWITCHES:
+        p.add_argument(flag, nargs=0, action=_NotPorted, help=argparse.SUPPRESS)
+    return p
+
+
+_TRANSIENT_MARKERS = ("unavailable", "deadline", "connection reset", "timed out")
+
+
+def _is_transient(e: BaseException) -> bool:
+    """Retry-worthy errors: a transport-layer ``OSError`` whose message
+    names the failure as transient. A CUDA error is never retried in the
+    process: the CUDA context does not survive it."""
+    return isinstance(e, OSError) and not resources.is_storage_full(e) and any(
+        m in str(e).lower() for m in _TRANSIENT_MARKERS
+    )
+
+
+def _run_with_retries(launch, retries: int, metrics):
+    """Run ``launch()``; on a transient failure retry up to ``retries``
+    times (with a checkpoint directory each retry is a resume)."""
+    attempt = 0
+    while True:
+        try:
+            return launch()
+        except Exception as e:
+            if attempt >= retries or not _is_transient(e):
+                if attempt:
+                    metrics.log("retry_exhausted", attempts=attempt,
+                                error=f"{type(e).__name__}: {e}"[:1000])
+                raise
+            attempt += 1
+            metrics.log("retry", attempt=attempt, of=retries, error=f"{type(e).__name__}: {e}"[:300])
+
+
+def _finite_or_null(obj):
+    """Non-finite floats become null at the JSON boundary (strict JSON
+    has no NaN); the result dicts keep their NaNs."""
+    import math
+
+    if isinstance(obj, float):
+        return obj if math.isfinite(obj) else None
+    if isinstance(obj, dict):
+        return {k: _finite_or_null(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_finite_or_null(v) for v in obj]
+    return obj
+
+
+def _has_snapshot(directory) -> bool:
+    """Does a committed sweep snapshot live under ``directory``? A step
+    is a numeric directory holding the port's commit marker, so an
+    unrelated numeric directory does not count."""
+    import os
+
+    if not directory or not os.path.isdir(directory):
+        return False
+    for root, dirs, _files in os.walk(directory):
+        for d in dirs:
+            if d.isdigit() and os.path.exists(os.path.join(root, d, integrity.COMMIT_MARKER)):
+                return True
+    return False
+
+
+def run_fused(args, parser, workload) -> int:
+    """--fused: the whole sweep on the device (``train.fused_pbt``), with
+    the JAX CLI's summary line and exit codes."""
+    import time
+
+    from mpi_opt_tpu_torch.ledger import LedgerError
+    from mpi_opt_tpu_torch.workloads.base import PopulationWorkload
+
+    if not isinstance(workload, PopulationWorkload):
+        parser.error(f"--fused requires a population workload, not {args.workload!r}")
+    # resuming is explicit: a stale checkpoint directory must not
+    # silently continue an old sweep
+    if args.checkpoint_dir and not args.resume and _has_snapshot(args.checkpoint_dir):
+        parser.error(
+            f"--checkpoint-dir {args.checkpoint_dir!r} already holds a sweep snapshot; "
+            "pass --resume to continue it, or point at a fresh directory"
+        )
+    metrics = stdout_logger(path=args.metrics_file, n_chips=1)
+    _wire_integrity_observer(metrics)
+    _wire_resource_observer(metrics)
+    space = workload.default_space()
+    ledger = _open_fused_ledger(args, parser, space, metrics)
+    t0 = time.perf_counter()
+    fields = dict(workload=args.workload, algorithm=args.algorithm, backend="fused")
+    try:
+        with resources.oom_funnel():
+            return _run_fused_dispatch(args, workload, metrics, t0, ledger)
+    except resources.DeviceOOM as e:
+        return _resource_exit(e, metrics, "device_oom", **fields)
+    except resources.StorageFull as e:
+        return _resource_exit(e, metrics, "storage_full", **fields)
+    except (NoVerifiedSnapshotError, LedgerError) as e:
+        return _data_error_exit(e, metrics, **fields)
+    except SweepInterrupted as e:
+        # the drained launch's snapshot is flushed: --resume continues
+        metrics.count_preempted()
+        metrics.summary(final=True)
+        print(json.dumps({"preempted": True, "signal": e.signal, "at": e.at, **fields}))
+        print(f"graceful shutdown ({e.signal}) at {e.at}: snapshot flushed; "
+              f"relaunch with --resume to continue (exit {EX_TEMPFAIL})", file=sys.stderr)
+        return EX_TEMPFAIL
+    finally:
+        if ledger is not None:
+            ledger.close()
+        metrics.close()
+
+
+def _open_fused_ledger(args, parser, space, metrics):
+    """Open and identity-check the sweep's ledger (None without
+    --ledger), committing the JAX CLI's fused PBT header before the
+    sweep starts: a stale journal needs --resume, and a journal of
+    another sweep is refused."""
+    if not args.ledger:
+        return None
+    from mpi_opt_tpu_torch.ledger import LedgerError, SweepLedger
+
+    try:
+        # one process journals: the port has no multi-process SPMD yet
+        ledger = SweepLedger(args.ledger, read_only=False)
+    except LedgerError as e:
+        parser.error(f"--ledger: {e}")
+    if ledger.records and not args.resume:
+        ledger.close()
+        parser.error(
+            f"--ledger {args.ledger!r} already holds {len(ledger.records)} member records; "
+            "pass --resume to verify and continue them, or point at a fresh path"
+        )
+    config = {
+        "mode": "fused",
+        "granularity": "generation",
+        "algorithm": args.algorithm,
+        "workload": args.workload,
+        "backend": "fused",
+        "seed": args.seed,
+        "space_hash": space.space_hash(),
+        "warm_start": None,
+        "population": args.population,
+        "generations": args.generations,
+        "steps_per_generation": args.steps_per_generation,
+    }
+    try:
+        ledger.ensure_header(config, space_spec=space.spec())
+    except LedgerError as e:
+        ledger.close()
+        parser.error(f"--ledger: {e}")
+    if ledger.n_torn:
+        metrics.log("ledger_torn_tail_dropped", path=args.ledger)
+    if ledger.n_torn_boundary:
+        metrics.log("ledger_torn_boundary_dropped", path=args.ledger, records=ledger.n_torn_boundary)
+    return ledger
+
+
+def _run_fused_dispatch(args, workload, metrics, t0, ledger) -> int:
+    """Run the sweep, then print the JAX CLI's fused summary line."""
+    import time
+
+    from mpi_opt_tpu_torch.train.fused_pbt import fused_pbt
+
+    res = _run_with_retries(lambda: fused_pbt(
+        workload,
+        population=args.population,
+        generations=args.generations,
+        steps_per_gen=args.steps_per_generation,
+        seed=args.seed,
+        cfg=PBTConfig(truncation_frac=args.truncation),
+        member_chunk=args.member_chunk,
+        gen_chunk=args.gen_chunk,
+        step_chunk=args.step_chunk,
+        checkpoint_dir=args.checkpoint_dir,
+        snapshot_every=args.checkpoint_every,
+        ledger=ledger,
+        device=args.device,
+    ), args.retries, metrics)
+    n_trials = args.population * args.generations
+    wall = time.perf_counter() - t0
+    metrics.count_trials(n_trials)
+    member_failures = res["member_failures"]
+    summary = {
+        "workload": args.workload,
+        "algorithm": args.algorithm,
+        "backend": "fused",
+        "mesh": None,
+        "n_chips": 1,
+        "n_trials": n_trials,
+        "member_failures": member_failures,
+        "wall_s": round(wall, 3),
+        "trials_per_sec_per_chip": round(n_trials / max(wall, 1e-9), 4),
+        "best_score": None if res["best_params"] is None else round(res["best_score"], 6),
+        "best_params": res["best_params"],
+        "best_curve": [round(float(v), 4) for v in res["best_curve"]],
+    }
+    if res["journal"] is not None:
+        metrics.count_journaled(res["journal"]["written"])
+        summary["journal"] = dict(res["journal"])
+    metrics.summary(final=True, member_failures=int(sum(member_failures)))
+    print(json.dumps(_finite_or_null(summary)))
+    return 0
+
+
+def main(argv=None) -> int:
+    if argv is None:
+        argv = sys.argv[1:]
+    parser = build_parser()
+    if argv and argv[0] in _SUBCOMMANDS:
+        parser.error(f"the {argv[0]!r} subcommand is not ported yet")
+    args = parser.parse_args(argv)
+    if args.resume and not (args.checkpoint_dir or args.ledger):
+        parser.error("--resume requires --checkpoint-dir or --ledger")
+    if not args.fused:
+        parser.error("the driver path (no --fused) is not ported yet; pass --fused")
+    if args.algorithm != "pbt":
+        parser.error(f"--fused --algorithm {args.algorithm} is not ported yet; "
+                     "the port runs --algorithm pbt")
+    # SIGTERM/SIGINT set a drain flag; the next launch boundary flushes
+    # the snapshot and the run exits EX_TEMPFAIL. The heartbeat, like
+    # the handlers, is dropped on the way out
+    try:
+        with _shutdown.ShutdownGuard():
+            if args.heartbeat_file:
+                _heartbeat.configure(args.heartbeat_file)
+            return run_fused(args, parser, get_workload(args.workload))
+    finally:
+        _heartbeat.deconfigure()
+        integrity.clear_observer()
+        resources.clear_observer()
+
+
+if __name__ == "__main__":
+    sys.exit(main())

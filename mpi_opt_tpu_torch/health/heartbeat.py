@@ -1,0 +1,99 @@
+"""Per-process progress heartbeat (port of
+``mpi_opt_tpu/health/heartbeat.py``): the liveness signal exit codes
+cannot give.
+
+A process wedged in a collective or in dead I/O is alive to
+``waitpid``. The heartbeat is the missing observable: the process
+rewrites one small JSON file at every unit of real progress (each
+fused launch boundary) with a monotonic beat counter, a wall timestamp
+and progress fields; a supervisor that sees the counter frozen while
+the process lives has found a hang.
+
+Writes are write-tmp-then-rename, so a reader never sees a torn record,
+and deliberately not fsync'd: the file signals liveness, not history.
+A heartbeat that cannot be written warns once and goes quiet; it never
+kills the sweep it reports on.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Optional
+
+
+class Heartbeat:
+    """Beats come from the sweep's one thread (the port has no staging
+    thread yet, which the JAX package's lock serves)."""
+
+    def __init__(self, path: str):
+        self.path = os.path.abspath(path)
+        os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
+        self.beats = 0
+        self._warned = False
+
+    def beat(self, **progress) -> Optional[dict]:
+        """Record one unit of progress; returns the record (None if the
+        write failed: warned once, never raised). ``phase`` (the active
+        trace span in the JAX package) is None until span tracing is
+        ported."""
+        self.beats += 1
+        rec = {
+            "pid": os.getpid(),
+            "beats": self.beats,
+            "ts": round(time.time(), 4),
+            "phase": None,
+            "progress": progress,
+        }
+        tmp = f"{self.path}.tmp{os.getpid()}"
+        try:
+            with open(tmp, "w") as f:
+                f.write(json.dumps(rec))
+            os.replace(tmp, self.path)
+        except OSError as e:
+            if not self._warned:
+                self._warned = True
+                import warnings
+
+                warnings.warn(
+                    f"heartbeat write to {self.path} failed ({e}); liveness "
+                    "reporting disabled for this process",
+                    stacklevel=2,
+                )
+            return None
+        return rec
+
+
+_ACTIVE: Optional[Heartbeat] = None
+
+
+def configure(path: str) -> Heartbeat:
+    """Install the process-wide heartbeat (the CLI's --heartbeat-file)."""
+    global _ACTIVE
+    _ACTIVE = Heartbeat(path)
+    return _ACTIVE
+
+
+def deconfigure() -> None:
+    """Drop the process-wide heartbeat (end of a CLI run)."""
+    global _ACTIVE
+    _ACTIVE = None
+
+
+def beat(**progress) -> None:
+    """Module-level beat: no-op unless a heartbeat is configured, so
+    library code calls it unconditionally."""
+    if _ACTIVE is not None:
+        _ACTIVE.beat(**progress)
+
+
+def read_beat(path: str) -> Optional[dict]:
+    """The last complete beat record at ``path``, or None (missing,
+    unreadable or torn)."""
+    try:
+        with open(path, "r") as f:
+            rec = json.loads(f.read())
+    except (OSError, json.JSONDecodeError):
+        return None
+    return rec if isinstance(rec, dict) else None

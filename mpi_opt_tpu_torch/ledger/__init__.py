@@ -1,0 +1,27 @@
+"""Durable sweep ledger (port of ``mpi_opt_tpu/ledger/``): the
+append-only, fsync-per-record JSONL journal (``store``) and its
+boundary-granular member view for fused sweeps (``fused``). Both write
+the JAX package's schema byte for byte, so either package reads the
+other's ledgers. The exact-match cache and warm start are not ported
+yet."""
+
+from mpi_opt_tpu_torch.ledger.fused import FusedJournal, make_journal
+from mpi_opt_tpu_torch.ledger.store import (
+    LEDGER_SCHEMA_VERSION,
+    LedgerError,
+    SweepLedger,
+    read_ledger,
+    scan_boundaries,
+    validate_ledger,
+)
+
+__all__ = [
+    "FusedJournal",
+    "LEDGER_SCHEMA_VERSION",
+    "LedgerError",
+    "SweepLedger",
+    "make_journal",
+    "read_ledger",
+    "scan_boundaries",
+    "validate_ledger",
+]

@@ -219,6 +219,21 @@ class SearchSpace:
         payload = json.dumps(self.spec(), sort_keys=True)
         return hashlib.sha256(payload.encode()).hexdigest()[:16]
 
+    def canonical_params(self, params: Mapping[str, Any]) -> dict[str, Any]:
+        """One hparam dict -> its canonical JSON-able form, byte-equal to
+        the JAX package's: keys restricted to this space's dimensions in
+        insertion order (``__``-prefixed plumbing keys dropped), values
+        plain JSON scalars, so the same point serialises to the same
+        bytes live from ``materialize_row`` or back from a ledger."""
+        missing = [n for n in self.names if n not in params]
+        if missing:
+            raise KeyError(f"params missing dimensions {missing} of {self.names}")
+        return {name: _plain(params[name]) for name in self.names}
+
+    def params_key(self, params: Mapping[str, Any]) -> str:
+        """Canonical exact-match key for one point."""
+        return json.dumps(self.canonical_params(params), sort_keys=True)
+
     def __repr__(self):
         inner = ", ".join(f"{k}={v}" for k, v in self.domains.items())
         return f"SearchSpace({inner})"

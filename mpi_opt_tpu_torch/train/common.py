@@ -18,3 +18,39 @@ def finite_winner(scores, ok=None):
 def hparams_fn(space, workload):
     """unit matrix [P, d] -> the workload's ``OptHParams``."""
     return lambda unit: workload.make_hparams(space.from_unit(unit))
+
+
+def momentum_dtype_str() -> str:
+    """Checkpoint-config form of the momentum storage dtype ('float32'
+    by default). The dtype is part of the carried state's structure, so
+    resuming a bf16-momentum snapshot into an f32 trainer is refused as
+    a config mismatch."""
+    from mpi_opt_tpu_torch.workloads.base import resolve_momentum_dtype
+
+    return resolve_momentum_dtype() or "float32"
+
+
+def launch_boundary(stage: str, *, final: bool, snapshot=None, **progress) -> None:
+    """The fused host loop's per-launch service point, called once at
+    the end of every launch, after its results were fetched and
+    journaled: the ``boundary_fault`` seam, the heartbeat, then a
+    pending graceful-shutdown request is honoured by flushing the
+    boundary snapshot via ``snapshot()`` (None when the cadence save
+    already ran or the sweep does not checkpoint) and raising
+    ``SweepInterrupted``, so the CLI exits ``EX_TEMPFAIL``.
+    ``final=True`` (the last boundary) suppresses the drain: completing
+    a finished sweep beats preempting it.
+
+    The port runs one process, so the JAX package's multi-process drain
+    agreement (``parallel/coord.py``) is not here, and it has no sweep
+    service, so neither is the service's per-boundary slice hook."""
+    from mpi_opt_tpu_torch.health import heartbeat, shutdown
+    from mpi_opt_tpu_torch.utils import resources
+
+    resources.boundary_fault(stage)
+    heartbeat.beat(stage=stage, **progress)
+    if final or not shutdown.requested():
+        return
+    if snapshot is not None:
+        snapshot()
+    raise shutdown.SweepInterrupted(shutdown.active_signal(), at=stage)

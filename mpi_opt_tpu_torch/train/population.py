@@ -177,7 +177,9 @@ class PopulationTrainer:
             if self.augment and bx.dim() == 4:
                 aug = draw_augment(generator, hp.flip_prob, hp.shift, self.batch_size)
             losses.append(self._pop_update(state, hp, aug, bx, by).mean())
-        return state, torch.stack(losses)
+        # zero steps (an eval-only generation) is an empty curve, as the
+        # JAX package's empty scan gives
+        return state, torch.stack(losses) if losses else torch.zeros(0, device=train_x.device)
 
     @torch.no_grad()
     def eval_population(self, state: PopState, val_x, val_y, eval_chunk: int = 1024):

@@ -1,1 +1,2 @@
-"""Host-side helpers of the port: sweep metrics and FLOP accounting."""
+"""Host-side helpers of the port: sweep metrics, FLOP accounting, exit
+codes, resource classification, snapshot integrity and checkpoints."""

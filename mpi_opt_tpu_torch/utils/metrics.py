@@ -1,9 +1,101 @@
-"""Wall-clock-to-target metrics of a sweep (port of the pure-Python part
-of ``mpi_opt_tpu/utils/metrics.py``: ``wall_to_target``,
-``wall_to_target_launchwise``, ``sweep_wall_to_target``, copied so that
-the port imports nothing of the JAX package)."""
+"""Sweep metrics (port of the pure-Python ``mpi_opt_tpu/utils/metrics.py``,
+copied so that the port imports nothing of the JAX package):
+``MetricsLogger`` (JSONL events and the counters the fused CLI path
+reads) and the wall-clock-to-target helpers ``wall_to_target``,
+``wall_to_target_launchwise``, ``sweep_wall_to_target``."""
 
 from __future__ import annotations
+
+import json
+import sys
+import threading
+import time
+from typing import IO, Optional
+
+
+class MetricsLogger:
+    """One JSON object per event to a file and/or a stream, plus the
+    run's counters, reported by ``summary``."""
+
+    def __init__(self, path: Optional[str] = None, stream: Optional[IO] = None, n_chips: int = 1):
+        self._file = open(path, "a") if path else None
+        self._stream = stream
+        self._sink_lock = threading.Lock()  # whole lines, never interleaved
+        self.n_chips = max(1, n_chips)
+        self.t_start = time.perf_counter()
+        self.trials_done = 0
+        # graceful-shutdown drains honoured (0 or 1 a run)
+        self.preempted = 0
+        # snapshot steps that failed verification on restore and were
+        # quarantined before the walk-back
+        self.snapshots_quarantined = 0
+        # member records this process appended to the fused journal
+        # (records verified on resume are not counted)
+        self.members_journaled = 0
+        # superseded snapshot steps deleted by the ENOSPC prune retry
+        self.snapshots_pruned = 0
+
+    def log(self, event: str, **fields) -> dict:
+        # ``t`` is this process's clock; ``ts`` the absolute epoch
+        rec = {
+            "event": event,
+            "t": round(time.perf_counter() - self.t_start, 4),
+            "ts": round(time.time(), 4),
+            **fields,
+        }
+        if self._file or self._stream:
+            line = json.dumps(rec)
+            with self._sink_lock:
+                if self._file:
+                    self._file.write(line + "\n")
+                    self._file.flush()
+                if self._stream:
+                    print(line, file=self._stream, flush=True)
+        return rec
+
+    def count_trials(self, n: int):
+        self.trials_done += n
+
+    def count_preempted(self, n: int = 1):
+        self.preempted += n
+
+    def count_quarantined(self, n: int = 1):
+        self.snapshots_quarantined += n
+
+    def count_journaled(self, n: int = 1):
+        self.members_journaled += int(n)
+
+    def count_pruned(self, n: int = 1):
+        self.snapshots_pruned += int(n)
+
+    @property
+    def wall(self) -> float:
+        return time.perf_counter() - self.t_start
+
+    def trials_per_sec_per_chip(self) -> float:
+        return self.trials_done / max(self.wall, 1e-9) / self.n_chips
+
+    def summary(self, **extra) -> dict:
+        return self.log(
+            "summary",
+            trials=self.trials_done,
+            preempted=self.preempted,
+            snapshots_quarantined=self.snapshots_quarantined,
+            members_journaled=self.members_journaled,
+            snapshots_pruned=self.snapshots_pruned,
+            wall_s=round(self.wall, 3),
+            trials_per_sec_per_chip=round(self.trials_per_sec_per_chip(), 4),
+            **extra,
+        )
+
+    def close(self):
+        if self._file:
+            self._file.close()
+            self._file = None
+
+
+def stdout_logger(path: Optional[str] = None, n_chips: int = 1) -> MetricsLogger:
+    return MetricsLogger(path=path, stream=sys.stdout, n_chips=n_chips)
 
 
 def wall_to_target(curve, wall_s: float, target: float):

@@ -14,7 +14,7 @@ from mpi_opt_tpu_torch import fused_pbt, get_workload
 from mpi_opt_tpu_torch.ops import group_norm as gn
 
 KEYS = {"best_score", "best_params", "diverged", "best_curve", "mean_curve",
-        "member_failures", "state", "unit", "launch_gens", "launch_walls"}
+        "member_failures", "state", "unit", "launch_gens", "launch_walls", "journal"}
 RUN = dict(population=4, generations=2, steps_per_gen=2, seed=0, device="cpu")
 
 
@@ -74,12 +74,40 @@ def test_default_device_raises_without_cuda(workload, monkeypatch):
 
 @pytest.mark.parametrize(
     "arg,value",
-    [("mesh", object()), ("step_chunk", 2), ("wave_size", 2), ("checkpoint_dir", "ck"),
-     ("ledger", object()), ("warm_obs", [1]), ("objectives", object()), ("oom_backoff", 0)],
+    [("mesh", object()), ("wave_size", 2), ("warm_obs", [1]), ("objectives", object())],
 )
 def test_out_of_scope_arguments_raise(workload, arg, value):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         fused_pbt(workload, **RUN, **{arg: value})
+
+
+@pytest.mark.parametrize("arg", ["step_chunk", "checkpoint_dir", "ledger", "oom_backoff"])
+def test_durability_arguments_run(arg, tmp_path):
+    """The arguments ported with the durability layer: each runs and
+    leaves the sweep's result as it is (the MLP keeps this fast;
+    ``test_torch_fused_resume.py`` holds their contracts)."""
+    from mpi_opt_tpu_torch.ledger import SweepLedger
+    from mpi_opt_tpu_torch.utils import integrity
+
+    wl = get_workload("fashion_mlp", n_train=256, n_val=128)
+    kw = dict(population=4, generations=2, steps_per_gen=2, seed=0, gen_chunk=1, device="cpu")
+    base = fused_pbt(wl, **kw)
+    value = {"step_chunk": 1, "checkpoint_dir": str(tmp_path / "ck"), "oom_backoff": 0}.get(arg)
+    if arg == "ledger":
+        value = SweepLedger(str(tmp_path / "l.jsonl"))
+        value.ensure_header({"mode": "fused", "space_hash": wl.default_space().space_hash()})
+    res = fused_pbt(wl, **kw, **{arg: value})
+    np.testing.assert_array_equal(res["best_curve"], base["best_curve"])
+    np.testing.assert_array_equal(res["unit"], base["unit"])
+    for k, v in base["state"].params.items():
+        assert torch.equal(res["state"].params[k], v), k
+    if arg == "checkpoint_dir":
+        assert integrity._committed_steps(value) == [1, 2]
+    if arg == "ledger":
+        value.close()
+        assert res["journal"] == {"written": 8, "verified": 0}
+    else:
+        assert res["journal"] is None
 
 
 def test_momentum_dtype_knob_raises(workload, monkeypatch):
