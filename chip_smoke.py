@@ -45,13 +45,39 @@ Phases, in order; any failure exits non-zero and prints no result:
    parameters do not fit the card (65536 members) 74. Last, two
    256-member runs (1 x 5 steps) must agree, and one snapshot of their
    state is timed: save, restore and verify, bytes on disk;
-10. the ``kernels`` line (JSON), then the device line (JSON, last).
+10. the wave engine:
+   (a) the north star (256 full-width SmallCNN members, member chunk
+   32) at 2 x 20 through ``fused_pbt``: resident, waves of 64, waves of
+   64, resident, in turns, each with its member-generations/s, staging
+   counters and peak memory; the wave runs' state digest and best curve
+   must equal the resident runs'. Then waves of 48 (not a multiple of
+   the chunk), its largest parameter and score difference reported,
+   not gated; the time to allocate two pinned pools;
+   (b) a real OOM: the CLI at 64 members in waves of 32 and of 16, each
+   in a subprocess whose launcher reports the allocator's peak of
+   allocated bytes; then, capped by ``torch.cuda.set_per_process_memory_fraction``
+   halfway between the two peaks (only the launcher knows the cap),
+   ``--wave-size 32 --oom-backoff 2`` must exit 0 with one backoff and
+   the half-cap run's ledger records, and ``--oom-backoff 0`` exit 74;
+   (c) a drain between waves: phase 9's durability config through the
+   CLI in waves of 8 (member chunk 8): resident and wave runs must
+   journal the same records; SIGTERM once wave 2 of generation 1 is
+   dispatched must exit 75, and ``--resume`` exit 0, train only the
+   waves not yet completed (``waves_run``) and end with those records;
+   (d) fused SHA on fashion_mlp, 64 trials, budgets 10 -> 270, eta 3
+   (BENCH_ALL.json config 2), resident and in waves of 16 (config 9):
+   rung sizes [64, 22, 8, 3] and budgets [10, 30, 90, 270], trials/s
+   and staging counters; whether survivors and best agree is reported;
+   (e) config 5's wave cap (cifar100_resnet18, 1024 members): per-member
+   bytes, the measured budget, ``estimate_wave_size``, no training;
+11. the ``kernels`` line (JSON), then the script's wall and the device
+   line (JSON, last).
 
-Each path (4, 6, 8, 9) runs through the entry points a user calls, with
-the launch counts zeroed just before and read just after (in phase 9,
-its runs in this process): where the model has GroupNorm both kernels
-must have run, the plain versions never; the best score must be finite
-and the curves in [0, 1].
+Each path (4, 6, 8, 9, 10a, 10d) runs through the entry points a user
+calls, with the launch counts zeroed just before and read just after
+(in phase 9, its runs in this process; in 10a, each run): where the
+model has GroupNorm both kernels must have run, the plain versions
+never; the best score must be finite and the curves in [0, 1].
 
 Run from the repo root: ``python3 chip_smoke.py``. Details also go to
 chiprun_out/chip_smoke.json.
@@ -77,10 +103,12 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 # The ResNet-18 slice: 16 members folded into channels, batch 128. GN
 # sites per member: (spatial S, channels C, sites a population step with
 # ReLU, without); 32 groups each. Stage 0 = stem + gn1 x2 with ReLU, gn2
@@ -811,6 +839,329 @@ def durability_phase(gn, fused_pbt, get_workload, smi):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# The wave engine's phases: the north star in waves (a), a real OOM
+# absorbed by the CLI (b), a drain between waves and its resume (c), SHA
+# resident and in waves (d), and config 5's wave cap (e)
+WAVE, WAVE_ODD = 64, 48  # the north star's wave sizes: a multiple of CNN_CHUNK, and not
+OOM_P, OOM_GENS, OOM_STEPS, OOM_W = 64, 2, 5, 32  # the OOM drill: W fails, W/2 fits
+DRAIN_W, DRAIN_CHUNK = 8, 8  # the drain drill: DUR_P members in waves of 8
+SHA_TRIALS, SHA_MIN, SHA_MAX, SHA_ETA, SHA_W = 64, 10, 270, 3, 16  # BENCH_ALL.json configs 2 and 9
+C5_P = 1024  # BASELINE.json config 5: PBT over 1024 ResNet-18 members
+
+# a launcher for the port's CLI: caps this process's CUDA allocator at a
+# fraction of the card (0: no cap), runs the CLI, and writes the
+# allocator's peaks to a file at exit. Only this launcher knows the cap.
+_LAUNCHER = """
+import atexit, json, runpy, sys
+import torch
+frac, out = float(sys.argv[1]), sys.argv[2]
+if frac > 0:
+    torch.cuda.set_per_process_memory_fraction(frac)
+def dump():
+    with open(out, "w") as f:
+        json.dump({"max_reserved": torch.cuda.max_memory_reserved(),
+                   "max_allocated": torch.cuda.max_memory_allocated()}, f)
+atexit.register(dump)
+sys.argv = ["mpi_opt_tpu_torch", *sys.argv[3:]]
+runpy.run_module("mpi_opt_tpu_torch", run_name="__main__", alter_sys=True)
+"""
+
+
+def _state_digest(res) -> str:
+    from mpi_opt_tpu_torch.utils import integrity
+
+    st = res["state"]
+    return integrity.tree_digest({"params": st.params, "momentum": st.momentum, "step": st.step})
+
+
+def _wave_fields(res) -> dict:
+    keys = ("wave_size", "wave_lens", "n_waves", "waves_run", "oom_backoffs", "staged_bytes",
+            "stage_transfer_s", "stage_wait_s", "stage_overlap_s")
+    return {k: res[k] for k in keys if k in res}
+
+
+def north_star_waves_phase(gn, fused_pbt, get_workload, smi):
+    """(a) The north star (cifar10_cnn at full width, 256 members, member
+    chunk 32) at NS_GENS x NS_STEPS: resident, waves of 64, waves of 64,
+    resident, in turns; then waves of 48, reported against resident, not
+    gated. Returns (record, GN launches of the gated wave runs, problem)."""
+    from mpi_opt_tpu_torch.train import staging
+
+    wl = get_workload("cifar10_cnn")
+    wl.data()
+    out = {"card": smi, "population": CNN_P, "member_chunk": CNN_CHUNK, "generations": NS_GENS,
+           "steps_per_gen": NS_STEPS, "runs": []}
+    launches = {"gn_fwd": 0, "gn_bwd": 0, "plain": 0}
+    # what two full pools cost to allocate, pinned, at this population
+    trainer = wl.make_trainer(member_chunk=CNN_CHUNK, device="cuda")
+    t0 = time.perf_counter()
+    pools = [staging.population_pool(trainer, CNN_P) for _ in range(2)]
+    out["pool_alloc_s"] = time.perf_counter() - t0
+    out["pool_bytes"] = staging.tree_bytes(pools[0])
+    del pools
+    print(f"north-star waves ({smi}): two pinned pools of {out['pool_bytes']} bytes allocated in "
+          f"{out['pool_alloc_s']} s")
+    resident_state = None  # the first resident run's parameters, on the host
+    for tag, ws in (("resident", 0), ("wave64", WAVE), ("wave64", WAVE), ("resident", 0),
+                    ("wave48", WAVE_ODD)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        gn.reset_launches()
+        t0 = time.perf_counter()
+        res = fused_pbt(wl, population=CNN_P, generations=NS_GENS, steps_per_gen=NS_STEPS, seed=0,
+                        member_chunk=CNN_CHUNK, wave_size=ws)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run_launches = dict(gn.LAUNCHES)
+        bad = sweep_fault(res, NS_GENS, run_launches, f"the north star ({tag})")
+        if bad:
+            return out, launches, bad
+        if tag == "wave64":
+            for k in launches:
+                launches[k] += run_launches[k]
+        rec = {"tag": tag, "wave_size": ws, "wall_s": wall,
+               "member_generations_per_s": CNN_P * NS_GENS / wall,
+               "launch_walls_s": res["launch_walls"],
+               # what was allocated before the call (earlier phases' live
+               # tensors), and the call's peak above it
+               "baseline_allocated_bytes": base,
+               "peak_over_baseline_bytes": torch.cuda.max_memory_allocated() - base,
+               "max_memory_reserved_bytes": torch.cuda.max_memory_reserved(),
+               "state_digest": _state_digest(res), "best_curve": res["best_curve"].tolist(),
+               "launches": run_launches, **_wave_fields(res)}
+        out["runs"].append(rec)
+        print(f"north-star waves {tag}: {json.dumps(rec)}")
+        if resident_state is None:
+            resident_state = {k: v.cpu() for k, v in res["state"].params.items()}
+        if tag == "wave48":
+            # not a multiple of the member chunk: how far from resident
+            ref = out["runs"][0]
+            odd = {k: res["state"].params[k].cpu() for k in resident_state}
+            diffs = [odd[k] - v for k, v in resident_state.items()]
+            # members whose every parameter is bit-equal (NaN where NaN)
+            equal = torch.ones(CNN_P, dtype=torch.bool)
+            for k, v in resident_state.items():
+                same = (odd[k] == v) | (torch.isnan(odd[k]) & torch.isnan(v))
+                equal &= same.reshape(CNN_P, -1).all(dim=1)
+            out["wave48_vs_resident"] = {
+                "members_bit_equal": int(equal.sum()),
+                "max_abs_param_diff_finite": max(float(d[torch.isfinite(d)].abs().max()) for d in diffs),
+                "params_nonfinite_in_either": sum(int((~torch.isfinite(d)).sum()) for d in diffs),
+                "max_abs_best_curve_diff": max(abs(a - b) for a, b in zip(rec["best_curve"], ref["best_curve"])),
+                "same_digest": rec["state_digest"] == ref["state_digest"],
+            }
+            print(f"north-star waves 48 vs resident: {json.dumps(out['wave48_vs_resident'])}")
+        del res
+    ref = out["runs"][0]
+    for rec in out["runs"][:4]:
+        if (rec["state_digest"], rec["best_curve"]) != (ref["state_digest"], ref["best_curve"]):
+            return out, launches, (f"north star {rec['tag']}: state digest {rec['state_digest']} / "
+                                   f"curve {rec['best_curve']} vs resident {ref['state_digest']} / "
+                                   f"{ref['best_curve']}")
+    out["launches"] = launches
+    return out, launches, None
+
+
+def _launch_cli(argv, frac: float, peaks: str):
+    """Run the CLI through the capping launcher; (exit code, stdout lines
+    parsed as JSON, stderr, allocator peaks)."""
+    proc = subprocess.run([sys.executable, "-c", _LAUNCHER, str(frac), peaks, *argv], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+    try:
+        with open(peaks) as f:
+            mem = json.load(f)
+    except OSError:
+        mem = None
+    return proc.returncode, lines, proc.stderr, mem
+
+
+def oom_drill_phase(smi):
+    """(b) A real device OOM absorbed by the CLI: clean runs at waves of
+    OOM_W and OOM_W/2 measure the allocator's peak of allocated bytes
+    (the reserved peak also holds cached blocks the allocator frees
+    before it gives up); a run capped between the two, at --wave-size
+    OOM_W --oom-backoff 2, must exit 0 with one backoff and the clean
+    half-cap run's records; with --oom-backoff 0 it must exit 74."""
+    import shutil
+
+    from mpi_opt_tpu_torch.utils.exitcodes import EX_IOERR
+
+    tmp = os.path.join(ROOT, "build", "chip_smoke_oom")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    torch.cuda.empty_cache()  # this process's cached blocks are the card's too
+    out = {"card": smi, "population": OOM_P, "generations": OOM_GENS, "steps_per_gen": OOM_STEPS,
+           "wave_size": OOM_W}
+    try:
+        def argv(name, ws, backoff):
+            return ["--workload", "cifar10_cnn", "--algorithm", "pbt", "--fused", "--population",
+                    str(OOM_P), "--generations", str(OOM_GENS), "--steps-per-generation",
+                    str(OOM_STEPS), "--seed", "0", "--device", "cuda", "--wave-size", str(ws),
+                    "--oom-backoff", str(backoff), "--ledger", os.path.join(tmp, f"{name}.jsonl")]
+
+        clean = {}
+        for ws in (OOM_W, OOM_W // 2):
+            rc, lines, err, mem = _launch_cli(argv(f"clean{ws}", ws, 2), 0.0,
+                                              os.path.join(tmp, f"clean{ws}.json"))
+            if rc != 0 or mem is None:
+                return out, f"OOM drill: the clean run at waves of {ws} exited {rc}:\n{err[-3000:]}"
+            clean[ws] = {"summary": lines[-1], "peaks": mem}
+        out["clean"] = clean
+        total = torch.cuda.get_device_properties(0).total_memory
+        lo, hi = clean[OOM_W // 2]["peaks"]["max_allocated"], clean[OOM_W]["peaks"]["max_allocated"]
+        if not hi > lo:
+            return out, f"OOM drill: waves of {OOM_W} allocated {hi} bytes, not more than {lo}"
+        cap = (lo + hi) // 2
+        frac = cap / total
+        out.update(cap_bytes=cap, cap_fraction=frac, card_bytes=total)
+        rc, lines, err, mem = _launch_cli(argv("oom", OOM_W, 2), frac, os.path.join(tmp, "oom.json"))
+        summary = lines[-1] if lines else {}
+        events = [x for x in lines if x.get("event") == "oom_backoff"]
+        out["backoff"] = {"exit": rc, "summary": summary, "oom_backoff_events": events, "peaks": mem}
+        print(f"oom drill ({smi}): cap {cap} bytes ({frac:.4f} of the card) between allocated peaks "
+              f"{lo} (waves of {OOM_W // 2}) and {hi} (waves of {OOM_W}); --oom-backoff 2: exit {rc}, "
+              f"oom_backoffs {summary.get('oom_backoffs')}, settled wave {summary.get('wave_size')}")
+        if rc != 0 or summary.get("oom_backoffs") != 1 or summary.get("wave_size") != OOM_W // 2:
+            return out, f"OOM drill: exit {rc}, summary {summary}:\n{err[-3000:]}"
+        got, want = (_records(os.path.join(tmp, f"{n}.jsonl")) for n in ("oom", f"clean{OOM_W // 2}"))
+        if got != want:
+            return out, "OOM drill: the backed-off run's records differ from the clean half-cap run's"
+        rc, lines, err, _ = _launch_cli(argv("nobackoff", OOM_W, 0), frac,
+                                        os.path.join(tmp, "nobackoff.json"))
+        out["no_backoff"] = {"exit": rc, "last_line": lines[-1] if lines else None}
+        print(f"oom drill --oom-backoff 0: exit {rc}")
+        if rc != EX_IOERR or not lines or lines[-1].get("kind") != "device_oom":
+            return out, f"OOM drill: --oom-backoff 0 exited {rc}:\n{err[-3000:]}"
+        return out, None
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def drain_waves_phase(smi):
+    """(c) The durability config (DUR_P members, DUR_GENS x DUR_STEPS,
+    snapshots and ledger) in waves of DRAIN_W, member chunk DRAIN_CHUNK:
+    SIGTERM once wave 2 of generation 1 (0-based) is dispatched must exit
+    75; --resume must exit 0, train only the waves not completed
+    (``waves_run``), and end with the unkilled wave run's records, which
+    must equal the resident run's."""
+    import shutil
+
+    from mpi_opt_tpu_torch.health import heartbeat
+    from mpi_opt_tpu_torch.utils import integrity
+    from mpi_opt_tpu_torch.utils.exitcodes import EX_TEMPFAIL
+
+    tmp = os.path.join(ROOT, "build", "chip_smoke_drain")
+    shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    n_waves = DUR_P // DRAIN_W
+    out = {"card": smi, "population": DUR_P, "wave_size": DRAIN_W, "member_chunk": DRAIN_CHUNK}
+    try:
+        def argv(name, ws):
+            return [*_cli(tmp, name), "--member-chunk", str(DRAIN_CHUNK), "--gen-chunk", "0",
+                    "--wave-size", str(ws), "--heartbeat-file", os.path.join(tmp, name, "beat.json")]
+
+        ends = {}
+        for name, ws in (("resident", 0), ("waves", DRAIN_W)):
+            t0 = time.perf_counter()
+            rc, last = _run_to_end(argv(name, ws))
+            ends[name] = {"exit": rc, "summary": last, "wall_s": time.perf_counter() - t0}
+            if rc != 0:
+                return out, f"drain drill: the unkilled {name} run exited {rc}: {last}"
+        out["unkilled"] = ends
+        want = _records(os.path.join(tmp, "waves", "ledger.jsonl"))
+        if _records(os.path.join(tmp, "resident", "ledger.jsonl")) != want:
+            return out, "drain drill: the wave run's records differ from the resident run's"
+        beat = os.path.join(tmp, "sigterm", "beat.json")
+        launch = 1 * n_waves + 2  # generation 1, wave 2: its between-waves boundary
+
+        def ready():
+            rec = heartbeat.read_beat(beat)
+            p = (rec or {}).get("progress", {})
+            return p.get("launch", 0) >= launch or p.get("transfers", 0) >= launch
+
+        rc, stdout, err = _interrupt(argv("sigterm", DRAIN_W), ready, signal.SIGTERM, "drain drill")
+        last = json.loads(stdout.strip().splitlines()[-1]) if stdout.strip() else {}
+        steps = integrity._committed_steps(os.path.join(tmp, "sigterm", "ck"))
+        print(f"drain drill: exit {rc} at {last.get('at')}, snapshots {steps}")
+        if rc != EX_TEMPFAIL or not last.get("preempted"):
+            return out, f"drain drill: exit {rc}, last line {last}:\n{err[-3000:]}"
+        g, w = (int(x.split("/")[0]) for x in last["at"].split(" ")[2::2])  # "pbt gen G/N wave W/M"
+        done = (g - 1) * n_waves + w
+        summary = _resume(argv("sigterm", DRAIN_W), "drain drill")
+        out["sigterm"] = {"exit": rc, "preempted_line": last, "snapshots": steps,
+                          "waves_completed": done, "resumed": summary}
+        print(f"drain drill resume: waves_run {summary.get('waves_run')} "
+              f"(expected {DUR_GENS * n_waves - done}), journal {summary.get('journal')}")
+        if summary.get("waves_run") != DUR_GENS * n_waves - done:
+            return out, f"drain drill: the resume trained {summary.get('waves_run')} waves, " \
+                        f"not the {DUR_GENS * n_waves - done} left"
+        if _records(os.path.join(tmp, "sigterm", "ledger.jsonl")) != want:
+            return out, "drain drill: the resumed run's records differ from the unkilled run's"
+        return out, None
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def sha_phase(gn, get_workload, smi):
+    """(d) Fused SHA on fashion_mlp, SHA_TRIALS trials, budgets SHA_MIN ->
+    SHA_MAX, eta SHA_ETA (BENCH_ALL.json config 2), resident, then in
+    waves of SHA_W (config 9). Returns (record, GN launches, problem)."""
+    from mpi_opt_tpu_torch.train.fused_asha import fused_sha
+
+    wl = get_workload("fashion_mlp")
+    wl.data()
+    out = {"card": smi, "n_trials": SHA_TRIALS, "budgets": [SHA_MIN, SHA_MAX], "eta": SHA_ETA}
+    gn.reset_launches()
+    runs = {}
+    for tag, ws in (("resident", 0), ("waves", SHA_W)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fused_sha(wl, n_trials=SHA_TRIALS, min_budget=SHA_MIN, max_budget=SHA_MAX, eta=SHA_ETA,
+                        seed=0, wave_size=ws)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[tag] = res
+        out[tag] = {"wall_s": wall, "trials_per_s": SHA_TRIALS / wall, "best_score": res["best_score"],
+                    "best_trial": res["best_trial"], "rung_sizes": res["rung_sizes"],
+                    "rung_budgets": res["rung_budgets"], **_wave_fields(res)}
+        print(f"sha {tag} ({smi}): {json.dumps(out[tag])}")
+        if res["rung_sizes"] != [64, 22, 8, 3] or res["rung_budgets"] != [10, 30, 90, 270]:
+            return out, dict(gn.LAUNCHES), f"sha {tag}: rungs {res['rung_sizes']} {res['rung_budgets']}"
+        if not math.isfinite(res["best_score"]) or not 0 <= res["best_score"] <= 1:
+            return out, dict(gn.LAUNCHES), f"sha {tag}: best score {res['best_score']}"
+    launches = dict(gn.LAUNCHES)
+    if launches["plain"]:
+        return out, launches, f"sha called the plain GroupNorm: {launches}"
+    a, b = runs["resident"], runs["waves"]
+    out["waves_vs_resident"] = {
+        "same_survivors": [h["trials"] for h in a["rung_history"]] == [h["trials"] for h in b["rung_history"]],
+        "same_best": (a["best_score"], a["best_trial"]) == (b["best_score"], b["best_trial"]),
+        "max_abs_last_score_diff": float(np.nanmax(np.abs(a["last_score"] - b["last_score"]))),
+    }
+    print(f"sha waves vs resident: {json.dumps(out['waves_vs_resident'])}")
+    return out, launches, None
+
+
+def config5_phase(get_workload, smi):
+    """(e) BASELINE.json config 5's wave cap on this card, without
+    training: per-member bytes of cifar100_resnet18, the measured budget,
+    and ``estimate_wave_size`` at C5_P members."""
+    from mpi_opt_tpu_torch.obs import memory
+    from mpi_opt_tpu_torch.train.engine import wave_layout
+    from mpi_opt_tpu_torch.train.staging import estimate_wave_size
+
+    trainer = get_workload("cifar100_resnet18").make_trainer(device="cuda")
+    w = estimate_wave_size(trainer, C5_P)
+    out = {"card": smi, "population": C5_P, "per_member_bytes": trainer.member_bytes(),
+           "measured_budget_bytes": memory.measured_budget(), "auto_wave_size": w,
+           "wave_lens": wave_layout(C5_P, w)[0]}
+    print(f"config 5 ({smi}): {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline-cu", default=None,
@@ -948,7 +1299,26 @@ def main() -> int:
     if bad:
         return fail(bad)
 
-    # 10. the kernels line (a population step of each path, summed; launches
+    # 10. the wave engine: (a) the north star in waves, (b) a real OOM
+    # absorbed by the CLI, (c) a drain between waves and its resume, (d)
+    # SHA resident and in waves, (e) config 5's wave cap
+    waves, launches["north_star_waves"], bad = north_star_waves_phase(gn, fused_pbt, get_workload, smi)
+    if bad:
+        return fail(bad)
+    oom, bad = oom_drill_phase(smi)
+    print("oom-drill " + json.dumps(oom))
+    if bad:
+        return fail(bad)
+    drain, bad = drain_waves_phase(smi)
+    print("drain-drill " + json.dumps(drain))
+    if bad:
+        return fail(bad)
+    sha, launches["sha"], bad = sha_phase(gn, get_workload, smi)
+    if bad:
+        return fail(bad)
+    config5 = config5_phase(get_workload, smi)
+
+    # 11. the kernels line (a population step of each path, summed; launches
     # summed over every path), then the device line
     src = "mpi_opt_tpu_torch/csrc/group_norm.cu"
     kernels = []
@@ -961,6 +1331,7 @@ def main() -> int:
         entry["bound_share"] = entry["bound_ms"] / entry["ms"]
         entry["by_path"] = {path: {**tot[path][k], "launches": launches[path][k]} for path in STEP_PATHS}
         entry["by_path"]["durability"] = {"launches": launches["durability"][k]}
+        entry["by_path"]["north_star_waves"] = {"launches": launches["north_star_waves"][k]}
         kernels.append(entry)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     out = os.path.join(ROOT, "chiprun_out", "chip_smoke.json")
@@ -969,8 +1340,11 @@ def main() -> int:
                    "model_check": model, "smallcnn_check": cnn_model, "slice": slice_out,
                    "profile": prof, "north_star": record, "determinism_cost": det,
                    "profile_smallcnn": cnn_prof,
-                   "fashion_mlp": mlp_out, "durability": durability, "launches": launches}, f, indent=1)
+                   "fashion_mlp": mlp_out, "durability": durability, "north_star_waves": waves,
+                   "oom_drill": oom, "drain_drill": drain, "sha": sha, "config5": config5,
+                   "wall_s": time.perf_counter() - T_START, "launches": launches}, f, indent=1)
     os.replace(out + ".tmp", out)
+    print(f"chip_smoke wall: {time.perf_counter() - T_START} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

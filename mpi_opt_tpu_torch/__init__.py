@@ -1,16 +1,19 @@
 """mpi_opt_tpu_torch: the PyTorch/CUDA port of mpi_opt_tpu.
 
-Fused PBT over a population of networks, trained as one program on an
-NVIDIA GPU, with the JAX package's TPU kernels rewritten as CUDA
-kernels (``csrc/``), made crash-recoverable by verified snapshots and a
-member-granular ledger journal. ``python -m mpi_opt_tpu_torch`` is the
+Fused PBT and fused successive halving over a population of networks,
+trained as one program on an NVIDIA GPU (or in waves through host
+memory when the population exceeds the card), with the JAX package's
+TPU kernels rewritten as CUDA kernels (``csrc/``), made
+crash-recoverable by verified snapshots and a member-granular ledger
+journal. ``python -m mpi_opt_tpu_torch`` is the
 command line (``cli.py``). Entry points run on CUDA unless the caller
 passes ``device="cpu"``; nothing falls back to the CPU on its own.
 """
 
 from mpi_opt_tpu_torch.device import resolve_device
 from mpi_opt_tpu_torch.ops.pbt import PBTConfig
+from mpi_opt_tpu_torch.train.fused_asha import fused_sha
 from mpi_opt_tpu_torch.train.fused_pbt import fused_pbt
 from mpi_opt_tpu_torch.workloads import get_workload
 
-__all__ = ["resolve_device", "PBTConfig", "fused_pbt", "get_workload"]
+__all__ = ["resolve_device", "PBTConfig", "fused_pbt", "fused_sha", "get_workload"]

@@ -1,9 +1,11 @@
-"""Command line of the port (port of the ``--fused --algorithm pbt`` path
-of ``mpi_opt_tpu/cli.py``).
+"""Command line of the port (port of the fused ``--algorithm
+pbt|asha|random`` paths of ``mpi_opt_tpu/cli.py``).
 
     python -m mpi_opt_tpu_torch --workload cifar10_cnn --algorithm pbt --fused \\
         --population 32 --generations 4 --steps-per-generation 20 \\
         --checkpoint-dir ck --ledger sweep.jsonl [--resume] [--device cpu]
+    python -m mpi_opt_tpu_torch --workload fashion_mlp --algorithm asha --fused \\
+        --trials 64 --min-budget 10 --max-budget 270 --eta 3 [--wave-size 16|auto]
 
 It runs on CUDA unless ``--device cpu`` is given. The summary is the JAX
 CLI's single JSON line (after the metrics events), and so are the exit
@@ -31,16 +33,16 @@ from mpi_opt_tpu_torch.utils.integrity import NoVerifiedSnapshotError
 from mpi_opt_tpu_torch.utils.metrics import stdout_logger
 from mpi_opt_tpu_torch.workloads import _REGISTRY, get_workload
 
-# the JAX CLI's algorithms; only pbt runs in the port
+# the JAX CLI's algorithms, and those the port runs (fused)
 ALGORITHMS = ("asha", "bohb", "hyperband", "pbt", "random", "tpe")
+PORTED_ALGORITHMS = ("pbt", "asha", "random")
 # the JAX CLI's subcommands
 _SUBCOMMANDS = ("report", "fsck", "lint", "trace", "serve", "submit", "status", "cancel",
                 "drain", "corpus", "suggest-client")
 # the JAX CLI's flags that the port does not take yet: valued, then boolean
 _NOT_PORTED_FLAGS = (
-    "--backend", "--trials", "--budget", "--workers", "--warm-start", "--profile-dir",
-    "--profile-launches", "--min-budget", "--max-budget", "--eta", "--wave-size",
-    "--oom-backoff", "--objectives", "--coordinator", "--num-processes", "--process-id",
+    "--backend", "--workers", "--warm-start", "--profile-dir",
+    "--profile-launches", "--objectives", "--coordinator", "--num-processes", "--process-id",
     "--platform", "--local-devices", "--n-data", "--n-pop", "--trial-retries",
     "--trial-timeout", "--max-failure-rate", "--chaos", "--coord-dir",
     "--coord-epoch", "--coord-timeout", "--rank-kill", "--suggest-serve",
@@ -54,7 +56,7 @@ class _NotPorted(argparse.Action):
 
     def __call__(self, parser, namespace, values, option_string=None):
         parser.error(f"{option_string} is not ported yet (mpi_opt_tpu_torch runs "
-                     "--fused --algorithm pbt only)")
+                     "--fused --algorithm pbt|asha|random only)")
 
 
 def _wire_integrity_observer(metrics):
@@ -70,11 +72,16 @@ def _wire_integrity_observer(metrics):
 
 
 def _wire_resource_observer(metrics):
-    """Resource events (``snapshot_pruned``) into the metrics stream."""
+    """Resource events (``oom_backoff``, ``wave_resized``,
+    ``snapshot_pruned``) into the metrics stream and its counters."""
 
     def observe(event, **fields):
         metrics.log(event, **fields)
-        if event == "snapshot_pruned":
+        if event == "oom_backoff":
+            metrics.count_oom_backoffs()
+        elif event == "wave_resized":
+            metrics.count_wave_resized()
+        elif event == "snapshot_pruned":
             metrics.count_pruned()
 
     resources.set_observer(observe)
@@ -87,7 +94,8 @@ def _resource_exit(e, metrics, kind: str, **summary_fields) -> int:
     metrics.summary(final=True)
     print(json.dumps({"resource_exhausted": str(e), "kind": kind, **summary_fields}))
     hint = ("free disk space, then relaunch with --resume" if kind == "storage_full"
-            else "reduce residency: a smaller --population or --member-chunk")
+            else "reduce residency: --wave-size auto (wave mode backs off automatically "
+            "via --oom-backoff), smaller --population, or --member-chunk")
     print(f"{e}\n({hint}; exit {EX_IOERR})", file=sys.stderr)
     return EX_IOERR
 
@@ -108,8 +116,10 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--workload", required=True, choices=sorted(_REGISTRY))
     p.add_argument("--algorithm", default="random", choices=ALGORITHMS,
-                   help="only pbt is ported")
+                   help="pbt, asha and random are ported (fused)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--trials", type=int, default=16, help="total trials (random/asha)")
+    p.add_argument("--budget", type=int, default=100, help="steps per trial (random)")
     p.add_argument("--metrics-file", default=None, help="JSONL metrics output path")
     p.add_argument("--ledger", default=None, metavar="PATH",
                    help="journal one record per population member at every generation "
@@ -121,6 +131,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true",
                    help="resume from the newest verified snapshot in --checkpoint-dir "
                    "(starts fresh if it holds none)")
+    p.add_argument("--min-budget", type=int, default=10)
+    p.add_argument("--max-budget", type=int, default=270)
+    p.add_argument("--eta", type=int, default=3)
     p.add_argument("--population", type=int, default=32)
     p.add_argument("--generations", type=int, default=10)
     p.add_argument("--steps-per-generation", type=int, default=200)
@@ -135,6 +148,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--step-chunk", type=int, default=0,
                    help="training steps per sub-launch within a generation (bit-identical "
                    "in the port; recorded in the snapshot config)")
+    p.add_argument("--wave-size", default="0", metavar="N|auto",
+                   help="train the cohort in waves of N members a generation/rung, "
+                   "staging the others in host memory (copies overlap compute); the "
+                   "exploit or rung cut still sees the whole cohort. 'auto' sizes the wave "
+                   "from a residency estimate; 0 runs resident. Bit-identical to resident "
+                   "on the CPU")
+    p.add_argument("--oom-backoff", type=int, default=2, metavar="N",
+                   help="wave mode: on a device OOM halve the wave size and re-run the "
+                   "generation/rung, up to N times (0 disables); also clamps an explicit "
+                   "--wave-size to the measured device budget. A resident or post-budget "
+                   "OOM exits 74")
     p.add_argument("--retries", type=int, default=0,
                    help="retry the sweep this many times on a transient I/O failure; "
                    "with --checkpoint-dir each retry resumes at the last snapshot")
@@ -211,8 +235,9 @@ def _has_snapshot(directory) -> bool:
 
 
 def run_fused(args, parser, workload) -> int:
-    """--fused: the whole sweep on the device (``train.fused_pbt``), with
-    the JAX CLI's summary line and exit codes."""
+    """--fused: the whole sweep on the device (``train.fused_pbt``, or
+    ``train.fused_asha.fused_sha`` for asha and random), resident or in
+    waves, with the JAX CLI's summary line and exit codes."""
     import time
 
     from mpi_opt_tpu_torch.ledger import LedgerError
@@ -259,9 +284,10 @@ def run_fused(args, parser, workload) -> int:
 
 def _open_fused_ledger(args, parser, space, metrics):
     """Open and identity-check the sweep's ledger (None without
-    --ledger), committing the JAX CLI's fused PBT header before the
-    sweep starts: a stale journal needs --resume, and a journal of
-    another sweep is refused."""
+    --ledger), committing the JAX CLI's fused header before the sweep
+    starts: a stale journal needs --resume, and a journal of another
+    sweep is refused. ``wave_size`` is not the ledger's identity: wave
+    mode journals the resident sweep's records."""
     if not args.ledger:
         return None
     from mpi_opt_tpu_torch.ledger import LedgerError, SweepLedger
@@ -279,17 +305,23 @@ def _open_fused_ledger(args, parser, space, metrics):
         )
     config = {
         "mode": "fused",
-        "granularity": "generation",
+        "granularity": "generation" if args.algorithm == "pbt" else "rung",
         "algorithm": args.algorithm,
         "workload": args.workload,
         "backend": "fused",
         "seed": args.seed,
         "space_hash": space.space_hash(),
         "warm_start": None,
-        "population": args.population,
-        "generations": args.generations,
-        "steps_per_generation": args.steps_per_generation,
     }
+    # the knobs that shape each algorithm's boundaries and members
+    if args.algorithm == "pbt":
+        config.update(population=args.population, generations=args.generations,
+                      steps_per_generation=args.steps_per_generation)
+    elif args.algorithm == "random":
+        config.update(trials=args.trials, budget=args.budget)
+    else:
+        config.update(trials=args.trials, min_budget=args.min_budget,
+                      max_budget=args.max_budget, eta=args.eta)
     try:
         ledger.ensure_header(config, space_spec=space.spec())
     except LedgerError as e:
@@ -302,28 +334,73 @@ def _open_fused_ledger(args, parser, space, metrics):
     return ledger
 
 
+def _wave_extras(res: dict) -> dict:
+    """The wave fields of the summary line (empty for a resident
+    sweep): the JAX CLI's, and ``waves_run``, the waves this process
+    trained (a resume that re-trains no completed wave shows it)."""
+    if not res.get("wave_size"):
+        return {}
+    return dict(
+        wave_size=res["wave_size"],
+        n_waves=res["n_waves"],
+        staged_bytes=res["staged_bytes"],
+        stage_overlap_s=round(res["stage_overlap_s"], 3),
+        stage_wait_s=round(res["stage_wait_s"], 3),
+        oom_backoffs=res.get("oom_backoffs", 0),
+        waves_run=res["waves_run"],
+    )
+
+
 def _run_fused_dispatch(args, workload, metrics, t0, ledger) -> int:
     """Run the sweep, then print the JAX CLI's fused summary line."""
     import time
 
-    from mpi_opt_tpu_torch.train.fused_pbt import fused_pbt
+    if args.algorithm == "pbt":
+        from mpi_opt_tpu_torch.train.fused_pbt import fused_pbt
 
-    res = _run_with_retries(lambda: fused_pbt(
-        workload,
-        population=args.population,
-        generations=args.generations,
-        steps_per_gen=args.steps_per_generation,
-        seed=args.seed,
-        cfg=PBTConfig(truncation_frac=args.truncation),
-        member_chunk=args.member_chunk,
-        gen_chunk=args.gen_chunk,
-        step_chunk=args.step_chunk,
-        checkpoint_dir=args.checkpoint_dir,
-        snapshot_every=args.checkpoint_every,
-        ledger=ledger,
-        device=args.device,
-    ), args.retries, metrics)
-    n_trials = args.population * args.generations
+        res = _run_with_retries(lambda: fused_pbt(
+            workload,
+            population=args.population,
+            generations=args.generations,
+            steps_per_gen=args.steps_per_generation,
+            seed=args.seed,
+            cfg=PBTConfig(truncation_frac=args.truncation),
+            member_chunk=args.member_chunk,
+            gen_chunk=args.gen_chunk,
+            step_chunk=args.step_chunk,
+            wave_size=args.wave_size,
+            oom_backoff=args.oom_backoff,
+            checkpoint_dir=args.checkpoint_dir,
+            snapshot_every=args.checkpoint_every,
+            ledger=ledger,
+            device=args.device,
+        ), args.retries, metrics)
+        n_trials = args.population * args.generations
+        extra = {"best_curve": [round(float(v), 4) for v in res["best_curve"]]}
+    else:
+        from mpi_opt_tpu_torch.train.fused_asha import fused_sha
+
+        # random search is the one-rung case of successive halving: one
+        # cohort of --trials members trains to --budget, no cuts
+        lo, hi = ((args.budget, args.budget) if args.algorithm == "random"
+                  else (args.min_budget, args.max_budget))
+        res = _run_with_retries(lambda: fused_sha(
+            workload,
+            n_trials=args.trials,
+            min_budget=lo,
+            max_budget=hi,
+            eta=args.eta,
+            seed=args.seed,
+            member_chunk=args.member_chunk,
+            wave_size=args.wave_size,
+            oom_backoff=args.oom_backoff,
+            checkpoint_dir=args.checkpoint_dir,
+            ledger=ledger,
+            device=args.device,
+        ), args.retries, metrics)
+        n_trials = res["n_trials"]
+        extra = {"rung_sizes": res["rung_sizes"], "rung_budgets": res["rung_budgets"]}
+    extra.update(_wave_extras(res))
     wall = time.perf_counter() - t0
     metrics.count_trials(n_trials)
     member_failures = res["member_failures"]
@@ -339,8 +416,10 @@ def _run_fused_dispatch(args, workload, metrics, t0, ledger) -> int:
         "trials_per_sec_per_chip": round(n_trials / max(wall, 1e-9), 4),
         "best_score": None if res["best_params"] is None else round(res["best_score"], 6),
         "best_params": res["best_params"],
-        "best_curve": [round(float(v), 4) for v in res["best_curve"]],
+        **extra,
     }
+    if res.get("staged_bytes") is not None:
+        metrics.count_staging(res["staged_bytes"], res["stage_overlap_s"])
     if res["journal"] is not None:
         metrics.count_journaled(res["journal"]["written"])
         summary["journal"] = dict(res["journal"])
@@ -360,9 +439,22 @@ def main(argv=None) -> int:
         parser.error("--resume requires --checkpoint-dir or --ledger")
     if not args.fused:
         parser.error("the driver path (no --fused) is not ported yet; pass --fused")
-    if args.algorithm != "pbt":
+    if args.algorithm not in PORTED_ALGORITHMS:
         parser.error(f"--fused --algorithm {args.algorithm} is not ported yet; "
-                     "the port runs --algorithm pbt")
+                     "the port runs --algorithm pbt|asha|random")
+    # --wave-size: an integer or 'auto', checked here as a usage error
+    if args.wave_size != "auto":
+        try:
+            args.wave_size = int(args.wave_size)
+        except ValueError:
+            parser.error(f"--wave-size must be an integer or 'auto', got {args.wave_size!r}")
+        if args.wave_size < 0:
+            parser.error(f"--wave-size must be >= 0, got {args.wave_size}")
+    if args.oom_backoff < 0:
+        parser.error(f"--oom-backoff must be >= 0, got {args.oom_backoff}")
+    if args.wave_size and (args.gen_chunk > 1 or args.step_chunk > 0):
+        parser.error("--wave-size schedules whole generations as resident waves; combining "
+                     "it with --gen-chunk/--step-chunk launch splitting is ambiguous")
     # SIGTERM/SIGINT set a drain flag; the next launch boundary flushes
     # the snapshot and the run exits EX_TEMPFAIL. The heartbeat, like
     # the handlers, is dropped on the way out

@@ -19,34 +19,40 @@ from __future__ import annotations
 
 import json
 import os
+import threading
 import time
 from typing import Optional
 
 
 class Heartbeat:
-    """Beats come from the sweep's one thread (the port has no staging
-    thread yet, which the JAX package's lock serves)."""
+    """Beats come from the sweep's thread and from the wave engine's
+    staging thread (``train/staging.py``): the counter is taken under a
+    lock, and each thread writes its own temporary file."""
 
     def __init__(self, path: str):
         self.path = os.path.abspath(path)
         os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
         self.beats = 0
         self._warned = False
+        self._lock = threading.Lock()
 
     def beat(self, **progress) -> Optional[dict]:
         """Record one unit of progress; returns the record (None if the
         write failed: warned once, never raised). ``phase`` (the active
         trace span in the JAX package) is None until span tracing is
         ported."""
-        self.beats += 1
+        # sweeplint: disable=beat-path-nonblocking -- counter-only critical section (no I/O under the lock); skipping would break beat monotonicity
+        with self._lock:
+            self.beats += 1
+            n = self.beats
         rec = {
             "pid": os.getpid(),
-            "beats": self.beats,
+            "beats": n,
             "ts": round(time.time(), 4),
             "phase": None,
             "progress": progress,
         }
-        tmp = f"{self.path}.tmp{os.getpid()}"
+        tmp = f"{self.path}.tmp{os.getpid()}.{threading.get_ident()}"
         try:
             with open(tmp, "w") as f:
                 f.write(json.dumps(rec))

@@ -80,8 +80,12 @@ class Dense(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x):
-        """``[P, B, in]`` -> ``[P, B, out]`` in ``dtype``."""
-        w = self.weight.to(self.dtype).transpose(1, 2)
+        """``[P, B, in]`` -> ``[P, B, out]`` in ``dtype``. The weight is
+        cast into a contiguous ``[P, in, out]`` copy (one copy, as the
+        cast alone makes): with a transposed operand, the CPU's bf16
+        ``bmm`` takes another kernel at 1 or 2 members than at more, and
+        a member's result would depend on how many members run with it."""
+        w = self.weight.transpose(1, 2).to(self.dtype, memory_format=torch.contiguous_format)
         return torch.bmm(x.to(self.dtype), w) + self.bias.to(self.dtype)[:, None, :]
 
 
@@ -142,13 +146,18 @@ class GroupNorm(nn.Module):
         return y.permute(0, 3, 1, 2)
 
 
+def init_layers(model: nn.Module) -> list:
+    """(name prefix, module) of every population layer, in the order
+    ``init_params`` draws them."""
+    return [(n, m) for n, m in model.named_modules() if isinstance(m, (Conv, GroupNorm, Dense))]
+
+
 @torch.no_grad()
 def init_params(model: nn.Module, generator: torch.Generator) -> None:
     """Draw every population layer's parameters from ``generator``, in
     module order (flax's default initialisers)."""
-    for m in model.modules():
-        if isinstance(m, (Conv, GroupNorm, Dense)):
-            m.init_params(generator)
+    for _, m in init_layers(model):
+        m.init_params(generator)
 
 
 class BasicBlock(nn.Module):

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def finite_winner(scores, ok=None):
@@ -13,6 +14,17 @@ def finite_winner(scores, ok=None):
     diverged = not bool(mask.any())
     best_i = 0 if diverged else int(np.where(mask, scores, -np.inf).argmax())
     return best_i, diverged
+
+
+def workload_arrays(workload, member_chunk: int, dev):
+    """(trainer, space, train_x, train_y, val_x, val_y) of a population
+    workload, the data on ``dev`` (labels as int64)."""
+    trainer = workload.make_trainer(member_chunk=member_chunk, device=dev)
+    d = workload.data()
+    train_x, train_y, val_x, val_y = (
+        torch.from_numpy(d[k]).to(dev) for k in ("train_x", "train_y", "val_x", "val_y")
+    )
+    return trainer, workload.default_space(), train_x, train_y.long(), val_x, val_y.long()
 
 
 def hparams_fn(space, workload):

@@ -1,0 +1,278 @@
+"""The fused wave engine (port of ``mpi_opt_tpu/train/engine.py``): the
+wave/stage/drain/OOM skeleton every fused algorithm runs its intervals
+through.
+
+A population (PBT) or a rung cohort (SHA) that exceeds the card's
+residency trains as WAVES of W members, staged through host pools
+(``train/staging.py``). The algorithm supplies only its shapes and its
+boundary op (PBT's exploit, SHA's rung cut); this module owns:
+
+- ``WaveRunner.run_interval``: one interval (a PBT generation, an SHA
+  rung) as waves: the wave loop, a heartbeat a wave, stage-out, the
+  between-waves drain points (``launch_boundary``, with an optional
+  mid-interval snapshot), the interval-ending drain barrier, and the
+  device-OOM retry that halves the wave cap and re-runs the interval;
+- ``run_wave``: stage in, train, eval one wave.
+  ``resources.launch_fault("wave")`` is its first line, the seam the
+  OOM drills inject through;
+- ``resolve_wave_size``: ``auto`` estimation and the pre-clamp of an
+  explicit cap against the measured budget. The port runs one process,
+  so the JAX package's multi-process cap agreement is not here;
+- ``boundary_span``: beats the heartbeat with stage ``boundary <op>``
+  around a boundary op (trace spans wait for ``obs/trace.py``).
+
+Bit identity. The JAX package has two wave programs, one mapping the
+unit matrix to hyperparameters inside the program (PBT, TPE) and one
+taking them mapped eagerly (SHA), because XLA's fused and eager ops
+round differently. Both of the port's resident paths map eagerly, so
+ONE wave function serves both drivers: it takes the interval's eagerly
+mapped ``OptHParams`` over the whole cohort and trains the wave's rows
+(``PopulationTrainer.train_segment_window``). One ``torch.Generator``
+threads every draw: each wave starts from the generator state saved at
+the interval's start and makes the whole cohort's draws, so after the
+last wave the generator stands where the resident segment leaves it.
+An OOM re-run restarts its waves from that same state.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import gc
+
+import torch
+
+from mpi_opt_tpu_torch.train.common import launch_boundary
+from mpi_opt_tpu_torch.train.population import PopState
+from mpi_opt_tpu_torch.utils import resources
+
+
+def balanced_split(total: int, chunk: int) -> list[int]:
+    """Split ``total`` into ceil(total/chunk) near-equal parts (G=7,
+    chunk=3 -> [3, 2, 2]); total=0 gives [0], one empty part. Shared by
+    the wave layout and PBT's gen_chunk / step_chunk launch splits."""
+    if total <= 0:
+        return [0]
+    n = -(-total // chunk)
+    base, extra = divmod(total, n)
+    return [base + 1] * extra + [base] * (n - extra)
+
+
+def wave_layout(population: int, wave_size: int):
+    """(wave_lens, offs, n_waves) for a wave cap."""
+    wave_lens = balanced_split(population, wave_size)
+    offs = [0]
+    for w in wave_lens[:-1]:
+        offs.append(offs[-1] + w)
+    return wave_lens, offs, len(wave_lens)
+
+
+def engine_rollover(old):
+    """A fresh ``StagingEngine`` carrying the old one's accounting (the
+    results report run totals): after a device OOM the old engine may
+    hold a latched transfer error that would refuse every later
+    ``stage_out``."""
+    from mpi_opt_tpu_torch.train.staging import StagingEngine
+
+    old.close()
+    new = StagingEngine(old.device)
+    new.staged_bytes = old.staged_bytes
+    new.transfers = old.transfers
+    new.transfer_s = old.transfer_s
+    new.wait_s = old.wait_s
+    return new
+
+
+@contextlib.contextmanager
+def boundary_span(op: str, **attrs):
+    """Around a boundary op (exploit, rung_cut): beat the heartbeat with
+    stage ``boundary <op>`` first, so a stall inside the op is
+    attributed to it."""
+    from mpi_opt_tpu_torch.health import heartbeat
+
+    heartbeat.beat(stage=f"boundary {op}", **attrs)
+    yield attrs
+
+
+def resolve_wave_size(trainer, population: int, *, wave_size, oom_backoff: int = 0) -> int:
+    """The requested wave cap (``'auto'`` or an int) resolved for a
+    ``population``-member sweep; 0 (or a cap >= population) means
+    resident. ``auto`` is ``estimate_wave_size``; with ``oom_backoff``
+    on and a measured device budget, an explicit cap above the estimate
+    is clamped to it before the first launch. Either change is notified
+    as a ``wave_resized`` event."""
+    if not wave_size:
+        return 0
+    from mpi_opt_tpu_torch.train.staging import estimate_wave_size
+
+    was_auto = wave_size == "auto"
+    if was_auto:
+        wave_size = estimate_wave_size(trainer, population)
+        if wave_size < population:
+            resources.notify("wave_resized", requested="auto", wave_size=int(wave_size),
+                             population=population)
+    wave_size = int(wave_size)
+    if wave_size < 0:
+        raise ValueError(f"wave_size must be >= 0, got {wave_size}")
+    if oom_backoff and not was_auto and 0 < wave_size < population:
+        from mpi_opt_tpu_torch.obs import memory
+
+        if memory.measured_budget(trainer.device) is not None:
+            est = estimate_wave_size(trainer, population)
+            if est < wave_size:
+                resources.notify("wave_resized", requested=wave_size, wave_size=est,
+                                 population=population)
+                wave_size = est
+    return wave_size
+
+
+def run_wave(trainer, pool, rows, offset: int, hp, train_x, train_y, val_x, val_y,
+             generator: torch.Generator, rng_start, steps: int, engine):
+    """Stage in, train and eval ONE wave: members [offset, offset+W) of
+    the interval's cohort. ``rows`` are the pool rows to stage in (the
+    previous boundary's map applied: staging in IS the winners' or
+    survivors' gather); ``hp`` the interval's hyperparameters over the
+    whole cohort; ``rng_start`` the generator state at the interval's
+    start. Returns (the wave's state, its scores), both on the card."""
+    resources.launch_fault("wave")
+    dev = engine.stage_in(pool, rows)
+    st = PopState(params=dev["params"], momentum=dev["momentum"], step=dev["step"])
+    generator.set_state(rng_start)
+    trainer.train_segment_window(st, hp, train_x, train_y, generator, steps, offset)
+    return st, trainer.eval_population(st, val_x, val_y)
+
+
+class WaveRunner:
+    """The wave executor: owns the ``StagingEngine``, the execution cap
+    (the resolved request, or a snapshot's ``wave_size_run``: a resume
+    adopts the OOM-settled cap instead of paying the OOM again; halved
+    by absorbed OOMs) and the backoff budget. After
+    ``run_interval`` returns, ``wave_size`` / ``wave_lens`` / ``offs`` /
+    ``n_waves`` are the layout the interval ran under."""
+
+    def __init__(self, population: int, wave_size: int, *, oom_backoff: int = 0, device=None):
+        from mpi_opt_tpu_torch.train.staging import StagingEngine
+
+        self.population = int(population)
+        self.wave_size = int(wave_size)
+        self.oom_budget = max(0, int(oom_backoff))
+        self.oom_backoffs = 0
+        self.waves_run = 0  # every wave dispatched, re-runs included
+        self.device = torch.device("cpu") if device is None else torch.device(device)
+        self.engine = StagingEngine(self.device)
+        self.wave_lens, self.offs, self.n_waves = wave_layout(self.population, self.wave_size)
+
+    def close(self) -> None:
+        self.engine.close()
+
+    def run_interval(  # sweeplint: barrier(wave interval loop: stages pools, gathers wave scores, drains at the algorithm boundary)
+        self,
+        *,
+        n: int,
+        run_wave_fn,
+        dst_fn,
+        scores_host: torch.Tensor,
+        stage_label,
+        boundary_kwargs=None,
+        midpoint_snapshot=None,
+        start_wave: int = 0,
+        notify_fields=(),
+    ):
+        """Run ONE interval of ``n`` cohort members as waves; returns the
+        waves' score tensors on the card, in wave order.
+
+        - ``run_wave_fn(w, off, wl, engine) -> (state, scores)`` dispatches
+          wave ``w``;
+        - ``dst_fn(off, wl)`` is the host destination of a wave's
+          ``{"state": {"params", "momentum", "step"}, "scores"}``: pool
+          rows and ``scores_host[off:off+wl]``, which a mid-interval
+          resume and an OOM re-run read and reset;
+        - ``stage_label(w, n_waves)`` / ``boundary_kwargs(w, n_waves)`` /
+          ``midpoint_snapshot(w, n_waves)`` shape the heartbeat, the
+          between-waves ``launch_boundary`` progress fields and its
+          drain snapshot (None: no mid-interval snapshot).
+
+        ``start_wave`` skips completed waves (a mid-interval resume),
+        taking their scores from ``scores_host``. On a ``DeviceOOM``
+        with budget left, the interval re-runs from wave 0 under half
+        the cap: the pools are only read, and each wave restarts the
+        generator from the interval's start, so the re-run reproduces
+        the interval exactly. An ``oom_backoff`` event carries
+        ``notify_fields``. With no budget left (or a cap of 1) the
+        ``DeviceOOM`` propagates."""
+        from mpi_opt_tpu_torch.health import heartbeat
+
+        while True:  # one pass per OOM-backoff attempt
+            wave_lens, offs, n_waves = wave_layout(n, self.wave_size)
+            self.wave_lens, self.offs, self.n_waves = wave_lens, offs, n_waves
+            wave_scores: list = [None] * n_waves
+            for w in range(start_wave):
+                off, wl = offs[w], wave_lens[w]
+                wave_scores[w] = scores_host[off:off + wl].to(self.device)
+            try:
+                with resources.oom_funnel(self.wave_size):
+                    for w in range(start_wave, n_waves):
+                        off, wl = offs[w], wave_lens[w]
+                        st, sc = run_wave_fn(w, off, wl, self.engine)
+                        wave_scores[w] = sc
+                        self.waves_run += 1
+                        heartbeat.beat(stage=f"{stage_label(w, n_waves)} dispatched")
+                        # the copy out runs behind the wave's compute
+                        # while this loop dispatches the next wave
+                        self.engine.stage_out(
+                            {"state": {"params": st.params, "momentum": st.momentum,
+                                       "step": st.step}, "scores": sc},
+                            dst_fn(off, wl))
+                        del st, sc
+                        if w + 1 < n_waves:
+                            launch_boundary(
+                                stage_label(w, n_waves),
+                                final=False,
+                                snapshot=None if midpoint_snapshot is None else midpoint_snapshot(w, n_waves),
+                                **({} if boundary_kwargs is None else boundary_kwargs(w, n_waves)),
+                            )
+                    # the interval's only hard barrier: the boundary op
+                    # needs every score and a settled pool
+                    self.engine.drain()
+                return wave_scores
+            except resources.DeviceOOM as e:
+                if self.oom_budget <= 0 or self.wave_size <= 1:
+                    raise
+                error = str(e)[:300]
+            # the failed attempt's tensors die with its frames; settle
+            # what the engine holds, then give the memory back
+            wave_scores = None
+            gc.collect()
+            try:
+                self.engine.drain()
+            # sweeplint: disable=drain-swallow -- settling transfers of the attempt that hit the OOM this handler absorbs; the engine is rolled over below
+            except Exception:
+                pass
+            self.engine = engine_rollover(self.engine)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+                torch.cuda.empty_cache()
+            self.oom_budget -= 1
+            self.oom_backoffs += 1
+            self.wave_size = max(1, self.wave_size // 2)
+            scores_host.fill_(float("nan"))
+            start_wave = 0
+            resources.notify("oom_backoff", **dict(notify_fields), wave_size=self.wave_size,
+                             remaining=self.oom_budget, error=error)
+
+    def result_extras(self) -> dict:
+        """The wave fields every wave-scheduled result reports: the
+        settled split (the last interval's), absorbed OOM halvings,
+        waves dispatched, bytes moved, and how much of the transfer time
+        compute hid."""
+        return {
+            "wave_size": self.wave_size,
+            "wave_lens": list(self.wave_lens),
+            "n_waves": self.n_waves,
+            "waves_run": self.waves_run,
+            "oom_backoffs": self.oom_backoffs,
+            "staged_bytes": int(self.engine.staged_bytes),
+            "stage_transfer_s": float(self.engine.transfer_s),
+            "stage_wait_s": float(self.engine.wait_s),
+            "stage_overlap_s": float(self.engine.overlap_s),
+        }
+

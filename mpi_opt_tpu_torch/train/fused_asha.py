@@ -1,0 +1,343 @@
+"""Fused successive halving (port of ``mpi_opt_tpu/train/fused_asha.py``).
+
+The whole rung cohort trains in lockstep as one population, so the
+synchronous variant of ASHA is the natural one: train every member to
+the rung's budget, evaluate, keep the top 1/eta (``ops.asha.asha_cut``),
+gather the survivors into a smaller population, go on. Random search is
+the one-rung case.
+
+A cohort larger than the card holds trains in waves through the wave
+engine (``train/engine.py``): each rung gets a fresh host pool sized to
+its cohort, and the cut's survivor gather is the next rung's stage-in
+row map. Bit-identical to the resident sweep on the CPU for any wave
+size. The resident sweep without snapshot or journal fetches nothing
+until its last rung (one fetch replays the per-rung records).
+
+Not here yet (the JAX package's ``fused_sha`` has them): ``mesh`` and
+``round_to``, ``init_unit``, the hyperband boundary/trial/member
+offsets, ``warm_obs``, ``objectives``, and ``fused_hyperband``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mpi_opt_tpu_torch.device import resolve_device
+from mpi_opt_tpu_torch.ledger.fused import make_journal
+from mpi_opt_tpu_torch.ops.asha import asha_cut, asha_rungs
+from mpi_opt_tpu_torch.train.common import (
+    finite_winner,
+    launch_boundary,
+    momentum_dtype_str,
+    workload_arrays,
+)
+from mpi_opt_tpu_torch.train.engine import WaveRunner, boundary_span, resolve_wave_size
+from mpi_opt_tpu_torch.train.engine import run_wave as _run_wave
+from mpi_opt_tpu_torch.train.population import PopState
+
+# arguments of the JAX package's fused_sha that the port does not take
+# yet, with their defaults: a non-default value raises
+_NOT_PORTED = {
+    "mesh": None,
+    "round_to": 1,
+    "init_unit": None,
+    "boundary_offset": 0,
+    "trial_offset": 0,
+    "member_offset": 0,
+    "warm_obs": None,
+    "objectives": None,
+}
+
+
+def _cut_and_gather(trainer, state, unit, scores, eta: int, k: int):
+    """One rung reduction: rank, keep the top ``k`` (the rung's known
+    survivor count), gather their states. Returns (survivor state,
+    survivor unit, keep indices, promote mask)."""
+    promote, order = asha_cut(scores, eta)
+    keep = order[:k]
+    return trainer.gather_members(state, keep), unit[keep], keep, promote
+
+
+def _wave_cut(unit, scores, eta: int, k: int):
+    """The rung cut of a wave-scheduled cohort: ``_cut_and_gather``
+    without the state gather (the next rung's stage-in reads the pool
+    through ``keep``). Returns (survivor unit, keep indices)."""
+    _promote, order = asha_cut(scores, eta)
+    keep = order[:k]
+    return unit[keep], keep
+
+
+def sha_cohort_sizes(n_trials: int, n_rungs: int, eta: int, round_to: int = 1) -> list[int]:
+    """Population at each rung: n, ceil(n/eta), ... (>= 1), survivor
+    counts rounded up to a multiple of ``round_to``."""
+    sizes = [n_trials]
+    for _ in range(n_rungs - 1):
+        k = -(-sizes[-1] // eta)  # ceil
+        k = min(sizes[-1], -(-k // round_to) * round_to)
+        sizes.append(max(k, 1))
+    return sizes
+
+
+def fused_sha(  # sweeplint: barrier(rung host loop: gathers cohort scores for the rung cut + journal)
+    workload,
+    n_trials: int,
+    min_budget: int = 10,
+    max_budget: int = 270,
+    eta: int = 3,
+    seed: int = 0,
+    member_chunk: int = 0,
+    checkpoint_dir: str | None = None,
+    ledger=None,
+    wave_size=0,
+    oom_backoff: int = 2,
+    device=None,
+    **not_ported,
+):
+    """Run a whole successive-halving sweep with on-device rung cuts.
+
+    ``wave_size`` (an int or ``'auto'``): with ``0 < wave_size <
+    n_trials`` every rung's cohort trains in waves through a host pool
+    (``oom_backoff`` halvings of the cap on a device OOM, each re-running
+    the rung bit-identically). ``checkpoint_dir`` snapshots the surviving
+    cohort, its unit rows, the generator and the trial records after
+    every rung; a call with the same arguments resumes at the next rung
+    with the unkilled sweep's result, and a snapshot of another config
+    (wave and resident sweeps refuse each other) raises ``ValueError``.
+    ``ledger`` journals one record per cohort member per rung (its
+    pre-cut score at the rung's budget) before the rung's snapshot.
+
+    Returns the JAX package's result: best_score, best_params,
+    best_trial, diverged, rung_budgets, rung_sizes, stop_rung,
+    last_score, rung_history, member_failures, n_trials, journal,
+    objectives and pareto (None: not ported), and in wave mode
+    ``WaveRunner.result_extras()``.
+    """
+    for name, value in not_ported.items():
+        if name not in _NOT_PORTED:
+            raise TypeError(f"fused_sha() got an unexpected keyword argument {name!r}")
+        default = _NOT_PORTED[name]
+        if (value is not None) if default is None else (value != default):
+            raise NotImplementedError(f"fused_sha({name}=...) is not ported yet")
+    dev = resolve_device(device)
+    trainer, space, train_x, train_y, val_x, val_y = workload_arrays(workload, member_chunk, dev)
+    wave_size = resolve_wave_size(trainer, n_trials, wave_size=wave_size, oom_backoff=oom_backoff)
+    waves = 0 < wave_size < n_trials
+    rungs = asha_rungs(min_budget, max_budget, eta)
+    sizes = sha_cohort_sizes(n_trials, len(rungs), eta)
+
+    # which original trial occupies each cohort row, and the trial records
+    alive = np.arange(n_trials)
+    stop_rung = np.zeros(n_trials, dtype=np.int32)
+    last_score = np.full(n_trials, np.nan, dtype=np.float32)
+    rung_history: list = []
+    gen = torch.Generator(device=dev)
+    state = pool_front = perm = None
+    run_wave_size = wave_size
+    snap = restored = None
+    start_rung = 0
+    np_scores = None
+    if checkpoint_dir is not None:
+        from mpi_opt_tpu_torch.utils.checkpoint import SweepCheckpointer
+
+        snap = SweepCheckpointer(checkpoint_dir, {
+            "workload": getattr(workload, "name", type(workload).__name__),
+            "n_trials": n_trials,
+            "rungs": rungs,
+            "sizes": sizes,
+            "eta": eta,
+            "seed": seed,
+            "member_chunk": member_chunk,
+            "momentum_dtype": momentum_dtype_str(),
+            # the requested (resolved) cap: a wave snapshot holds a pool,
+            # and wave and resident sweeps refuse each other's snapshots
+            "wave_size": wave_size if waves else 0,
+            "device": dev.type,
+        })
+        restored = snap.restore_population_sweep()
+    if restored is not None:
+        host_state, unit, rng_state, np_scores, meta = restored
+        alive = np.asarray(meta["alive"], dtype=np.int64)
+        stop_rung = np.asarray(meta["stop_rung"], dtype=np.int32)
+        last_score = np.asarray(meta["last_score"], dtype=np.float32)
+        start_rung = int(meta["rungs_done"])
+        rung_history = list(meta["rung_history"])
+        unit = unit.to(dev)
+        gen.set_state(rng_state)
+        if waves:
+            # the saved survivors become the next rung's pool, in cohort order
+            run_wave_size = int(meta.get("wave_size_run", wave_size))
+            from mpi_opt_tpu_torch.train.staging import pool_copy
+
+            pool_front = pool_copy(trainer, {"params": host_state.params,
+                                             "momentum": host_state.momentum,
+                                             "step": host_state.step})
+            perm = np.arange(len(alive))
+        else:
+            state = PopState({k: v.to(dev) for k, v in host_state.params.items()},
+                             {k: v.to(dev) for k, v in host_state.momentum.items()},
+                             host_state.step.to(dev))
+    journal = make_journal(ledger, space)
+    if journal is not None:
+        journal.require_prefix(start_rung)
+    if restored is None:
+        gen.manual_seed(seed)
+        unit = space.sample_unit(gen, n_trials)
+        if waves:
+            from mpi_opt_tpu_torch.train.staging import population_pool
+
+            pool_front = population_pool(trainer, n_trials)
+            trainer.init_population_into(gen, pool_front["params"])
+            perm = np.arange(n_trials)
+        else:
+            state = trainer.init_population(gen, n_trials)
+
+    def record_rung(r: int, np_scores_r) -> None:
+        """The trial records of one rung's pre-cut cohort (the eager and
+        the deferred paths both write them here)."""
+        stop_rung[alive] = r
+        last_score[alive] = np_scores_r
+        rung_history.append({
+            "budget": int(rungs[r]),
+            "trials": [int(i) for i in alive],
+            "scores": [float(v) for v in np_scores_r],
+        })
+
+    # without snapshot, journal or waves nothing on the host needs a
+    # rung's scores before the sweep ends: one fetch after the last rung
+    defer = snap is None and journal is None and not waves
+    runner = None
+    if waves:
+        runner = WaveRunner(n_trials, run_wave_size, oom_backoff=oom_backoff, device=dev)
+    rung_scores_dev: list = []
+    rung_keep_dev: list = []
+    try:
+        for r in range(start_rung, len(rungs)):
+            budget = rungs[r]
+            steps = budget - (rungs[r - 1] if r > 0 else 0)
+            # the cohort's hyperparameters, mapped eagerly (a wave trains
+            # its rows of them)
+            hp = workload.make_hparams(space.from_unit(unit))
+            if waves:
+                from mpi_opt_tpu_torch.train.staging import nan_scores, pool_rows, population_pool
+
+                n_r = sizes[r]
+                pool_back = population_pool(trainer, n_r)
+                scores_host = nan_scores(n_r, dev)
+                rng_start = gen.get_state()
+
+                def dispatch(w, off, wl, eng, hp=hp, pool_front=pool_front, perm=perm,
+                             rng_start=rng_start, steps=steps):
+                    return _run_wave(trainer, pool_front, perm[off:off + wl], off, hp, train_x,
+                                     train_y, val_x, val_y, gen, rng_start, steps, eng)
+
+                wave_scores = runner.run_interval(
+                    n=n_r,
+                    run_wave_fn=dispatch,
+                    dst_fn=lambda off, wl, pool_back=pool_back, scores_host=scores_host: {
+                        "state": pool_rows(pool_back, off, wl), "scores": scores_host[off:off + wl]},
+                    scores_host=scores_host,
+                    stage_label=lambda w, nw, r=r: f"sha rung {r + 1}/{len(rungs)} wave {w + 1}/{nw}",
+                    boundary_kwargs=lambda w, nw, r=r: {"rung": r + 1, "of": len(rungs)},
+                    # SHA snapshots at rung granularity: a resume re-trains
+                    # the interrupted rung
+                    midpoint_snapshot=None,
+                    notify_fields=(("rung", r + 1),),
+                )
+                scores = torch.cat(wave_scores)
+                del wave_scores
+                np_scores = scores_host.numpy().copy()
+                record_rung(r, np_scores)
+            else:
+                trainer.train_segment(state, hp, train_x, train_y, gen, steps)
+                scores = trainer.eval_population(state, val_x, val_y)
+                if defer:
+                    rung_scores_dev.append(scores)
+                else:
+                    np_scores = scores.cpu().numpy()
+                    record_rung(r, np_scores)
+            if journal is not None:
+                # one record per pre-cut member at the rung's budget,
+                # before the rung's snapshot
+                journal.record_boundary(r, alive, unit.cpu().numpy(), np_scores, step=budget)
+            if r < len(rungs) - 1:
+                with boundary_span("rung_cut", rung=r + 1):
+                    if waves:
+                        unit, keep = _wave_cut(unit, scores, eta, sizes[r + 1])
+                        perm = keep.cpu().numpy()
+                        alive = alive[perm]
+                        np_scores = np_scores[perm]
+                    else:
+                        state, unit, keep, _ = _cut_and_gather(trainer, state, unit, scores, eta,
+                                                               sizes[r + 1])
+                        if defer:
+                            rung_keep_dev.append(keep)
+                        else:
+                            np_keep = keep.cpu().numpy()
+                            alive = alive[np_keep]
+                            np_scores = np_scores[np_keep]
+            if waves:
+                # this rung's trained cohort is the next rung's stage-in
+                # source, read through ``perm``
+                pool_front = pool_back
+            if snap is not None:
+                save_state = state
+                if waves:
+                    # the current cohort (post-cut survivors; the whole
+                    # final cohort at the last rung) out of the pool
+                    sel = torch.as_tensor(perm if r < len(rungs) - 1 else np.arange(sizes[r]))
+                    take = lambda d, sel=sel: {k: v.index_select(0, sel) for k, v in d.items()}
+                    save_state = PopState(take(pool_back["params"]), take(pool_back["momentum"]),
+                                          pool_back["step"].index_select(0, sel))
+                meta_extra = {
+                    "rungs_done": r + 1,
+                    "boundaries_done": r + 1,
+                    "alive": alive.tolist(),
+                    "stop_rung": stop_rung.tolist(),
+                    "last_score": [float(v) for v in last_score],
+                    "rung_history": rung_history,
+                }
+                if waves:
+                    meta_extra["wave_size_run"] = runner.wave_size
+                snap.save_population_sweep(r + 1, save_state, unit, gen, np_scores,
+                                           meta_extra=meta_extra)
+            # checkpointed sweeps snapshot every rung, so a drain flushes
+            # nothing more
+            launch_boundary(f"sha rung {r + 1}/{len(rungs)}", final=r + 1 == len(rungs),
+                            rung=r + 1, of=len(rungs))
+    finally:
+        if runner is not None:
+            runner.close()
+
+    if defer and rung_scores_dev:
+        # the one fetch: every rung's scores and cuts, replayed into the
+        # trial records as the eager path wrote them
+        fetched = [t.cpu().numpy() for t in rung_scores_dev + rung_keep_dev]
+        np_rung_scores, np_keeps = fetched[:len(rung_scores_dev)], fetched[len(rung_scores_dev):]
+        for i, s_r in enumerate(np_rung_scores):
+            record_rung(start_rung + i, s_r)
+            if start_rung + i < len(rungs) - 1:
+                alive = alive[np_keeps[i]]
+        np_scores = np_rung_scores[-1]
+    np_unit = unit.cpu().numpy()
+    best_row, diverged = finite_winner(np_scores)
+    return {
+        "best_score": float("nan") if diverged else float(np_scores[best_row]),
+        "best_params": None if diverged else space.materialize_row(np_unit[best_row]),
+        "best_trial": None if diverged else int(alive[best_row]),
+        "diverged": diverged,
+        "rung_budgets": rungs,
+        "rung_sizes": sizes,
+        "stop_rung": stop_rung,
+        "last_score": last_score,
+        "rung_history": rung_history,
+        "member_failures": [
+            int(np.sum(~np.isfinite(np.asarray(rh["scores"], dtype=np.float64))))
+            for rh in rung_history
+        ],
+        "n_trials": n_trials,
+        "journal": None if journal is None else {"written": journal.written, "verified": journal.verified},
+        "objectives": None,
+        "pareto": None,
+        **({} if runner is None else runner.result_extras()),
+    }

@@ -1,4 +1,4 @@
-"""Fused PBT over a resident population (port of ``mpi_opt_tpu/train/fused_pbt.py``).
+"""Fused PBT (port of ``mpi_opt_tpu/train/fused_pbt.py``).
 
 Each generation trains the population, evaluates it, runs
 exploit/explore, and gathers the winners' states, all on the device;
@@ -8,12 +8,20 @@ so splitting it into launches (``gen_chunk``) or a generation's
 training into sub-launches (``step_chunk``) gives exactly the result of
 one launch.
 
+A population larger than the card holds runs in WAVES
+(``wave_size``, ``_fused_pbt_waves``): its state lives in host pools
+and each generation trains waves of W members through the wave engine
+(``train/engine.py``), while the exploit still ranks the whole
+population. Wave mode gives the resident sweep's result bit for bit on
+the CPU.
+
 Durability follows the JAX package's resident loop: launch-granular
 verified snapshots (``checkpoint_dir``, ``utils/checkpoint.py``) that a
 call with the same arguments resumes from, a member-granular ledger
 journal (``ledger``) written before each snapshot and verified on
-resume, a graceful drain at every launch boundary, and typed device
-OOM.
+resume, a graceful drain at every launch boundary (and between waves),
+and typed device OOM, which wave mode absorbs by halving its wave cap
+(``oom_backoff``).
 """
 
 from __future__ import annotations
@@ -32,7 +40,16 @@ from mpi_opt_tpu_torch.train.common import (
     hparams_fn,
     launch_boundary,
     momentum_dtype_str,
+    workload_arrays,
 )
+from mpi_opt_tpu_torch.train.engine import (
+    WaveRunner,
+    balanced_split,
+    boundary_span,
+    resolve_wave_size,
+    wave_layout,
+)
+from mpi_opt_tpu_torch.train.engine import run_wave as _run_wave
 from mpi_opt_tpu_torch.train.population import PopState
 from mpi_opt_tpu_torch.utils import resources
 
@@ -40,20 +57,9 @@ from mpi_opt_tpu_torch.utils import resources
 # yet, with their defaults: a non-default value raises
 _NOT_PORTED = {
     "mesh": None,
-    "wave_size": 0,
     "warm_obs": None,
     "objectives": None,
 }
-
-
-def balanced_split(total: int, chunk: int) -> list[int]:
-    """Split ``total`` into ceil(total/chunk) near-equal parts (G=7,
-    chunk=3 -> [3, 2, 2]); total=0 gives [0], one empty part."""
-    if total <= 0:
-        return [0]
-    n = -(-total // chunk)
-    base, extra = divmod(total, n)
-    return [base + 1] * extra + [base] * (n - extra)
 
 
 def finish_generation(trainer, state, unit, generator, val_x, val_y, disc, cfg: PBTConfig):
@@ -64,10 +70,8 @@ def finish_generation(trainer, state, unit, generator, val_x, val_y, disc, cfg: 
     journals. The post-exploit scores are the gathered pre-exploit
     ones: weights are copied verbatim."""
     scores = trainer.eval_population(state, val_x, val_y)
-    new_unit, src_idx, _ = pbt_exploit_explore(generator, unit, scores, disc, cfg)
-    state = trainer.gather_members(state, src_idx)
-    n_fail = (~torch.isfinite(scores)).sum()
-    return state, new_unit, scores.max(), scores.mean(), n_fail, scores[src_idx], scores, unit
+    new_unit, src_idx, best, mean, n_fail, post = _wave_exploit(generator, unit, scores, disc, cfg)
+    return trainer.gather_members(state, src_idx), new_unit, best, mean, n_fail, post, scores, unit
 
 
 def _run_stepped_generation(trainer, state, unit, to_hparams, train_x, train_y, val_x, val_y,
@@ -103,6 +107,7 @@ def fused_pbt(  # sweeplint: barrier(resident host loop: launch boundaries, expl
     snapshot_last: bool = True,
     ledger=None,
     oom_backoff: int = 2,
+    wave_size=0,
     device=None,
     **not_ported,
 ):
@@ -131,15 +136,21 @@ def fused_pbt(  # sweeplint: barrier(resident host loop: launch boundaries, expl
     snapshot; on resume, generations already journaled are verified
     against their records (``LedgerError`` on divergence).
 
-    ``oom_backoff`` is accepted for the JAX signature: it only acts in
-    wave mode, which is not ported, so a resident sweep's device OOM
-    raises ``DeviceOOM`` either way.
+    ``wave_size`` (an int or ``'auto'``, resolved by
+    ``engine.resolve_wave_size``): with ``0 < wave_size < population``
+    the sweep runs in waves through host pools (``_fused_pbt_waves``);
+    it cannot be combined with ``gen_chunk``/``step_chunk``. A cap at or
+    above the population runs resident. ``oom_backoff`` is how many
+    times wave mode halves its cap on a device OOM and re-runs the
+    generation; a resident sweep's device OOM raises ``DeviceOOM``.
 
     Returns the result dict of the JAX package's ``fused_pbt``:
     best_score, best_params, diverged, best_curve, mean_curve,
     member_failures, state, unit, launch_gens, launch_walls (the
     completed launches' walls, from the snapshot on a resume), journal
-    ({"written", "verified"} member records, None without a ledger).
+    ({"written", "verified"} member records, None without a ledger);
+    in wave mode also ``WaveRunner.result_extras()``, and ``state`` is
+    on the host.
     """
     for name, value in not_ported.items():
         if name not in _NOT_PORTED:
@@ -155,13 +166,20 @@ def fused_pbt(  # sweeplint: barrier(resident host loop: launch boundaries, expl
         )
     dev = resolve_device(device)
 
-    trainer = workload.make_trainer(member_chunk=member_chunk, device=dev)
-    space = workload.default_space()
-    d = workload.data()
-    train_x, train_y, val_x, val_y = (
-        torch.from_numpy(d[k]).to(dev) for k in ("train_x", "train_y", "val_x", "val_y")
-    )
-    train_y, val_y = train_y.long(), val_y.long()
+    trainer, space, train_x, train_y, val_x, val_y = workload_arrays(workload, member_chunk, dev)
+    if wave_size:
+        wave_size = resolve_wave_size(trainer, population, wave_size=wave_size,
+                                      oom_backoff=oom_backoff)
+        if 0 < wave_size < population:
+            if step_chunk > 0 or gen_chunk > 1:
+                raise ValueError(
+                    "wave_size schedules whole generations as resident waves; combining "
+                    "it with gen_chunk/step_chunk launch splitting is ambiguous"
+                )
+            return _fused_pbt_waves(
+                workload, trainer, space, (train_x, train_y, val_x, val_y), population,
+                generations, steps_per_gen, seed, cfg, member_chunk, wave_size,
+                checkpoint_dir, snapshot_every, snapshot_last, ledger, oom_backoff, dev)
     disc = space.discrete_mask()
     to_hparams = hparams_fn(space, workload)
 
@@ -302,3 +320,241 @@ def fused_pbt(  # sweeplint: barrier(resident host loop: launch boundaries, expl
         "launch_walls": [float(w) for w in launch_walls],
         "journal": None if journal is None else {"written": journal.written, "verified": journal.verified},
     }
+
+
+def _wave_exploit(generator, unit, scores, disc, cfg: PBTConfig):
+    """The generation boundary's decision over the whole population's
+    scores: exploit/explore, without the eval and the state gather. The
+    wave path's boundary is this alone (each wave evaluated itself, and
+    the next generation's stage-in reads the pool through ``src_idx``).
+    Returns (new_unit, src_idx, best, mean, n_fail, post-exploit scores)."""
+    new_unit, src_idx, _ = pbt_exploit_explore(generator, unit, scores, disc, cfg)
+    n_fail = (~torch.isfinite(scores)).sum()
+    return new_unit, src_idx, scores.max(), scores.mean(), n_fail, scores[src_idx]
+
+
+def _fused_pbt_waves(  # sweeplint: barrier(wave host loop: stages pools, gathers scores, exploits at generation boundaries)
+    workload, trainer, space, data, population: int, generations: int, steps_per_gen: int,
+    seed: int, cfg: PBTConfig, member_chunk: int, wave_size: int, checkpoint_dir,
+    snapshot_every: int, snapshot_last: bool, ledger, oom_backoff: int, dev,
+):
+    """Fused PBT over a population held in host pools, ``ceil(P/W)``
+    waves a generation (``engine.WaveRunner``), with the exploit over the
+    whole population and the winners' states reaching the next
+    generation through the stage-in row map (``perm``).
+
+    Bit-identical to the resident sweep on the CPU for any wave size:
+    the pool is initialised with the resident init's draws
+    (``init_population_into``), every wave restarts the generator at the
+    generation's start and makes the whole population's draws
+    (``train_segment_window``), and the exploit sees the same generator,
+    unit matrix and scores. On the card cuDNN and cuBLAS may choose other
+    algorithms for another member count, so identity there holds for
+    wave sizes whose member chunks have the resident shapes (a multiple
+    of ``member_chunk``).
+
+    ``oom_backoff``: a device OOM in a generation's waves halves the cap
+    and re-runs the generation from its first wave, bit-identically. The
+    settled cap is recorded in every snapshot (``wave_size_run``) and
+    adopted on resume; the requested cap stays the config's identity.
+
+    Snapshots: at generation boundaries on the ``snapshot_every``
+    cadence (the front pool, ``perm``, unit, generator state,
+    post-exploit scores), and BETWEEN waves when a graceful drain is
+    pending (both pools, the scores so far, the generator state at the
+    generation's start), so a preempted sweep resumes without
+    re-training completed waves."""
+    from mpi_opt_tpu_torch.train.staging import nan_scores, pool_copy, pool_rows, population_pool
+
+    train_x, train_y, val_x, val_y = data
+    req_wave_size = wave_size
+    wave_lens, _, _ = wave_layout(population, wave_size)
+    disc = space.discrete_mask()
+    to_hparams = hparams_fn(space, workload)
+    gen = torch.Generator(device=dev)
+
+    best_list, mean_list, fail_list, gen_walls = [], [], [], []
+    start_gen = start_wave = 0
+    scores_host = nan_scores(population, dev)
+    post_scores = None
+    pool_front = pool_back = perm = unit = None
+    rng_start = None  # the generator state at the current generation's start
+    snap = restored = None
+    if checkpoint_dir is not None:
+        from mpi_opt_tpu_torch.utils.checkpoint import SweepCheckpointer
+
+        snap = SweepCheckpointer(checkpoint_dir, {
+            "workload": getattr(workload, "name", type(workload).__name__),
+            "population": population,
+            "generations": generations,
+            "steps_per_gen": steps_per_gen,
+            "seed": seed,
+            "member_chunk": member_chunk,
+            "cfg": dataclasses.asdict(cfg),
+            "momentum_dtype": momentum_dtype_str(),
+            # the REQUESTED cap: the snapshot holds pools shaped by the
+            # wave split, so a resident run must not resume it (and the
+            # reverse); an OOM backoff's smaller cap lives in meta
+            "wave_size": req_wave_size,
+            "wave_lens": list(wave_lens),
+            "device": dev.type,
+        })
+        restored = snap.restore_wave_sweep()
+    if restored is not None:
+        sweep, meta = restored
+        best_list = [float(v) for v in meta["best"]]
+        mean_list = [float(v) for v in meta["mean"]]
+        fail_list = [int(v) for v in meta["member_fail"]]
+        gen_walls = [float(v) for v in meta["gen_walls"]]
+        start_gen, start_wave = int(meta["gen"]), int(meta["waves_done"])
+        wave_size = int(meta.get("wave_size_run", wave_size))
+        pool_front = pool_copy(trainer, sweep["front"])
+        perm = sweep["perm"].numpy()
+        unit = sweep["unit"].to(dev)
+        gen.set_state(sweep["rng_state"])
+        if start_wave:
+            # mid-generation: the state saved is the generation's start
+            rng_start = sweep["rng_state"]
+            pool_back = pool_copy(trainer, sweep["back"])
+            scores_host.copy_(sweep["scores"])
+        else:
+            post_scores = sweep["scores"].numpy()
+    journal = make_journal(ledger, space)
+    if journal is not None:
+        journal.require_prefix(start_gen)
+    if restored is None:
+        gen.manual_seed(seed)
+        unit = space.sample_unit(gen, population)
+        perm = np.arange(population)
+        pool_front = population_pool(trainer, population)
+        trainer.init_population_into(gen, pool_front["params"])
+    if pool_back is None:
+        pool_back = population_pool(trainer, population)
+
+    snapshot_every = max(1, snapshot_every)
+    runner = WaveRunner(population, wave_size, oom_backoff=oom_backoff, device=dev)
+    try:
+        for g in range(start_gen, generations):
+            t_gen = time.perf_counter()
+            resumed_mid = g == start_gen and start_wave > 0
+            gen_partial0 = float(restored[1].get("wall_partial", 0.0)) if resumed_mid else 0.0
+            if not resumed_mid:
+                rng_start = gen.get_state()
+                scores_host.fill_(float("nan"))
+            # the whole population's hyperparameters, mapped eagerly as
+            # the resident generation maps them; each wave trains its rows
+            hp = to_hparams(unit)
+
+            def dispatch(w, off, wl, eng, hp=hp, pool_front=pool_front, perm=perm, rng_start=rng_start):
+                return _run_wave(trainer, pool_front, perm[off:off + wl], off, hp, train_x, train_y,
+                                 val_x, val_y, gen, rng_start, steps_per_gen, eng)
+
+            def dst(off, wl, pool_back=pool_back):
+                return {"state": pool_rows(pool_back, off, wl), "scores": scores_host[off:off + wl]}
+
+            def label(w, nw, g=g):
+                return f"pbt gen {g + 1}/{generations} wave {w + 1}/{nw}"
+
+            def midgen_snapshot(w, nw, g=g, t_gen=t_gen, gen_partial0=gen_partial0,
+                                pool_front=pool_front, pool_back=pool_back, perm=perm,
+                                unit=unit, rng_start=rng_start):
+                def save_midgen():  # sweeplint: barrier(between-waves drain snapshot: the pools must hold every completed wave)
+                    runner.engine.drain()
+                    snap.save(g * nw + w + 1, sweep={
+                        "front": pool_front, "back": pool_back,
+                        "perm": torch.as_tensor(perm), "unit": unit.cpu(),
+                        "rng_state": rng_start, "scores": scores_host.clone(),
+                    }, meta_extra={
+                        "gen": g,
+                        "waves_done": w + 1,
+                        # a mid-generation snapshot completes no boundary
+                        "boundaries_done": g,
+                        "wave_size_run": runner.wave_size,
+                        "best": best_list, "mean": mean_list,
+                        "member_fail": fail_list, "gen_walls": gen_walls,
+                        "wall_partial": time.perf_counter() - t_gen + gen_partial0,
+                    })
+
+                return save_midgen
+
+            wave_scores = runner.run_interval(
+                n=population,
+                run_wave_fn=dispatch,
+                dst_fn=dst,
+                scores_host=scores_host,
+                stage_label=label,
+                boundary_kwargs=lambda w, nw, g=g: {"launch": g * nw + w + 1, "of": generations * nw},
+                midpoint_snapshot=None if snap is None else midgen_snapshot,
+                start_wave=start_wave if resumed_mid else 0,
+                notify_fields=(("gen", g + 1),),
+            )
+            n_waves = runner.n_waves
+            if journal is not None:
+                # the generation's members (pre-exploit scores, the units
+                # they trained with) BEFORE its snapshot
+                journal.record_boundary(g, np.arange(population), unit.cpu().numpy(),
+                                        scores_host.numpy(), step=(g + 1) * steps_per_gen)
+            with boundary_span("exploit", gen=g + 1):
+                unit, src_idx, best, mean, n_fail, post = _wave_exploit(
+                    gen, unit, torch.cat(wave_scores), disc, cfg)
+                best_list.append(float(best))
+                mean_list.append(float(mean))
+                fail_list.append(int(n_fail))
+                perm = src_idx.cpu().numpy()
+                post_scores = post.cpu().numpy()
+            del wave_scores
+            pool_front, pool_back = pool_back, pool_front
+            gen_walls.append(time.perf_counter() - t_gen + gen_partial0)
+            is_last = g + 1 == generations
+            due = (g + 1) % snapshot_every == 0
+
+            def save_boundary(g=g, n_waves=n_waves):
+                snap.save((g + 1) * n_waves, sweep={
+                    "front": pool_front, "perm": torch.as_tensor(perm), "unit": unit.cpu(),
+                    "rng_state": gen.get_state(), "scores": torch.as_tensor(post_scores),
+                }, meta_extra={
+                    "gen": g + 1,
+                    "waves_done": 0,
+                    "boundaries_done": g + 1,
+                    "wave_size_run": runner.wave_size,
+                    "best": best_list, "mean": mean_list,
+                    "member_fail": fail_list, "gen_walls": gen_walls,
+                })
+
+            saved = False
+            if snap is not None and ((due and not is_last) or (is_last and snapshot_last)):
+                save_boundary()
+                saved = True
+            launch_boundary(
+                f"pbt gen {g + 1}/{generations} wave {n_waves}/{n_waves}",
+                final=is_last,
+                snapshot=None if (snap is None or saved) else save_boundary,
+                launch=(g + 1) * n_waves,
+                of=generations * n_waves,
+            )
+    finally:
+        runner.close()
+
+    best_i, diverged = finite_winner(post_scores)
+    np_unit = unit.cpu().numpy()
+    # the post-exploit population, on the host where it lives: the
+    # winners' rows through the perm
+    idx = torch.as_tensor(perm)
+    take = lambda d: {k: v.index_select(0, idx) for k, v in d.items()}
+    state = PopState(take(pool_front["params"]), take(pool_front["momentum"]),
+                     pool_front["step"].index_select(0, idx))
+    return {
+        "best_score": float("nan") if diverged else float(post_scores[best_i]),
+        "best_params": None if diverged else space.materialize_row(np_unit[best_i]),
+        "diverged": diverged,
+        "best_curve": np.asarray(best_list, dtype=np.float32),
+        "mean_curve": np.asarray(mean_list, dtype=np.float32),
+        "member_failures": [int(v) for v in fail_list],
+        "state": state,
+        "unit": np_unit,
+        "launch_gens": [1] * generations,
+        "launch_walls": [float(v) for v in gen_walls],
+        **runner.result_extras(),
+        "journal": None if journal is None else {"written": journal.written, "verified": journal.verified},
+    }
+

@@ -12,6 +12,11 @@ Every random draw takes an explicit ``torch.Generator`` and is split
 into a draw and an apply (``draw_batch``, ``draw_augment`` /
 ``apply_augment``), so tests can feed the JAX package's draws to the
 apply.
+
+A wave of a larger population (``train/engine.py``) trains through
+``train_segment_window`` and is initialised by ``init_population_into``;
+both make the draws of the whole population, so a wave's members get
+the numbers they would get resident.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ import torch
 from torch.func import functional_call
 
 from mpi_opt_tpu_torch.device import resolve_device
-from mpi_opt_tpu_torch.models.resnet import fold_members
+from mpi_opt_tpu_torch.models.resnet import fold_members, init_layers
 
 
 @dataclasses.dataclass
@@ -39,6 +44,10 @@ class OptHParams:
     def defaults(n: int, lr: float = 0.1, device=None) -> "OptHParams":
         f = lambda v: torch.full((n,), v, dtype=torch.float32, device=device)
         return OptHParams(f(lr), f(0.9), f(1e-4), f(0.5), f(3.0))
+
+    def rows(self, a: int, b: int) -> "OptHParams":
+        """Members [a, b) (slicing is exact)."""
+        return OptHParams(*(getattr(self, f.name)[a:b] for f in dataclasses.fields(self)))
 
 
 @dataclasses.dataclass
@@ -123,6 +132,30 @@ class PopulationTrainer:
         momentum = {k: torch.zeros_like(v, dtype=self.momentum_dtype) for k, v in params.items()}
         return PopState(params, momentum, torch.zeros(n, dtype=torch.int32, device=self.device))
 
+    @torch.no_grad()
+    def init_population_into(self, generator: torch.Generator, params: dict) -> None:
+        """``init_population``'s parameters written into host tensors
+        ``params`` (name -> ``[n, ...]``, a staging pool's), one layer at
+        a time: each layer of all n members is drawn on the trainer's
+        device, copied out and freed, so the device holds at most one
+        full-population layer. The draws and their order are
+        ``init_population``'s, so the values are bit-identical."""
+        n = next(iter(params.values())).shape[0]
+        model = self.model_fn(n, "meta")
+        for prefix, layer in init_layers(model):
+            layer.to_empty(device=self.device)
+            layer.init_params(generator)
+            for name, p in layer.named_parameters():
+                params[f"{prefix}.{name}" if prefix else name].copy_(p)
+            layer.to_empty(device="meta")
+
+    def member_bytes(self) -> int:
+        """Bytes of one member's carried state: parameters at their
+        dtypes plus momentum at its storage dtype, from the meta
+        template (nothing is allocated)."""
+        return sum(p.numel() * (p.dtype.itemsize + (self.momentum_dtype or p.dtype).itemsize)
+                   for p in self.template.parameters())
+
     def _chunks(self, n: int):
         size = self.member_chunk if self.member_chunk > 0 else n
         return [(a, min(a + size, n)) for a in range(0, n, size)]
@@ -169,13 +202,29 @@ class PopulationTrainer:
     def train_segment(self, state: PopState, hp: OptHParams, train_x, train_y,
                       generator: torch.Generator, steps: int):
         """``steps`` shared-batch steps; returns (state, mean losses [steps])."""
+        return self.train_segment_window(state, hp, train_x, train_y, generator, steps, 0)
+
+    def train_segment_window(self, state: PopState, hp_full: OptHParams, train_x, train_y,
+                             generator: torch.Generator, steps: int, offset: int):
+        """``train_segment`` for a wave: ``state`` holds members
+        [offset, offset+W) of the population that ``hp_full`` describes
+        (``hp_full`` has a row for every member). Each step draws the
+        shared batch and the augmentation of the WHOLE population, as
+        the resident segment does, and trains the wave's rows with the
+        wave's rows of hp: from the same generator state, a wave's
+        members see the draws they see resident, and the generator ends
+        where the resident segment leaves it. Returns (state, the
+        wave's mean losses [steps])."""
+        w = state.step.shape[0]
+        hp = hp_full.rows(offset, offset + w)
         losses = []
         for _ in range(steps):
             idx = draw_batch(generator, train_x.shape[0], self.batch_size)
             bx, by = train_x[idx], train_y[idx]
             aug = None
             if self.augment and bx.dim() == 4:
-                aug = draw_augment(generator, hp.flip_prob, hp.shift, self.batch_size)
+                aug = draw_augment(generator, hp_full.flip_prob, hp_full.shift, self.batch_size)
+                aug = tuple(a[offset:offset + w] for a in aug)
             losses.append(self._pop_update(state, hp, aug, bx, by).mean())
         # zero steps (an eval-only generation) is an empty curve, as the
         # JAX package's empty scan gives

@@ -212,6 +212,23 @@ class SweepCheckpointer:
             meta_extra=meta_extra,
         )
 
+    def restore_wave_sweep(self):
+        """(sweep, meta) of a wave-scheduled sweep's newest verified
+        step, or None. The sweep holds host tensors, discriminated by
+        ``meta["waves_done"]``:
+
+        - a generation boundary (``waves_done == 0``): ``front`` (the
+          pool after the generation's training), ``perm`` (the exploit
+          source map the next stage-in applies), ``unit``,
+          ``rng_state`` (the next generation's start) and ``scores``
+          (post-exploit);
+        - between waves (``waves_done == k``): also ``back`` (the pool
+          written through wave k); ``rng_state`` is the generation's
+          start and ``scores`` the pre-exploit scores, NaN past the
+          completed waves.
+        """
+        return self.restore()
+
     def restore_population_sweep(self):
         """(PopState on the host, unit, generator state, scores, meta)
         from the newest verified step, or None."""

@@ -34,6 +34,12 @@ class MetricsLogger:
         self.members_journaled = 0
         # superseded snapshot steps deleted by the ENOSPC prune retry
         self.snapshots_pruned = 0
+        # host-staging traffic of a wave-scheduled sweep
+        self.staged_bytes = 0
+        self.stage_overlap_s = 0.0
+        # device-OOM wave halvings absorbed, and pre-launch wave clamps
+        self.oom_backoffs = 0
+        self.wave_resized = 0
 
     def log(self, event: str, **fields) -> dict:
         # ``t`` is this process's clock; ``ts`` the absolute epoch
@@ -68,6 +74,19 @@ class MetricsLogger:
     def count_pruned(self, n: int = 1):
         self.snapshots_pruned += int(n)
 
+    def count_staging(self, staged_bytes: int = 0, overlap_s: float = 0.0):
+        """Host-staging traffic from a wave-scheduled fused sweep."""
+        self.staged_bytes += int(staged_bytes)
+        self.stage_overlap_s += float(overlap_s)
+
+    def count_oom_backoffs(self, n: int = 1):
+        """Device-OOM wave halvings absorbed by the wave engine."""
+        self.oom_backoffs += int(n)
+
+    def count_wave_resized(self, n: int = 1):
+        """Pre-launch wave-size clamps (estimate against budget)."""
+        self.wave_resized += int(n)
+
     @property
     def wall(self) -> float:
         return time.perf_counter() - self.t_start
@@ -81,7 +100,11 @@ class MetricsLogger:
             trials=self.trials_done,
             preempted=self.preempted,
             snapshots_quarantined=self.snapshots_quarantined,
+            staged_bytes=self.staged_bytes,
+            stage_overlap_s=round(self.stage_overlap_s, 3),
             members_journaled=self.members_journaled,
+            oom_backoffs=self.oom_backoffs,
+            wave_resized=self.wave_resized,
             snapshots_pruned=self.snapshots_pruned,
             wall_s=round(self.wall, 3),
             trials_per_sec_per_chip=round(self.trials_per_sec_per_chip(), 4),

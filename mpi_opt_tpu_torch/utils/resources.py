@@ -36,7 +36,12 @@ _CUDA_OOM_MARKERS = ("cuda out of memory", "cuda error: out of memory")
 class DeviceOOM(RuntimeError):
     """Typed device-memory exhaustion: the population and its
     activations exceeded the device budget. Carries the original error
-    text."""
+    text; ``wave_size`` is the wave cap in force when the launch died
+    (None for a resident sweep), so diagnostics can say what to halve."""
+
+    def __init__(self, message: str, wave_size: Optional[int] = None):
+        super().__init__(message)
+        self.wave_size = wave_size
 
 
 class StorageFull(OSError):
@@ -83,13 +88,13 @@ def is_device_oom(e: BaseException) -> bool:
     return "resource_exhausted" not in msg and any(m in msg for m in _CUDA_OOM_MARKERS)
 
 
-def as_device_oom(e: BaseException) -> Optional[DeviceOOM]:
+def as_device_oom(e: BaseException, wave_size: Optional[int] = None) -> Optional[DeviceOOM]:
     """``DeviceOOM`` wrapping ``e`` when it classifies, else None."""
     if isinstance(e, DeviceOOM):
         return e
     if not is_device_oom(e):
         return None
-    return DeviceOOM(f"{type(e).__name__}: {e}"[:2000])
+    return DeviceOOM(f"{type(e).__name__}: {e}"[:2000], wave_size=wave_size)
 
 
 def synthetic_resource_exhausted(detail: str = "chaos-injected"):
@@ -103,8 +108,13 @@ def synthetic_resource_exhausted(detail: str = "chaos-injected"):
 
 class oom_funnel:
     """Context manager: a CUDA out-of-memory error escaping the guarded
-    region re-raises as typed :class:`DeviceOOM`; everything else
-    propagates raw. Nothing is retried, on the card or elsewhere."""
+    region re-raises as typed :class:`DeviceOOM` carrying ``wave_size``;
+    everything else propagates raw. The funnel retries nothing: the wave
+    engine (``train/engine.py``) catches the typed error to halve its
+    cap."""
+
+    def __init__(self, wave_size: Optional[int] = None):
+        self.wave_size = wave_size
 
     def __enter__(self):
         return self
@@ -112,7 +122,7 @@ class oom_funnel:
     def __exit__(self, exc_type, exc, tb):
         if exc is None:
             return False
-        oom = None if isinstance(exc, DeviceOOM) else as_device_oom(exc)
+        oom = None if isinstance(exc, DeviceOOM) else as_device_oom(exc, self.wave_size)
         if oom is not None:
             raise oom from exc
         return False
@@ -133,7 +143,8 @@ def clear_observer() -> None:
 
 
 def notify(event: str, **fields) -> None:
-    """Report a resource-lifecycle event (``snapshot_pruned``); falls
+    """Report a resource-lifecycle event (``snapshot_pruned``,
+    ``oom_backoff``, ``wave_resized``); falls
     back to a warning so library callers still see it."""
     if _OBSERVER is not None:
         _OBSERVER(event, **fields)
@@ -147,8 +158,8 @@ def notify(event: str, **fields) -> None:
 #
 # ``disk_fault(op, path)`` sits inside the snapshot save and the ledger
 # fsync and may raise a classified StorageFull; ``launch_fault(kind)``
-# sits at the top of every guarded launch and may raise a synthetic
-# CUDA OOM; ``boundary_fault(stage)`` sits at the top of every launch
+# sits at the top of every guarded launch (a resident launch, one wave)
+# and may raise a synthetic CUDA OOM; ``boundary_fault(stage)`` sits at the top of every launch
 # boundary (``train.common.launch_boundary``).
 
 _DISK_FAULTS: Optional[Callable[[str, str], None]] = None

@@ -223,8 +223,9 @@ def test_cli_flags_not_ported_are_usage_errors(tmp_path, flag, capsys):
     (["report", "l.jsonl"], "'report' subcommand is not ported yet"),
     (["fsck", "ck"], "'fsck' subcommand is not ported yet"),
     (["--workload", "fashion_mlp", "--algorithm", "pbt"], "driver path (no --fused) is not ported yet"),
-    (["--workload", "fashion_mlp", "--algorithm", "asha", "--fused"], "--algorithm asha is not ported yet"),
-    (["--workload", "fashion_mlp", "--fused"], "--algorithm random is not ported yet"),
+    (["--workload", "fashion_mlp", "--algorithm", "hyperband", "--fused"],
+     "--algorithm hyperband is not ported yet"),
+    (["--workload", "fashion_mlp", "--algorithm", "tpe", "--fused"], "--algorithm tpe is not ported yet"),
     (["--workload", "fashion_mlp", "--algorithm", "pbt", "--fused", "--resume"],
      "--resume requires --checkpoint-dir or --ledger"),
 ])
@@ -254,3 +255,187 @@ def test_cli_runs_on_cuda_unless_told(monkeypatch, tmp_path):
     argv = [a for a in _argv(tmp_path) if a not in ("--device", "cpu")]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(argv)
+
+
+# -- the wave engine and successive halving through the CLI ----------------
+
+#: the JAX CLI's summary wave fields (``_wave_extras``) and the port's ``waves_run``
+WAVE_KEYS = {"wave_size", "n_waves", "staged_bytes", "stage_overlap_s", "stage_wait_s",
+             "oom_backoffs", "waves_run"}
+
+
+def _pbt(tmp_path, *extra, name="run"):
+    return ["--workload", "fashion_mlp", "--algorithm", "pbt", "--fused", "--population", "6",
+            "--generations", "2", "--steps-per-generation", "2", "--seed", "1", "--device", "cpu",
+            "--ledger", str(tmp_path / f"{name}.jsonl"), *extra]
+
+
+def _sha(tmp_path, *extra, algorithm="asha", name="sha"):
+    return ["--workload", "fashion_mlp", "--algorithm", algorithm, "--fused", "--trials", "8",
+            "--min-budget", "2", "--max-budget", "8", "--eta", "2", "--budget", "3", "--seed", "4",
+            "--device", "cpu", "--ledger", str(tmp_path / f"{name}.jsonl"), *extra]
+
+
+@pytest.mark.parametrize("value,message", [
+    ("-1", "--wave-size must be >= 0, got -1"),
+    ("half", "--wave-size must be an integer or 'auto', got 'half'"),
+])
+def test_cli_bad_wave_size_is_usage_error(tmp_path, value, message, capsys):
+    with pytest.raises(SystemExit) as exc:
+        cli.main(_pbt(tmp_path, "--wave-size", value))
+    assert exc.value.code == 2
+    assert message in capsys.readouterr().err
+    assert not os.path.exists(tmp_path / "run.jsonl")
+
+
+@pytest.mark.parametrize("extra,message", [
+    (["--oom-backoff", "-1"], "--oom-backoff must be >= 0"),
+    (["--wave-size", "2", "--step-chunk", "1"], "ambiguous"),
+    (["--wave-size", "2", "--gen-chunk", "2"], "ambiguous"),
+])
+def test_cli_wave_refusals_are_usage_errors(tmp_path, extra, message, capsys):
+    with pytest.raises(SystemExit) as exc:
+        cli.main(_pbt(tmp_path, *extra))
+    assert exc.value.code == 2
+    assert message in capsys.readouterr().err
+
+
+def test_cli_wave_size_int_summary_and_records_equal_resident(tmp_path, capsys):
+    rc, lines, _ = _run(_pbt(tmp_path, name="resident"), capsys)
+    assert rc == 0
+    resident = lines[-1]
+    assert not WAVE_KEYS & set(resident)
+    rc, lines, _ = _run(_pbt(tmp_path, "--wave-size", "4", name="waved"), capsys)
+    assert rc == 0
+    waved = lines[-1]
+    assert set(waved) == SUMMARY_KEYS | WAVE_KEYS
+    assert (waved["wave_size"], waved["n_waves"], waved["waves_run"], waved["oom_backoffs"]) == (4, 2, 4, 0)
+    assert waved["staged_bytes"] > 0 and waved["stage_wait_s"] >= 0 and waved["stage_overlap_s"] >= 0
+    for k in ("best_score", "best_params", "best_curve", "member_failures", "journal"):
+        assert waved[k] == resident[k], k
+    assert _records(tmp_path / "waved.jsonl") == _records(tmp_path / "resident.jsonl")
+    events = {x["event"]: x for x in lines if "event" in x}
+    assert events["summary"]["staged_bytes"] == waved["staged_bytes"]
+
+
+def test_cli_wave_size_auto(tmp_path, capsys, monkeypatch):
+    """``auto`` on the CPU with no budget runs resident (8 GiB fits); with
+    an operator budget of two members it runs waves of 2 and logs the
+    ``wave_resized`` event."""
+    monkeypatch.delenv("MPI_OPT_TPU_DEVICE_BYTES", raising=False)
+    rc, lines, _ = _run(_pbt(tmp_path, "--wave-size", "auto", name="a"), capsys)
+    assert rc == 0 and "wave_size" not in lines[-1]
+    member = cli.get_workload("fashion_mlp").make_trainer(device="cpu").member_bytes()
+    monkeypatch.setenv("MPI_OPT_TPU_DEVICE_BYTES", str(int(member * 2 / 0.35) + 1024))
+    rc, lines, _ = _run(_pbt(tmp_path, "--wave-size", "auto", name="b"), capsys)
+    assert rc == 0
+    assert lines[-1]["wave_size"] == 2 and lines[-1]["n_waves"] == 3
+    events = [x for x in lines if "event" in x]
+    assert [x for x in events if x["event"] == "wave_resized"] == [
+        {**events[0], "event": "wave_resized", "requested": "auto", "wave_size": 2, "population": 6}]
+    assert [x["wave_resized"] for x in events if x["event"] == "summary"] == [1]
+
+
+def test_cli_oom_backoff_absorbs_a_device_oom(tmp_path, capsys):
+    """A device OOM at the first wave: with --oom-backoff 2 the run halves
+    its cap and ends with the clean run's records (exit 0); with 0 it
+    exits 74."""
+    rc, lines, _ = _run(_pbt(tmp_path, "--wave-size", "2", name="clean"), capsys)
+    assert rc == 0
+    clean = lines[-1]
+    fired = {"n": 0}
+
+    def first_wave(kind):
+        if kind == "wave" and not fired["n"]:
+            fired["n"] += 1
+            raise resources.synthetic_resource_exhausted()
+
+    resources.set_launch_fault_injector(first_wave)
+    rc, lines, _ = _run(_pbt(tmp_path, "--wave-size", "4", "--oom-backoff", "2", name="oom"), capsys)
+    assert rc == 0 and fired["n"] == 1
+    got = lines[-1]
+    assert got["oom_backoffs"] == 1 and got["wave_size"] == 2
+    assert [x["oom_backoffs"] for x in lines if x.get("event") == "summary"] == [1]
+    assert [x["gen"] for x in lines if x.get("event") == "oom_backoff"] == [1]
+    for k in ("best_score", "best_params", "best_curve"):
+        assert got[k] == clean[k], k
+    assert _records(tmp_path / "oom.jsonl") == _records(tmp_path / "clean.jsonl")
+    fired["n"] = 0
+    rc, lines, err = _run(_pbt(tmp_path, "--wave-size", "4", "--oom-backoff", "0", name="no"), capsys)
+    assert rc == 74 and lines[-1]["kind"] == "device_oom"
+    assert "--wave-size auto" in err
+
+
+@pytest.mark.parametrize("wave_size", ["0", "3"])
+def test_cli_fused_asha_summary_and_ledger(tmp_path, wave_size, capsys):
+    rc, lines, _ = _run(_sha(tmp_path, "--wave-size", wave_size), capsys)
+    assert rc == 0
+    s = lines[-1]
+    keys = SUMMARY_KEYS - {"best_curve"} | {"rung_sizes", "rung_budgets"}
+    assert set(s) == (keys | WAVE_KEYS if wave_size != "0" else keys)
+    assert (s["algorithm"], s["n_trials"], s["rung_sizes"], s["rung_budgets"]) == ("asha", 8, [8, 4, 2], [2, 4, 8])
+    assert s["journal"] == {"written": 14, "verified": 0} and len(s["member_failures"]) == 3
+    with open(tmp_path / "sha.jsonl") as f:
+        header = json.loads(f.readline())
+    assert header["config"]["granularity"] == "rung"
+    assert {k: header["config"][k] for k in ("trials", "min_budget", "max_budget", "eta")} == {
+        "trials": 8, "min_budget": 2, "max_budget": 8, "eta": 2}
+
+
+def test_cli_asha_waves_equal_resident_and_random_is_one_rung(tmp_path, capsys):
+    rc, lines, _ = _run(_sha(tmp_path, name="res"), capsys)
+    res = lines[-1]
+    rc2, lines, _ = _run(_sha(tmp_path, "--wave-size", "3", name="wav"), capsys)
+    assert rc == rc2 == 0
+    for k in ("best_score", "best_params", "member_failures", "rung_sizes"):
+        assert lines[-1][k] == res[k], k
+    assert _records(tmp_path / "wav.jsonl") == _records(tmp_path / "res.jsonl")
+    rc, lines, _ = _run(_sha(tmp_path, algorithm="random", name="rand"), capsys)
+    assert rc == 0
+    assert (lines[-1]["algorithm"], lines[-1]["rung_sizes"], lines[-1]["rung_budgets"]) == ("random", [8], [3])
+    with open(tmp_path / "rand.jsonl") as f:
+        config = json.loads(f.readline())["config"]
+    assert (config["trials"], config["budget"], config["granularity"]) == (8, 3, "rung")
+
+
+def test_cli_asha_drain_and_resume_match_unkilled(tmp_path, capsys):
+    """Waves of 3: rung 1's 8 trials run waves [3, 3, 2], so the third
+    boundary is rung 1's end. SIGTERM there: exit 75, and --resume
+    journals rungs 2 and 3 only and ends with the unkilled sweep's
+    records."""
+    rc, lines, _ = _run(_sha(tmp_path, "--wave-size", "3", name="whole"), capsys)
+    assert rc == 0
+    want = lines[-1]
+    argv = _sha(tmp_path, "--wave-size", "3", "--checkpoint-dir", str(tmp_path / "ck"), name="cut")
+    resources.set_boundary_fault_injector(_sigterm_at(3))
+    rc, lines, _ = _run(argv, capsys)
+    resources.set_boundary_fault_injector(None)
+    assert rc == 75 and lines[-1]["at"] == "sha rung 1/3"
+    rc, lines, _ = _run(argv + ["--resume"], capsys)
+    assert rc == 0
+    assert lines[-1]["journal"] == {"written": 6, "verified": 0}
+    for k in ("best_score", "best_params", "member_failures"):
+        assert lines[-1][k] == want[k], k
+    assert _records(tmp_path / "cut.jsonl") == _records(tmp_path / "whole.jsonl")
+
+
+def test_cli_pbt_drain_between_waves_resumes_without_retraining(tmp_path, capsys):
+    """SIGTERM before the first between-waves boundary of generation 1:
+    the drain flushes a mid-generation snapshot and exits 75; --resume
+    trains the 2 remaining waves and generation 2's 3 (``waves_run``)
+    and ends with the unkilled run's records."""
+    rc, lines, _ = _run(_pbt(tmp_path, "--wave-size", "2", name="whole"), capsys)
+    assert rc == 0
+    want = lines[-1]
+    argv = _pbt(tmp_path, "--wave-size", "2", "--checkpoint-dir", str(tmp_path / "ck"), name="cut")
+    resources.set_boundary_fault_injector(_sigterm_at(1))
+    rc, lines, _ = _run(argv, capsys)
+    resources.set_boundary_fault_injector(None)
+    assert rc == 75 and lines[-1]["at"] == "pbt gen 1/2 wave 1/3"
+    assert integrity._committed_steps(str(tmp_path / "ck")) == [1]
+    rc, lines, _ = _run(argv + ["--resume"], capsys)
+    assert rc == 0
+    assert lines[-1]["waves_run"] == 5
+    for k in ("best_score", "best_params", "best_curve", "member_failures"):
+        assert lines[-1][k] == want[k], k
+    assert _records(tmp_path / "cut.jsonl") == _records(tmp_path / "whole.jsonl")

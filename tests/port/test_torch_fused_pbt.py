@@ -74,25 +74,29 @@ def test_default_device_raises_without_cuda(workload, monkeypatch):
 
 @pytest.mark.parametrize(
     "arg,value",
-    [("mesh", object()), ("wave_size", 2), ("warm_obs", [1]), ("objectives", object())],
+    [("mesh", object()), ("warm_obs", [1]), ("objectives", object())],
 )
 def test_out_of_scope_arguments_raise(workload, arg, value):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         fused_pbt(workload, **RUN, **{arg: value})
 
 
-@pytest.mark.parametrize("arg", ["step_chunk", "checkpoint_dir", "ledger", "oom_backoff"])
+@pytest.mark.parametrize("arg", ["step_chunk", "checkpoint_dir", "ledger", "oom_backoff", "wave_size"])
 def test_durability_arguments_run(arg, tmp_path):
-    """The arguments ported with the durability layer: each runs and
-    leaves the sweep's result as it is (the MLP keeps this fast;
-    ``test_torch_fused_resume.py`` holds their contracts)."""
+    """The arguments ported with the durability layer and the wave
+    engine: each runs and leaves the sweep's result as it is (the MLP
+    keeps this fast; ``test_torch_fused_resume.py`` and
+    ``test_torch_fused_waves.py`` hold their contracts)."""
     from mpi_opt_tpu_torch.ledger import SweepLedger
     from mpi_opt_tpu_torch.utils import integrity
 
     wl = get_workload("fashion_mlp", n_train=256, n_val=128)
     kw = dict(population=4, generations=2, steps_per_gen=2, seed=0, gen_chunk=1, device="cpu")
     base = fused_pbt(wl, **kw)
-    value = {"step_chunk": 1, "checkpoint_dir": str(tmp_path / "ck"), "oom_backoff": 0}.get(arg)
+    value = {"step_chunk": 1, "checkpoint_dir": str(tmp_path / "ck"), "oom_backoff": 0,
+             "wave_size": 3}.get(arg)
+    if arg == "wave_size":
+        kw = dict(kw, gen_chunk=0)
     if arg == "ledger":
         value = SweepLedger(str(tmp_path / "l.jsonl"))
         value.ensure_header({"mode": "fused", "space_hash": wl.default_space().space_hash()})

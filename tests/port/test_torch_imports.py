@@ -27,3 +27,10 @@ def test_scan_covers_the_package():
 def test_no_jax_imports(path):
     bad = sorted(set(_imported_roots(path)) & FORBIDDEN)
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("module", [
+    "train/engine.py", "train/staging.py", "train/fused_asha.py", "ops/asha.py", "obs/memory.py",
+])
+def test_wave_engine_modules_are_scanned(module):
+    assert ROOT / "mpi_opt_tpu_torch" / module in FILES
