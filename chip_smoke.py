@@ -26,10 +26,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    kernels, device idle share (measurement only);
 6. north star: ``mpi_opt_tpu_torch.bench`` (fused PBT over 256
    full-width SmallCNN members on CIFAR-10, member chunk 32, one
-   generation a launch) at 2 generations x 20 steps; its record. Then
-   the same run with ``torch.backends.cudnn.deterministic`` on, twice,
-   and off again, for the member-generations/s with and without it
-   (measurement only: phase 9 checks determinism with the defaults);
+   generation a launch) at 2 generations x 20 steps, traced (the bench's
+   default); its record. Then the same run with
+   ``torch.backends.cudnn.deterministic`` on, and off again, for the
+   member-generations/s with and without it (measurement only: phase 9
+   checks determinism with the defaults);
 7. profile of 3 steady north-star steps, as phase 5;
 8. a fashion_mlp sweep, population 16, 2 generations x 5 steps;
 9. durability: full-width cifar10_cnn at population 32, 4 generations x
@@ -47,18 +48,28 @@ Phases, in order; any failure exits non-zero and prints no result:
    state is timed: save, restore and verify, bytes on disk;
 10. the wave engine:
    (a) the north star (256 full-width SmallCNN members, member chunk
-   32) at 2 x 20 through ``fused_pbt``: resident, waves of 64, waves of
-   64, resident, in turns, each with its member-generations/s, staging
-   counters and peak memory; the wave runs' state digest and best curve
-   must equal the resident runs'. Then waves of 48 (not a multiple of
-   the chunk), its largest parameter and score difference reported,
-   not gated; the time to allocate two pinned pools;
+   32) at 2 x 20 through ``fused_pbt``: traced resident (a fresh
+   workload), resident, traced resident, waves of 64, waves of 64,
+   traced resident, resident, waves of 48, traced waves of 64, each with
+   its member-generations/s, staging counters and peak memory. Every run
+   must end in the first run's state digest and best curve (waves of 48
+   run whole chunks: every launch has one member chunk's shape); the
+   traced runs' span coverage must be >= 0.9, and tracing may cost at
+   most 5% (resident, traced, traced, resident in turns); where the
+   wave-64 run's extra wall goes, by span; the time to allocate two
+   pinned pools;
    (b) a real OOM: the CLI at 64 members in waves of 32 and of 16, each
    in a subprocess whose launcher reports the allocator's peak of
    allocated bytes; then, capped by ``torch.cuda.set_per_process_memory_fraction``
    halfway between the two peaks (only the launcher knows the cap),
    ``--wave-size 32 --oom-backoff 2`` must exit 0 with one backoff and
-   the half-cap run's ledger records, and ``--oom-backoff 0`` exit 74;
+   the half-cap run's ledger records (without a member chunk the
+   halving changes the launch shape), and ``--oom-backoff 0`` exit 74;
+   (b2) the same inside one launch width: cifar100_resnet18 at 64
+   members in chunks of 16, waves of 32 and of 16, capped between their
+   allocated peaks: ``--wave-size 32`` must back off once to 16 with no
+   launch-shape change and end with the UNFAULTED waves-of-32 run's
+   records;
    (c) a drain between waves: phase 9's durability config through the
    CLI in waves of 8 (member chunk 8): resident and wave runs must
    journal the same records; SIGTERM once wave 2 of generation 1 is
@@ -70,17 +81,26 @@ Phases, in order; any failure exits non-zero and prints no result:
    and staging counters; whether survivors and best agree is reported;
    (e) config 5's wave cap (cifar100_resnet18, 1024 members): per-member
    bytes, the measured budget, ``estimate_wave_size``, no training;
-11. the ``kernels`` line (JSON), then the script's wall and the device
-   line (JSON, last).
+11. fused Hyperband: (a) fashion_mlp through the CLI at its defaults
+   (R=270, eta 3: six brackets, 415 trials) with a ledger: a finite best,
+   one ledger whose boundaries run contiguously across the brackets and
+   validate, trials/s; (b) full-width cifar10_cnn at R=27 in member
+   chunks of 8, resident and then in waves of 8: the same records and
+   best, both GN kernels in every bracket and the plain versions never;
+12. the script's wall, the ``kernels`` line (JSON), then the device line
+   (JSON, last).
 
-Each path (4, 6, 8, 9, 10a, 10d) runs through the entry points a user
-calls, with the launch counts zeroed just before and read just after
-(in phase 9, its runs in this process; in 10a, each run): where the
-model has GroupNorm both kernels must have run, the plain versions
-never; the best score must be finite and the curves in [0, 1].
+Each path (4, 6, 8, 9, 10a, 10d, 11b) runs through the entry points a
+user calls, with the launch counts zeroed just before and read just
+after (in phase 9, its runs in this process; in 10a, each run; in 11b,
+read at each bracket boundary too): where the model has GroupNorm both
+kernels must have run, the plain versions never; the best score must be
+finite and the curves in [0, 1].
 
 Run from the repo root: ``python3 chip_smoke.py``. Details also go to
-chiprun_out/chip_smoke.json.
+chiprun_out/chip_smoke.json, written after each phase. ``--phases
+waves,hyperband`` runs only the named phases after the build (a partial
+run prints no result line).
 
 ``--baseline-cu PATH`` names the two-pass GroupNorm source of commit
 788c451, written out with ``git show 788c451:mpi_opt_tpu_torch/csrc/
@@ -843,10 +863,17 @@ def durability_phase(gn, fused_pbt, get_workload, smi):
 # absorbed by the CLI (b), a drain between waves and its resume (c), SHA
 # resident and in waves (d), and config 5's wave cap (e)
 WAVE, WAVE_ODD = 64, 48  # the north star's wave sizes: a multiple of CNN_CHUNK, and not
+TRACE_COVERAGE, TRACE_COST = 0.9, 0.05  # the traced runs' gates: coverage, and cost over untraced
 OOM_P, OOM_GENS, OOM_STEPS, OOM_W = 64, 2, 5, 32  # the OOM drill: W fails, W/2 fits
+# the OOM drill inside one launch width: ResNet-18 (a member's state ~90
+# MB, so waves of B2_W and B2_CHUNK differ by GBs) in chunks of B2_CHUNK
+B2_P, B2_GENS, B2_STEPS, B2_W, B2_CHUNK = 64, 2, 3, 32, 16
 DRAIN_W, DRAIN_CHUNK = 8, 8  # the drain drill: DUR_P members in waves of 8
 SHA_TRIALS, SHA_MIN, SHA_MAX, SHA_ETA, SHA_W = 64, 10, 270, 3, 16  # BENCH_ALL.json configs 2 and 9
 C5_P = 1024  # BASELINE.json config 5: PBT over 1024 ResNet-18 members
+# the phases after the build, in order (``--phases`` picks some)
+PHASES = ("kernels", "slice", "north_star", "mlp", "durability", "waves", "oom", "oom_chunk", "drain",
+          "sha", "config5", "hyperband")
 
 # a launcher for the port's CLI: caps this process's CUDA allocator at a
 # fraction of the card (0: no cap), runs the CLI, and writes the
@@ -880,12 +907,34 @@ def _wave_fields(res) -> dict:
     return {k: res[k] for k in keys if k in res}
 
 
+def _span_table(path):
+    """(attribution, self seconds by span[:op]) of one traced run's stream."""
+    from mpi_opt_tpu_torch.obs import report
+
+    recs = report.load_stream(path)
+    by = {}
+    for r in recs:
+        if r.get("event") == "span":
+            k = r["span"] + (f":{r['op']}" if "op" in r else "")
+            by[k] = by.get(k, 0.0) + float(r["self_s"])
+    return report.attribute({os.path.basename(path): recs}), by
+
+
 def north_star_waves_phase(gn, fused_pbt, get_workload, smi):
     """(a) The north star (cifar10_cnn at full width, 256 members, member
-    chunk 32) at NS_GENS x NS_STEPS: resident, waves of 64, waves of 64,
-    resident, in turns; then waves of 48, reported against resident, not
-    gated. Returns (record, GN launches of the gated wave runs, problem)."""
+    chunk 32) at NS_GENS x NS_STEPS through ``fused_pbt``, in this order:
+    traced resident (a fresh workload: its set-up is in the trace),
+    resident, traced resident, waves of 64, waves of 64, traced resident,
+    resident, waves of 48, traced waves of 64. Every run must end in the
+    first run's state digest and best curve (waves of 48 hold whole
+    chunks of 32 since every launch runs one member chunk; tracing adds
+    no synchronisation). The traced runs' coverage must be >= TRACE_COVERAGE
+    and the traced resident runs may cost at most TRACE_COST over the
+    untraced ones in turns (resident, traced, traced, resident). Returns
+    (record, GN launches of the wave runs, problem)."""
+    from mpi_opt_tpu_torch.obs import trace
     from mpi_opt_tpu_torch.train import staging
+    from mpi_opt_tpu_torch.utils.metrics import MetricsLogger
 
     wl = get_workload("cifar10_cnn")
     wl.data()
@@ -901,27 +950,40 @@ def north_star_waves_phase(gn, fused_pbt, get_workload, smi):
     del pools
     print(f"north-star waves ({smi}): two pinned pools of {out['pool_bytes']} bytes allocated in "
           f"{out['pool_alloc_s']} s")
-    resident_state = None  # the first resident run's parameters, on the host
-    for tag, ws in (("resident", 0), ("wave64", WAVE), ("wave64", WAVE), ("resident", 0),
-                    ("wave48", WAVE_ODD)):
+    tmp = os.path.join(ROOT, "build", "chip_smoke_traces")
+    os.makedirs(tmp, exist_ok=True)
+    plan = (("traced_resident", 0, True), ("resident", 0, False), ("traced_resident", 0, True),
+            ("wave64", WAVE, False), ("wave64", WAVE, False), ("traced_resident", 0, True),
+            ("resident", 0, False), ("wave48", WAVE_ODD, False), ("traced_wave64", WAVE, True))
+    traces = {}
+    for i, (tag, ws, traced) in enumerate(plan):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         gn.reset_launches()
+        path = os.path.join(tmp, f"run{i}.jsonl")
+        if traced:
+            metrics = MetricsLogger(path=path)
+            prior = trace.configure(metrics)
         t0 = time.perf_counter()
-        res = fused_pbt(wl, population=CNN_P, generations=NS_GENS, steps_per_gen=NS_STEPS, seed=0,
-                        member_chunk=CNN_CHUNK, wave_size=ws)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        try:
+            res = fused_pbt(wl, population=CNN_P, generations=NS_GENS, steps_per_gen=NS_STEPS, seed=0,
+                            member_chunk=CNN_CHUNK, wave_size=ws)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            if traced:
+                trace.deconfigure(prior)
+                metrics.close()
         run_launches = dict(gn.LAUNCHES)
         bad = sweep_fault(res, NS_GENS, run_launches, f"the north star ({tag})")
         if bad:
             return out, launches, bad
-        if tag == "wave64":
+        if ws:
             for k in launches:
                 launches[k] += run_launches[k]
-        rec = {"tag": tag, "wave_size": ws, "wall_s": wall,
+        rec = {"tag": tag, "wave_size": ws, "traced": traced, "wall_s": wall,
                "member_generations_per_s": CNN_P * NS_GENS / wall,
                "launch_walls_s": res["launch_walls"],
                # what was allocated before the call (earlier phases' live
@@ -931,35 +993,45 @@ def north_star_waves_phase(gn, fused_pbt, get_workload, smi):
                "max_memory_reserved_bytes": torch.cuda.max_memory_reserved(),
                "state_digest": _state_digest(res), "best_curve": res["best_curve"].tolist(),
                "launches": run_launches, **_wave_fields(res)}
+        if traced:
+            rep, by_span = _span_table(path)
+            traces[i] = (rep, by_span, wall)
+            rec["trace"] = {"coverage": rep["coverage"], "wall_s": rep["wall_s"],
+                            "attributed_s": rep["attributed_s"], "self_s_by_span": by_span,
+                            "phases": rep["phases"], "bubbles": rep["bubbles"],
+                            "staging": rep["staging"], "roofline": rep["roofline"]}
+            print(f"north-star trace {tag} (run {i}): coverage {rep['coverage']} of {rep['wall_s']} s "
+                  f"(call wall {wall} s); self s by span {json.dumps(by_span)}")
         out["runs"].append(rec)
-        print(f"north-star waves {tag}: {json.dumps(rec)}")
-        if resident_state is None:
-            resident_state = {k: v.cpu() for k, v in res["state"].params.items()}
-        if tag == "wave48":
-            # not a multiple of the member chunk: how far from resident
-            ref = out["runs"][0]
-            odd = {k: res["state"].params[k].cpu() for k in resident_state}
-            diffs = [odd[k] - v for k, v in resident_state.items()]
-            # members whose every parameter is bit-equal (NaN where NaN)
-            equal = torch.ones(CNN_P, dtype=torch.bool)
-            for k, v in resident_state.items():
-                same = (odd[k] == v) | (torch.isnan(odd[k]) & torch.isnan(v))
-                equal &= same.reshape(CNN_P, -1).all(dim=1)
-            out["wave48_vs_resident"] = {
-                "members_bit_equal": int(equal.sum()),
-                "max_abs_param_diff_finite": max(float(d[torch.isfinite(d)].abs().max()) for d in diffs),
-                "params_nonfinite_in_either": sum(int((~torch.isfinite(d)).sum()) for d in diffs),
-                "max_abs_best_curve_diff": max(abs(a - b) for a, b in zip(rec["best_curve"], ref["best_curve"])),
-                "same_digest": rec["state_digest"] == ref["state_digest"],
-            }
-            print(f"north-star waves 48 vs resident: {json.dumps(out['wave48_vs_resident'])}")
+        print(f"north-star waves {tag}: {json.dumps({k: v for k, v in rec.items() if k != 'trace'})}")
         del res
     ref = out["runs"][0]
-    for rec in out["runs"][:4]:
+    for rec in out["runs"]:
         if (rec["state_digest"], rec["best_curve"]) != (ref["state_digest"], ref["best_curve"]):
             return out, launches, (f"north star {rec['tag']}: state digest {rec['state_digest']} / "
                                    f"curve {rec['best_curve']} vs resident {ref['state_digest']} / "
                                    f"{ref['best_curve']}")
+    runs = out["runs"]
+    rate = lambda idx: [runs[j]["member_generations_per_s"] for j in idx]
+    untraced, traced_ = rate((1, 6)), rate((2, 5))
+    out["trace_cost"] = {"untraced": untraced, "traced": traced_,
+                         "cost": sum(untraced) / sum(traced_) - 1.0}
+    out["waves_vs_resident"] = {"resident": untraced, "wave64": rate((3, 4)), "wave48": rate((7,))}
+    # where the wave gap goes: the traced wave-64 run's self seconds by
+    # span against the traced resident run's in the middle of the turns
+    (_, res_spans, res_wall), (_, wav_spans, wav_wall) = traces[5], traces[8]
+    out["wave_gap"] = {"resident_wall_s": res_wall, "wave64_wall_s": wav_wall,
+                       "gap_s": wav_wall - res_wall,
+                       "self_s_delta_by_span": {k: wav_spans.get(k, 0.0) - res_spans.get(k, 0.0)
+                                                for k in sorted(set(res_spans) | set(wav_spans))}}
+    print(f"north-star trace cost: {json.dumps(out['trace_cost'])}")
+    print(f"north-star waves vs resident: {json.dumps(out['waves_vs_resident'])}")
+    print(f"north-star wave gap: {json.dumps(out['wave_gap'])}")
+    for i, (rep, _, _) in traces.items():
+        if rep["coverage"] is None or rep["coverage"] < TRACE_COVERAGE:
+            return out, launches, f"north star run {i}: trace coverage {rep['coverage']} < {TRACE_COVERAGE}"
+    if out["trace_cost"]["cost"] > TRACE_COST:
+        return out, launches, f"tracing cost {out['trace_cost']['cost']:.4f} > {TRACE_COST}"
     out["launches"] = launches
     return out, launches, None
 
@@ -1035,6 +1107,66 @@ def oom_drill_phase(smi):
         print(f"oom drill --oom-backoff 0: exit {rc}")
         if rc != EX_IOERR or not lines or lines[-1].get("kind") != "device_oom":
             return out, f"OOM drill: --oom-backoff 0 exited {rc}:\n{err[-3000:]}"
+        return out, None
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def oom_chunk_drill_phase(smi):
+    """(b2) An OOM backed off inside one launch width: cifar100_resnet18
+    at B2_P members in chunks of B2_CHUNK, through the CLI. Clean runs at
+    waves of B2_W and B2_CHUNK measure their allocated peaks; a run capped
+    between them at --wave-size B2_W --oom-backoff 2 must exit 0 with one
+    backoff to B2_CHUNK, no launch-shape change, and the records of the
+    UNFAULTED run at B2_W."""
+    import shutil
+
+    tmp = os.path.join(ROOT, "build", "chip_smoke_oom_chunk")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    torch.cuda.empty_cache()
+    out = {"card": smi, "workload": "cifar100_resnet18", "population": B2_P,
+           "generations": B2_GENS, "steps_per_gen": B2_STEPS, "member_chunk": B2_CHUNK,
+           "wave_size": B2_W}
+    try:
+        def argv(name, ws):
+            return ["--workload", "cifar100_resnet18", "--algorithm", "pbt", "--fused",
+                    "--population", str(B2_P), "--generations", str(B2_GENS),
+                    "--steps-per-generation", str(B2_STEPS), "--seed", "0", "--device", "cuda",
+                    "--member-chunk", str(B2_CHUNK), "--wave-size", str(ws), "--oom-backoff", "2",
+                    "--ledger", os.path.join(tmp, f"{name}.jsonl")]
+
+        clean = {}
+        for ws in (B2_W, B2_CHUNK):
+            t0 = time.perf_counter()
+            rc, lines, err, mem = _launch_cli(argv(f"clean{ws}", ws), 0.0,
+                                              os.path.join(tmp, f"clean{ws}.json"))
+            if rc != 0 or mem is None:
+                return out, f"OOM chunk drill: the clean run at waves of {ws} exited {rc}:\n{err[-3000:]}"
+            clean[ws] = {"summary": lines[-1], "peaks": mem, "wall_s": time.perf_counter() - t0}
+        out["clean"] = clean
+        total = torch.cuda.get_device_properties(0).total_memory
+        lo, hi = clean[B2_CHUNK]["peaks"]["max_allocated"], clean[B2_W]["peaks"]["max_allocated"]
+        if not hi > lo:
+            return out, f"OOM chunk drill: waves of {B2_W} allocated {hi} bytes, not more than {lo}"
+        cap = (lo + hi) // 2
+        frac = cap / total
+        out.update(cap_bytes=cap, cap_fraction=frac, card_bytes=total)
+        rc, lines, err, mem = _launch_cli(argv("oom", B2_W), frac, os.path.join(tmp, "oom.json"))
+        summary = lines[-1] if lines else {}
+        events = [x for x in lines if x.get("event") == "oom_backoff"]
+        out["backoff"] = {"exit": rc, "summary": summary, "oom_backoff_events": events, "peaks": mem}
+        print(f"oom chunk drill ({smi}): cap {cap} bytes ({frac:.4f} of the card) between allocated "
+              f"peaks {lo} (waves of {B2_CHUNK}) and {hi} (waves of {B2_W}); exit {rc}, oom_backoffs "
+              f"{summary.get('oom_backoffs')}, settled wave {summary.get('wave_size')}, events {events}")
+        if rc != 0 or summary.get("oom_backoffs") != 1 or summary.get("wave_size") != B2_CHUNK:
+            return out, f"OOM chunk drill: exit {rc}, summary {summary}:\n{err[-3000:]}"
+        if summary.get("launch_shape_changed") or any(e.get("launch_shape_changed") for e in events):
+            return out, f"OOM chunk drill: the launch shape changed: {events}"
+        got, want = (_records(os.path.join(tmp, f"{n}.jsonl")) for n in ("oom", f"clean{B2_W}"))
+        if got != want:
+            n = sum(a != b for a, b in zip(got, want)) + abs(len(got) - len(want))
+            return out, f"OOM chunk drill: {n} records differ from the unfaulted cap-{B2_W} run's"
         return out, None
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1162,12 +1294,146 @@ def config5_phase(get_workload, smi):
     return out
 
 
+# Fused Hyperband: fashion_mlp through the CLI at its defaults (R=270,
+# eta 3), and full-width cifar10_cnn at R=27 in chunks of 8, resident
+# and in waves of 8
+HB_MLP_PLAN = [(243, 1), (98, 3), (41, 10), (18, 30), (9, 90), (6, 270)]
+HB_CNN_R, HB_CNN_CHUNK, HB_CNN_W = 27, 8, 8
+HB_CNN_PLAN = [(27, 1), (12, 3), (6, 9), (4, 27)]
+
+
+def hyperband_mlp_phase(smi):
+    """(a) ``--algorithm hyperband --fused`` on fashion_mlp at the CLI
+    defaults, with a ledger: HB_MLP_PLAN's brackets, 415 trials, a finite
+    best, and one ledger whose boundaries run contiguously across the
+    brackets and that the port's reader validates."""
+    import shutil
+
+    from mpi_opt_tpu_torch.ledger import validate_ledger
+
+    tmp = os.path.join(ROOT, "build", "chip_smoke_hyperband")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    ledger = os.path.join(tmp, "ledger.jsonl")
+    try:
+        t0 = time.perf_counter()
+        rc, summary = _run_to_end([sys.executable, "-m", "mpi_opt_tpu_torch", "--workload",
+                                   "fashion_mlp", "--algorithm", "hyperband", "--fused", "--seed", "0",
+                                   "--device", "cuda", "--ledger", ledger])
+        wall = time.perf_counter() - t0
+        recs = _records(ledger) if os.path.exists(ledger) else []
+        problems = validate_ledger(ledger) if os.path.exists(ledger) else ["no ledger"]
+        plan = [(b["n_trials"], b["start_budget"]) for b in summary.get("brackets", [])]
+        n_rungs = sum(len(b["rung_budgets"]) for b in summary.get("brackets", []))
+        out = {"card": smi, "exit": rc, "process_wall_s": wall, "summary": summary,
+               "records": len(recs), "ledger_problems": problems, "plan": plan,
+               "trials_per_s": summary.get("trials_per_sec_per_chip")}
+        print(f"hyperband fashion_mlp ({smi}): exit {rc}, {summary.get('n_trials')} trials, "
+              f"best {summary.get('best_score')}, {summary.get('trials_per_sec_per_chip')} trials/s "
+              f"(sweep wall {summary.get('wall_s')} s, process {wall:.3f} s), {len(recs)} records")
+        if rc != 0 or plan != HB_MLP_PLAN or summary.get("n_trials") != 415:
+            return out, f"hyperband fashion_mlp: exit {rc}, plan {plan}, summary {str(summary)[:2000]}"
+        if summary.get("best_score") is None or not math.isfinite(summary["best_score"]):
+            return out, f"hyperband fashion_mlp: best score {summary.get('best_score')}"
+        if problems or sorted({r["boundary"] for r in recs}) != list(range(n_rungs)):
+            return out, f"hyperband fashion_mlp: ledger problems {problems}, boundaries not 0..{n_rungs - 1}"
+        if len(recs) != sum(sum(b["rung_sizes"]) for b in summary["brackets"]):
+            return out, f"hyperband fashion_mlp: {len(recs)} records for rung sizes {summary['brackets']}"
+        return out, None
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def hyperband_cnn_phase(gn, get_workload, smi):
+    """(b) ``fused_hyperband`` over full-width cifar10_cnn (SmallCNN
+    32-32-64-64, GN(8)) at R=HB_CNN_R, eta 3, member chunk HB_CNN_CHUNK,
+    resident and then in waves of HB_CNN_W, each journaled: the rung
+    cohorts 27, 9, 3, ... are not multiples of the chunk, so the padded
+    launches run. Both runs must end with the same records and best; both
+    GN kernels must launch in every bracket, the plain versions never.
+    Returns (record, GN launches of both runs, problem)."""
+    import shutil
+
+    from mpi_opt_tpu_torch.ledger import SweepLedger, validate_ledger
+    from mpi_opt_tpu_torch.train.fused_asha import fused_hyperband
+    from mpi_opt_tpu_torch.utils import resources
+
+    tmp = os.path.join(ROOT, "build", "chip_smoke_hyperband_cnn")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    wl = get_workload("cifar10_cnn")
+    wl.data()
+    space = wl.default_space()
+    out = {"card": smi, "max_budget": HB_CNN_R, "eta": 3, "member_chunk": HB_CNN_CHUNK}
+    launches = {"gn_fwd": 0, "gn_bwd": 0, "plain": 0}
+    try:
+        for tag, ws in (("resident", 0), ("waves", HB_CNN_W)):
+            led = SweepLedger(os.path.join(tmp, f"{tag}.jsonl"), read_only=False)
+            led.ensure_header({"mode": "fused", "granularity": "rung", "algorithm": "hyperband",
+                               "seed": 0, "space_hash": space.space_hash()}, space_spec=space.spec())
+            per_bracket = []
+
+            def at_boundary(stage, per_bracket=per_bracket):
+                if stage.startswith("hyperband bracket"):
+                    per_bracket.append(dict(gn.LAUNCHES))
+
+            gn.reset_launches()
+            resources.set_boundary_fault_injector(at_boundary)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                res = fused_hyperband(wl, max_budget=HB_CNN_R, eta=3, seed=0, member_chunk=HB_CNN_CHUNK,
+                                      ledger=led, wave_size=ws)
+                torch.cuda.synchronize()
+            finally:
+                resources.set_boundary_fault_injector(None)
+                led.close()
+            wall = time.perf_counter() - t0
+            run_launches = dict(gn.LAUNCHES)
+            for k in launches:
+                launches[k] += run_launches[k]
+            deltas = [{k: b[k] - (per_bracket[i - 1][k] if i else 0) for k in b}
+                      for i, b in enumerate(per_bracket)]
+            out[tag] = {"wall_s": wall, "trials_per_s": res["n_trials"] / wall,
+                        "best_score": res["best_score"], "brackets": res["brackets"],
+                        "launches": run_launches, "launches_by_bracket": deltas,
+                        "ledger_problems": validate_ledger(led.path),
+                        **{k: res[k] for k in ("wave_size", "waves_run", "staged_bytes") if k in res}}
+            print(f"hyperband cifar10_cnn {tag} ({smi}): {json.dumps(out[tag])}")
+            plan = [(b["n_trials"], b["start_budget"]) for b in res["brackets"]]
+            if plan != HB_CNN_PLAN or not math.isfinite(res["best_score"]):
+                return out, launches, f"hyperband cifar10_cnn {tag}: plan {plan}, best {res['best_score']}"
+            if out[tag]["ledger_problems"]:
+                return out, launches, f"hyperband cifar10_cnn {tag}: ledger {out[tag]['ledger_problems']}"
+            if len(deltas) != len(HB_CNN_PLAN) or any(
+                    d["gn_fwd"] <= 0 or d["gn_bwd"] <= 0 or d["plain"] for d in deltas):
+                return out, launches, f"hyperband cifar10_cnn {tag}: launches by bracket {deltas}"
+        a, b = out["resident"], out["waves"]
+        same_records = _records(os.path.join(tmp, "resident.jsonl")) == _records(
+            os.path.join(tmp, "waves.jsonl"))
+        out["waves_vs_resident"] = {"same_records": same_records,
+                                    "same_best": a["best_score"] == b["best_score"]}
+        print(f"hyperband cifar10_cnn waves vs resident: {json.dumps(out['waves_vs_resident'])}")
+        if not (same_records and a["best_score"] == b["best_score"]):
+            return out, launches, "hyperband cifar10_cnn: the wave run's records or best differ from resident"
+        out["launches"] = launches
+        return out, launches, None
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline-cu", default=None,
                     help="the two-pass GroupNorm source of commit 788c451, "
                     "timed beside the kernels")
+    ap.add_argument("--phases", default=None, metavar="LIST",
+                    help="run only these phases after the build (comma-separated: "
+                    f"{','.join(PHASES)}); a partial run prints no result line")
     args = ap.parse_args()
+    phases = PHASES if args.phases is None else tuple(args.phases.split(","))
+    if set(phases) - set(PHASES):
+        return fail(f"unknown phases {sorted(set(phases) - set(PHASES))}; choose from {PHASES}")
     if not torch.cuda.is_available():
         return fail("CUDA is not available")
     sys.path.insert(0, ROOT)
@@ -1207,118 +1473,173 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s")
     print(_build.BUILD_INFO["group_norm"][1].strip())
 
-    # 3. kernels against their plain versions, then the models on card vs
-    # CPU; f32 comparisons without TF32, restored for the paths after
-    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    tot, rows = kernel_phase(gn, bandwidth, base)
-    clamp = clamp_check(gn)
-    print("clamp-check " + json.dumps(clamp))
-    model = model_check(ResNet18)
-    print("model-check " + json.dumps(model))
-    cnn_model = smallcnn_check(SmallCNN)
-    print("smallcnn-check " + json.dumps(cnn_model))
-    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
-    print("kernel-totals " + json.dumps(tot))
+    res_out = {"card": smi}  # every phase's record, for chiprun_out/chip_smoke.json
     launches = {}  # path -> kernel launches while it ran
 
-    # 4. the ResNet-18 slice, through the entry points a user calls
-    wl = get_workload("cifar100_resnet18")
-    wl.data()  # host data generation is set-up, outside the timed sweep
-    gens, steps = 2, 25
-    torch.cuda.reset_peak_memory_stats()
-    gn.reset_launches()
-    t0 = time.perf_counter()
-    res = fused_pbt(wl, population=P, generations=gens, steps_per_gen=steps, seed=0, gen_chunk=1)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches["resnet18_p16"] = dict(gn.LAUNCHES)
-    bad = sweep_fault(res, gens, launches["resnet18_p16"], "the ResNet-18 slice")
-    if bad:
-        return fail(bad)
-    slice_out = {
-        "population": P, "generations": gens, "steps_per_gen": steps,
-        "wall_s": wall, "launch_walls_s": res["launch_walls"],
-        "member_steps_per_s": P * gens * steps / wall,
-        "member_steps_per_s_last_launch": P * steps / res["launch_walls"][-1],
-        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "best_score": res["best_score"], "best_curve": res["best_curve"].tolist(),
-        "mean_curve": res["mean_curve"].tolist(), "launches": launches["resnet18_p16"],
-    }
-    print("slice " + json.dumps(slice_out))
+    def done(name, rec):
+        res_out[name] = rec
+        out = os.path.join(ROOT, "chiprun_out", "chip_smoke.json")
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        with open(out + ".tmp", "w") as f:
+            json.dump({**res_out, "wall_s": time.perf_counter() - T_START, "launches": launches}, f,
+                      indent=1)
+        os.replace(out + ".tmp", out)
 
-    # 5. where a steady step's device time goes (measurement only)
-    prof = profile_phase(wl, res)
+    if "kernels" in phases:
+        # 3. kernels against their plain versions, then the models on card
+        # vs CPU; f32 comparisons without TF32, restored for the paths after
+        tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        tot, rows = kernel_phase(gn, bandwidth, base)
+        clamp = clamp_check(gn)
+        print("clamp-check " + json.dumps(clamp))
+        model = model_check(ResNet18)
+        print("model-check " + json.dumps(model))
+        cnn_model = smallcnn_check(SmallCNN)
+        print("smallcnn-check " + json.dumps(cnn_model))
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        print("kernel-totals " + json.dumps(tot))
+        done("totals", tot)
+        res_out.update(shapes=rows, clamp=clamp, model_check=model, smallcnn_check=cnn_model)
 
-    # 6. the north star: fused PBT over 256 full-width SmallCNN members
-    # on CIFAR-10 through the port's bench, at a cut depth
-    gn.reset_launches()
-    record, ns = bench.run(population=CNN_P, generations=NS_GENS, steps=NS_STEPS, seed=0,
-                           member_chunk=CNN_CHUNK, gen_chunk=1)
-    launches["smallcnn_p256"] = dict(gn.LAUNCHES)
-    bad = sweep_fault(ns, NS_GENS, launches["smallcnn_p256"], "the north star")
-    if bad:
-        return fail(bad)
-    record["launches"] = launches["smallcnn_p256"]
-    print("north-star " + json.dumps(record))
-    # the same run with cuDNN's deterministic algorithms, in turns with
-    # the defaults: default (above), deterministic, deterministic, default
-    det = {"card": smi, "default": [record["value"]], "deterministic": [], "same_curve": []}
-    for on in (True, True, False):
-        torch.backends.cudnn.deterministic = on
-        try:
-            r, _ = bench.run(population=CNN_P, generations=NS_GENS, steps=NS_STEPS, seed=0,
-                             member_chunk=CNN_CHUNK, gen_chunk=1)
-        finally:
-            torch.backends.cudnn.deterministic = False
-        det["deterministic" if on else "default"].append(r["value"])
-        det["same_curve"].append(r["best_curve"] == record["best_curve"])
-    print("determinism-cost " + json.dumps(det))
+    if "slice" in phases:
+        # 4. the ResNet-18 slice, through the entry points a user calls
+        wl = get_workload("cifar100_resnet18")
+        wl.data()  # host data generation is set-up, outside the timed sweep
+        gens, steps = 2, 25
+        torch.cuda.reset_peak_memory_stats()
+        gn.reset_launches()
+        t0 = time.perf_counter()
+        res = fused_pbt(wl, population=P, generations=gens, steps_per_gen=steps, seed=0, gen_chunk=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches["resnet18_p16"] = dict(gn.LAUNCHES)
+        bad = sweep_fault(res, gens, launches["resnet18_p16"], "the ResNet-18 slice")
+        if bad:
+            return fail(bad)
+        slice_out = {
+            "population": P, "generations": gens, "steps_per_gen": steps,
+            "wall_s": wall, "launch_walls_s": res["launch_walls"],
+            "member_steps_per_s": P * gens * steps / wall,
+            "member_steps_per_s_last_launch": P * steps / res["launch_walls"][-1],
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "best_score": res["best_score"], "best_curve": res["best_curve"].tolist(),
+            "mean_curve": res["mean_curve"].tolist(), "launches": launches["resnet18_p16"],
+        }
+        print("slice " + json.dumps(slice_out))
+        done("slice", slice_out)
+        # 5. where a steady step's device time goes (measurement only)
+        done("profile", profile_phase(wl, res))
 
-    # 7. where a steady north-star step's device time goes
-    cnn_prof = profile_phase(get_workload("cifar10_cnn"), ns, member_chunk=CNN_CHUNK,
-                             label="profile-smallcnn")
+    if "north_star" in phases:
+        # 6. the north star: fused PBT over 256 full-width SmallCNN members
+        # on CIFAR-10 through the port's bench (traced), at a cut depth
+        gn.reset_launches()
+        record, ns = bench.run(population=CNN_P, generations=NS_GENS, steps=NS_STEPS, seed=0,
+                               member_chunk=CNN_CHUNK, gen_chunk=1)
+        launches["smallcnn_p256"] = dict(gn.LAUNCHES)
+        bad = sweep_fault(ns, NS_GENS, launches["smallcnn_p256"], "the north star")
+        if bad:
+            return fail(bad)
+        record["launches"] = launches["smallcnn_p256"]
+        print("north-star " + json.dumps(record))
+        done("north_star", record)
+        # the same run with cuDNN's deterministic algorithms, in turns with
+        # the defaults: default (above), deterministic, default
+        det = {"card": smi, "default": [record["value"]], "deterministic": [], "same_curve": []}
+        for on in (True, False):
+            torch.backends.cudnn.deterministic = on
+            try:
+                r, _ = bench.run(population=CNN_P, generations=NS_GENS, steps=NS_STEPS, seed=0,
+                                 member_chunk=CNN_CHUNK, gen_chunk=1)
+            finally:
+                torch.backends.cudnn.deterministic = False
+            det["deterministic" if on else "default"].append(r["value"])
+            det["same_curve"].append(r["best_curve"] == record["best_curve"])
+        print("determinism-cost " + json.dumps(det))
+        done("determinism_cost", det)
+        # 7. where a steady north-star step's device time goes
+        done("profile_smallcnn", profile_phase(get_workload("cifar10_cnn"), ns, member_chunk=CNN_CHUNK,
+                                               label="profile-smallcnn"))
 
-    # 8. a few steps of fashion_mlp (no GroupNorm): finite results
-    wl = get_workload("fashion_mlp")
-    wl.data()
-    gn.reset_launches()
-    mlp = fused_pbt(wl, population=16, generations=2, steps_per_gen=5, seed=0, gen_chunk=1)
-    launches["fashion_mlp"] = dict(gn.LAUNCHES)
-    bad = sweep_fault(mlp, 2, launches["fashion_mlp"], "the fashion_mlp sweep", kernels=False)
-    if bad:
-        return fail(bad)
-    mlp_out = {"best_score": mlp["best_score"], "best_curve": mlp["best_curve"].tolist(),
-               "mean_curve": mlp["mean_curve"].tolist(), "launch_walls_s": mlp["launch_walls"]}
-    print("fashion-mlp " + json.dumps(mlp_out))
+    if "mlp" in phases:
+        # 8. a few steps of fashion_mlp (no GroupNorm): finite results
+        wl = get_workload("fashion_mlp")
+        wl.data()
+        gn.reset_launches()
+        mlp = fused_pbt(wl, population=16, generations=2, steps_per_gen=5, seed=0, gen_chunk=1)
+        launches["fashion_mlp"] = dict(gn.LAUNCHES)
+        bad = sweep_fault(mlp, 2, launches["fashion_mlp"], "the fashion_mlp sweep", kernels=False)
+        if bad:
+            return fail(bad)
+        mlp_out = {"best_score": mlp["best_score"], "best_curve": mlp["best_curve"].tolist(),
+                   "mean_curve": mlp["mean_curve"].tolist(), "launch_walls_s": mlp["launch_walls"]}
+        print("fashion-mlp " + json.dumps(mlp_out))
+        done("fashion_mlp", mlp_out)
 
-    # 9. durability: snapshots, ledger, drain and crash resumes through the
-    # CLI, step_chunk, and the snapshot's cost at the north star's population
-    durability, launches["durability"], bad = durability_phase(gn, fused_pbt, get_workload, smi)
-    print("durability " + json.dumps(durability))
-    if bad:
-        return fail(bad)
+    if "durability" in phases:
+        # 9. durability: snapshots, ledger, drain and crash resumes through
+        # the CLI, step_chunk, and the snapshot's cost at the north star's
+        # population
+        durability, launches["durability"], bad = durability_phase(gn, fused_pbt, get_workload, smi)
+        print("durability " + json.dumps(durability))
+        done("durability", durability)
+        if bad:
+            return fail(bad)
 
-    # 10. the wave engine: (a) the north star in waves, (b) a real OOM
-    # absorbed by the CLI, (c) a drain between waves and its resume, (d)
-    # SHA resident and in waves, (e) config 5's wave cap
-    waves, launches["north_star_waves"], bad = north_star_waves_phase(gn, fused_pbt, get_workload, smi)
-    if bad:
-        return fail(bad)
-    oom, bad = oom_drill_phase(smi)
-    print("oom-drill " + json.dumps(oom))
-    if bad:
-        return fail(bad)
-    drain, bad = drain_waves_phase(smi)
-    print("drain-drill " + json.dumps(drain))
-    if bad:
-        return fail(bad)
-    sha, launches["sha"], bad = sha_phase(gn, get_workload, smi)
-    if bad:
-        return fail(bad)
-    config5 = config5_phase(get_workload, smi)
+    # 10. the wave engine: (a) the north star in waves, traced and not, (b)
+    # a real OOM absorbed by the CLI, (b2) one inside a member chunk's
+    # launch width, (c) a drain between waves and its resume, (d) SHA
+    # resident and in waves, (e) config 5's wave cap
+    if "waves" in phases:
+        waves, launches["north_star_waves"], bad = north_star_waves_phase(gn, fused_pbt, get_workload, smi)
+        done("north_star_waves", waves)
+        if bad:
+            return fail(bad)
+    if "oom" in phases:
+        oom, bad = oom_drill_phase(smi)
+        print("oom-drill " + json.dumps(oom))
+        done("oom_drill", oom)
+        if bad:
+            return fail(bad)
+    if "oom_chunk" in phases:
+        oom_chunk, bad = oom_chunk_drill_phase(smi)
+        print("oom-chunk-drill " + json.dumps(oom_chunk))
+        done("oom_chunk_drill", oom_chunk)
+        if bad:
+            return fail(bad)
+    if "drain" in phases:
+        drain, bad = drain_waves_phase(smi)
+        print("drain-drill " + json.dumps(drain))
+        done("drain_drill", drain)
+        if bad:
+            return fail(bad)
+    if "sha" in phases:
+        sha, launches["sha"], bad = sha_phase(gn, get_workload, smi)
+        done("sha", sha)
+        if bad:
+            return fail(bad)
+    if "config5" in phases:
+        done("config5", config5_phase(get_workload, smi))
 
-    # 11. the kernels line (a population step of each path, summed; launches
+    if "hyperband" in phases:
+        # 11. fused Hyperband: (a) fashion_mlp through the CLI at its
+        # defaults, (b) full-width SmallCNN resident and in waves
+        hb_mlp, bad = hyperband_mlp_phase(smi)
+        done("hyperband_mlp", hb_mlp)
+        if bad:
+            return fail(bad)
+        hb_cnn, launches["hyperband_smallcnn"], bad = hyperband_cnn_phase(gn, get_workload, smi)
+        done("hyperband_cnn", hb_cnn)
+        if bad:
+            return fail(bad)
+
+    print(f"chip_smoke wall: {time.perf_counter() - T_START} s")
+    if phases != PHASES:
+        print(f"chip_smoke: partial run ({','.join(phases)}): no result line")
+        return 0
+
+    # 12. the kernels line (a population step of each path, summed; launches
     # summed over every path), then the device line
     src = "mpi_opt_tpu_torch/csrc/group_norm.cu"
     kernels = []
@@ -1330,21 +1651,10 @@ def main() -> int:
         entry["max_abs_err"] = max(t[k]["max_abs_err"] for t in tot.values())
         entry["bound_share"] = entry["bound_ms"] / entry["ms"]
         entry["by_path"] = {path: {**tot[path][k], "launches": launches[path][k]} for path in STEP_PATHS}
-        entry["by_path"]["durability"] = {"launches": launches["durability"][k]}
-        entry["by_path"]["north_star_waves"] = {"launches": launches["north_star_waves"][k]}
+        for path in ("durability", "north_star_waves", "hyperband_smallcnn"):
+            entry["by_path"][path] = {"launches": launches[path][k]}
         kernels.append(entry)
-    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    out = os.path.join(ROOT, "chiprun_out", "chip_smoke.json")
-    with open(out + ".tmp", "w") as f:
-        json.dump({"card": smi, "kernels": kernels, "totals": tot, "shapes": rows, "clamp": clamp,
-                   "model_check": model, "smallcnn_check": cnn_model, "slice": slice_out,
-                   "profile": prof, "north_star": record, "determinism_cost": det,
-                   "profile_smallcnn": cnn_prof,
-                   "fashion_mlp": mlp_out, "durability": durability, "north_star_waves": waves,
-                   "oom_drill": oom, "drain_drill": drain, "sha": sha, "config5": config5,
-                   "wall_s": time.perf_counter() - T_START, "launches": launches}, f, indent=1)
-    os.replace(out + ".tmp", out)
-    print(f"chip_smoke wall: {time.perf_counter() - T_START} s")
+    done("kernels", kernels)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """mpi_opt_tpu_torch: the PyTorch/CUDA port of mpi_opt_tpu.
 
-Fused PBT and fused successive halving over a population of networks,
-trained as one program on an NVIDIA GPU (or in waves through host
-memory when the population exceeds the card), with the JAX package's
+Fused PBT, fused successive halving and fused Hyperband over a
+population of networks, trained as one program on an NVIDIA GPU (or in
+waves through host memory when the population exceeds the card), with
+span tracing (``obs/``), the JAX package's
 TPU kernels rewritten as CUDA kernels (``csrc/``), made
 crash-recoverable by verified snapshots and a member-granular ledger
 journal. ``python -m mpi_opt_tpu_torch`` is the

@@ -1,11 +1,15 @@
 """Command line of the port (port of the fused ``--algorithm
-pbt|asha|random`` paths of ``mpi_opt_tpu/cli.py``).
+pbt|asha|random|hyperband`` paths of ``mpi_opt_tpu/cli.py``, and of its
+``trace`` subcommand).
 
     python -m mpi_opt_tpu_torch --workload cifar10_cnn --algorithm pbt --fused \\
         --population 32 --generations 4 --steps-per-generation 20 \\
         --checkpoint-dir ck --ledger sweep.jsonl [--resume] [--device cpu]
     python -m mpi_opt_tpu_torch --workload fashion_mlp --algorithm asha --fused \\
         --trials 64 --min-budget 10 --max-budget 270 --eta 3 [--wave-size 16|auto]
+    python -m mpi_opt_tpu_torch --workload fashion_mlp --algorithm hyperband --fused \\
+        --max-budget 270 --eta 3 --trace --metrics-file m.jsonl
+    python -m mpi_opt_tpu_torch trace m.jsonl [--json]
 
 It runs on CUDA unless ``--device cpu`` is given. The summary is the JAX
 CLI's single JSON line (after the metrics events), and so are the exit
@@ -26,6 +30,7 @@ import sys
 from mpi_opt_tpu_torch.health import SweepInterrupted
 from mpi_opt_tpu_torch.health import heartbeat as _heartbeat
 from mpi_opt_tpu_torch.health import shutdown as _shutdown
+from mpi_opt_tpu_torch.obs import trace as _trace
 from mpi_opt_tpu_torch.ops.pbt import PBTConfig
 from mpi_opt_tpu_torch.utils import integrity, resources
 from mpi_opt_tpu_torch.utils.exitcodes import EX_DATAERR, EX_IOERR, EX_TEMPFAIL
@@ -35,7 +40,7 @@ from mpi_opt_tpu_torch.workloads import _REGISTRY, get_workload
 
 # the JAX CLI's algorithms, and those the port runs (fused)
 ALGORITHMS = ("asha", "bohb", "hyperband", "pbt", "random", "tpe")
-PORTED_ALGORITHMS = ("pbt", "asha", "random")
+PORTED_ALGORITHMS = ("pbt", "asha", "random", "hyperband")
 # the JAX CLI's subcommands
 _SUBCOMMANDS = ("report", "fsck", "lint", "trace", "serve", "submit", "status", "cancel",
                 "drain", "corpus", "suggest-client")
@@ -48,7 +53,7 @@ _NOT_PORTED_FLAGS = (
     "--coord-epoch", "--coord-timeout", "--rank-kill", "--suggest-serve",
     "--suggest-idle-timeout", "--http-port", "--http-queue", "--http-state-dir",
 )
-_NOT_PORTED_SWITCHES = ("--trace", "--multihost", "--no-mesh", "--isolate-stateful")
+_NOT_PORTED_SWITCHES = ("--multihost", "--no-mesh", "--isolate-stateful")
 
 
 class _NotPorted(argparse.Action):
@@ -56,7 +61,7 @@ class _NotPorted(argparse.Action):
 
     def __call__(self, parser, namespace, values, option_string=None):
         parser.error(f"{option_string} is not ported yet (mpi_opt_tpu_torch runs "
-                     "--fused --algorithm pbt|asha|random only)")
+                     "--fused --algorithm pbt|asha|random|hyperband only)")
 
 
 def _wire_integrity_observer(metrics):
@@ -116,11 +121,16 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--workload", required=True, choices=sorted(_REGISTRY))
     p.add_argument("--algorithm", default="random", choices=ALGORITHMS,
-                   help="pbt, asha and random are ported (fused)")
+                   help="pbt, asha, random and hyperband are ported (fused)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--trials", type=int, default=16, help="total trials (random/asha)")
     p.add_argument("--budget", type=int, default=100, help="steps per trial (random)")
     p.add_argument("--metrics-file", default=None, help="JSONL metrics output path")
+    p.add_argument("--trace", action="store_true",
+                   help="emit span records (setup/train/staging/boundary/journal/save "
+                   "phase durations, obs/trace.py) into --metrics-file (required); render "
+                   "them with `python -m mpi_opt_tpu_torch trace FILE`. Off by default: an "
+                   "untraced sweep does no tracing work")
     p.add_argument("--ledger", default=None, metavar="PATH",
                    help="journal one record per population member at every generation "
                    "(fsync'd per record, before the generation's snapshot); with --resume "
@@ -255,6 +265,8 @@ def run_fused(args, parser, workload) -> int:
     metrics = stdout_logger(path=args.metrics_file, n_chips=1)
     _wire_integrity_observer(metrics)
     _wire_resource_observer(metrics)
+    if args.trace:  # main restores the entry state on the way out
+        _trace.configure(metrics)
     space = workload.default_space()
     ledger = _open_fused_ledger(args, parser, space, metrics)
     t0 = time.perf_counter()
@@ -319,6 +331,8 @@ def _open_fused_ledger(args, parser, space, metrics):
                       steps_per_generation=args.steps_per_generation)
     elif args.algorithm == "random":
         config.update(trials=args.trials, budget=args.budget)
+    elif args.algorithm == "hyperband":
+        config.update(max_budget=args.max_budget, eta=args.eta)
     else:
         config.update(trials=args.trials, min_budget=args.min_budget,
                       max_budget=args.max_budget, eta=args.eta)
@@ -336,8 +350,11 @@ def _open_fused_ledger(args, parser, space, metrics):
 
 def _wave_extras(res: dict) -> dict:
     """The wave fields of the summary line (empty for a resident
-    sweep): the JAX CLI's, and ``waves_run``, the waves this process
-    trained (a resume that re-trains no completed wave shows it)."""
+    sweep): the JAX CLI's, ``waves_run``, the waves this process
+    trained (a resume that re-trains no completed wave shows it), and
+    ``launch_shape_changed``: an OOM halving without a member chunk ran
+    the rest at another launch width, so the records may differ from
+    the unfaulted run's."""
     if not res.get("wave_size"):
         return {}
     return dict(
@@ -348,6 +365,7 @@ def _wave_extras(res: dict) -> dict:
         stage_wait_s=round(res["stage_wait_s"], 3),
         oom_backoffs=res.get("oom_backoffs", 0),
         waves_run=res["waves_run"],
+        launch_shape_changed=res.get("launch_shape_changed", False),
     )
 
 
@@ -377,6 +395,23 @@ def _run_fused_dispatch(args, workload, metrics, t0, ledger) -> int:
         ), args.retries, metrics)
         n_trials = args.population * args.generations
         extra = {"best_curve": [round(float(v), 4) for v in res["best_curve"]]}
+    elif args.algorithm == "hyperband":
+        from mpi_opt_tpu_torch.train.fused_asha import fused_hyperband
+
+        res = _run_with_retries(lambda: fused_hyperband(
+            workload,
+            max_budget=args.max_budget,
+            eta=args.eta,
+            seed=args.seed,
+            member_chunk=args.member_chunk,
+            wave_size=args.wave_size,
+            oom_backoff=args.oom_backoff,
+            checkpoint_dir=args.checkpoint_dir,
+            ledger=ledger,
+            device=args.device,
+        ), args.retries, metrics)
+        n_trials = res["n_trials"]
+        extra = {"brackets": res["brackets"]}
     else:
         from mpi_opt_tpu_torch.train.fused_asha import fused_sha
 
@@ -428,20 +463,49 @@ def _run_fused_dispatch(args, workload, metrics, t0, ledger) -> int:
     return 0
 
 
+def _expandable_segments(device) -> bool:
+    """Let the CUDA caching allocator grow its segments in place
+    (``expandable_segments``) unless ``PYTORCH_CUDA_ALLOC_CONF`` is set;
+    returns whether it did. With fixed segments, reserved memory runs
+    ahead of allocated memory, and near the card's limit a cuDNN
+    workspace fails to allocate: PyTorch then runs the convolution with
+    a plan that needs less workspace and computes other bits, so a run
+    with little headroom, such as one that backed off a device OOM, would
+    not reproduce the unfaulted run. Set at run time, since a launcher
+    may have initialised CUDA already."""
+    import os
+
+    import torch
+
+    if device == "cpu" or os.environ.get("PYTORCH_CUDA_ALLOC_CONF") or not torch.cuda.is_available():
+        return False
+    setter = getattr(torch._C, "_accelerator_setAllocatorSettings", None)
+    if setter is None:  # older PyTorch
+        setter = torch.cuda.memory._set_allocator_settings
+    setter("expandable_segments:True")
+    return True
+
+
 def main(argv=None) -> int:
     if argv is None:
         argv = sys.argv[1:]
+    if argv and argv[0] == "trace":
+        from mpi_opt_tpu_torch.obs.report import trace_main
+
+        return trace_main(argv[1:])
     parser = build_parser()
     if argv and argv[0] in _SUBCOMMANDS:
         parser.error(f"the {argv[0]!r} subcommand is not ported yet")
     args = parser.parse_args(argv)
     if args.resume and not (args.checkpoint_dir or args.ledger):
         parser.error("--resume requires --checkpoint-dir or --ledger")
+    if args.trace and not args.metrics_file:
+        parser.error("--trace needs --metrics-file: the spans go to that stream")
     if not args.fused:
         parser.error("the driver path (no --fused) is not ported yet; pass --fused")
     if args.algorithm not in PORTED_ALGORITHMS:
         parser.error(f"--fused --algorithm {args.algorithm} is not ported yet; "
-                     "the port runs --algorithm pbt|asha|random")
+                     "the port runs --algorithm pbt|asha|random|hyperband")
     # --wave-size: an integer or 'auto', checked here as a usage error
     if args.wave_size != "auto":
         try:
@@ -457,7 +521,9 @@ def main(argv=None) -> int:
                      "it with --gen-chunk/--step-chunk launch splitting is ambiguous")
     # SIGTERM/SIGINT set a drain flag; the next launch boundary flushes
     # the snapshot and the run exits EX_TEMPFAIL. The heartbeat, like
-    # the handlers, is dropped on the way out
+    # the handlers, is dropped on the way out, and the span sink restored
+    trace_entry = _trace.save()
+    _expandable_segments(args.device)
     try:
         with _shutdown.ShutdownGuard():
             if args.heartbeat_file:
@@ -467,6 +533,7 @@ def main(argv=None) -> int:
         _heartbeat.deconfigure()
         integrity.clear_observer()
         resources.clear_observer()
+        _trace.deconfigure(trace_entry)
 
 
 if __name__ == "__main__":

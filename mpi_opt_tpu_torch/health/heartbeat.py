@@ -23,6 +23,8 @@ import threading
 import time
 from typing import Optional
 
+from mpi_opt_tpu_torch.obs import trace
+
 
 class Heartbeat:
     """Beats come from the sweep's thread and from the wave engine's
@@ -38,9 +40,9 @@ class Heartbeat:
 
     def beat(self, **progress) -> Optional[dict]:
         """Record one unit of progress; returns the record (None if the
-        write failed: warned once, never raised). ``phase`` (the active
-        trace span in the JAX package) is None until span tracing is
-        ported."""
+        write failed: warned once, never raised). ``phase`` is the active
+        trace span (``obs/trace.current_phase``): a stall report can say
+        "stalled during stage_in"."""
         # sweeplint: disable=beat-path-nonblocking -- counter-only critical section (no I/O under the lock); skipping would break beat monotonicity
         with self._lock:
             self.beats += 1
@@ -49,7 +51,7 @@ class Heartbeat:
             "pid": os.getpid(),
             "beats": n,
             "ts": round(time.time(), 4),
-            "phase": None,
+            "phase": trace.current_phase(),
             "progress": progress,
         }
         tmp = f"{self.path}.tmp{os.getpid()}.{threading.get_ident()}"

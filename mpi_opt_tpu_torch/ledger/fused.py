@@ -27,10 +27,12 @@ be replayed against. Consequences:
   snapshot stays authoritative for optimizer state; the ledger stays
   authoritative for the audit trail.
 
-The JAX package's boundary/trial/member offsets (one ledger spanning
-hyperband/BOHB brackets) and multi-objective score vectors are not here:
-the port journals one PBT sweep, whose boundaries, trial ids and members
-all start at 0.
+Offsets make one ledger span a composite sweep: fused Hyperband runs
+one ``fused_sha`` a bracket, each journaling under its bracket's
+``boundary_offset`` (global rung index), ``trial_offset`` (global record
+index) and ``member_offset`` (global trial identity), so the whole sweep
+reads as one contiguous boundary sequence. Multi-objective score
+vectors are not here yet.
 """
 
 from __future__ import annotations
@@ -41,11 +43,15 @@ from mpi_opt_tpu_torch.ledger.store import LedgerError, SweepLedger, scan_bounda
 
 
 class FusedJournal:
-    """One fused sweep's member-granular journal view."""
+    """One fused sweep's (or bracket's) member-granular journal view."""
 
-    def __init__(self, ledger: SweepLedger, space):
+    def __init__(self, ledger: SweepLedger, space, boundary_offset: int = 0,
+                 trial_offset: int = 0, member_offset: int = 0):
         self.ledger = ledger
         self.space = space
+        self.boundary_offset = int(boundary_offset)
+        self.trial_offset = int(trial_offset)
+        self.member_offset = int(member_offset)
         self.written = 0  # member records appended by this process
         self.verified = 0  # member records re-verified on resume
         # a fresh load already refused structurally-damaged journals and
@@ -68,18 +74,18 @@ class FusedJournal:
             n += 1
         return n
 
-    def boundary_done(self, b: int) -> bool:
-        b = int(b)
+    def boundary_done(self, b_local: int) -> bool:
+        b = self.boundary_offset + int(b_local)
         return b in self._by_boundary and len(self._by_boundary[b]) == self._sizes[b]
 
-    def require_prefix(self, n: int) -> None:
+    def require_prefix(self, n_local: int) -> None:
         """Refuse a resume whose snapshot is AHEAD of the journal: the
-        snapshot records ``n`` boundaries complete, but the journal does
-        not hold them all — an audit hole the sweep cannot reconstruct
-        (those boundaries will never be re-computed). The inverse —
-        journal ahead of snapshot — is fine: the re-trained boundaries
-        verify against their records."""
-        need = int(n)
+        snapshot records ``n_local`` boundaries (past this view's offset)
+        complete, but the journal does not hold them all — an audit hole
+        the sweep cannot reconstruct (those boundaries will never be
+        re-computed). The inverse — journal ahead of snapshot — is fine:
+        the re-trained boundaries verify against their records."""
+        need = self.boundary_offset + int(n_local)
         have = self.complete_prefix()
         if have < need:
             raise LedgerError(
@@ -93,10 +99,11 @@ class FusedJournal:
 
     # -- the per-boundary service point ------------------------------------
 
-    def record_boundary(self, b: int, members, units, scores, step: int) -> None:
+    def record_boundary(self, b_local: int, members, units, scores, step: int) -> None:
         """Journal (or verify) one boundary's member records.
 
-        ``members`` are the boundary's member identities, ``units``
+        ``members`` are the boundary's member identities (local: the
+        journal applies ``member_offset``), ``units``
         their unit-cube rows, ``scores`` their evaluation scores,
         ``step`` the budget the scores were measured at. First visit
         appends one fsync'd record per member; a re-computed boundary
@@ -104,7 +111,7 @@ class FusedJournal:
         divergence raises ``LedgerError`` (the journal belongs to a
         different trajectory).
         """
-        b = int(b)
+        b = self.boundary_offset + int(b_local)
         members = [int(m) for m in np.asarray(members).tolist()]
         scores = np.asarray(scores, dtype=np.float64)
         units = np.asarray(units)
@@ -113,15 +120,17 @@ class FusedJournal:
             self._verify(b, members, scores)
             return
         # trial ids are the journal's record ordinals, derived from the
-        # already-journaled boundaries so a resume that skipped straight
-        # past completed boundaries still numbers identically to an
-        # uninterrupted run
-        base = sum(len(self._by_boundary[k]) for k in self._by_boundary if k < b)
+        # already-journaled boundaries of THIS view so a resume that
+        # skipped straight past completed boundaries still numbers
+        # identically to an uninterrupted run
+        base = self.trial_offset + sum(
+            len(self._by_boundary[k]) for k in self._by_boundary if self.boundary_offset <= k < b
+        )
         grp: dict[int, dict] = {}
         for i, m in enumerate(members):
             rec = self.ledger.record_member(
                 trial_id=base + i,
-                member=m,
+                member=self.member_offset + m,
                 boundary=b,
                 boundary_size=len(members),
                 canonical_params=self.space.canonical_params(
@@ -130,7 +139,7 @@ class FusedJournal:
                 score=scores[i],
                 step=step,
             )
-            grp[m] = rec
+            grp[self.member_offset + m] = rec
         self._by_boundary[b] = grp
         self._sizes[b] = len(members)
         self.written += len(members)
@@ -149,7 +158,7 @@ class FusedJournal:
                 "belongs to a different sweep shape"
             )
         for i, m in enumerate(members):
-            mg = int(m)
+            mg = self.member_offset + int(m)
             rec = existing.get(mg)
             if rec is None:
                 raise LedgerError(
@@ -176,9 +185,9 @@ class FusedJournal:
         self.verified += len(members)
 
 
-def make_journal(ledger, space):
+def make_journal(ledger, space, **offsets):
     """``FusedJournal`` over ``ledger``, or None when no ledger is
     active."""
     if ledger is None:
         return None
-    return FusedJournal(ledger, space)
+    return FusedJournal(ledger, space, **offsets)

@@ -54,6 +54,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from mpi_opt_tpu_torch.obs import trace
 from mpi_opt_tpu_torch.trial import TrialResult, failed_result
 
 LEDGER_SCHEMA_VERSION = 1
@@ -528,10 +529,8 @@ class SweepLedger:
         cached: bool = False,
         meta: Optional[dict] = None,
     ) -> dict:
-        """Journal one FINAL result; durable (fsync) before returning.
-
-        (The JAX package traces each record as a ``journal`` span; span
-        tracing is not ported yet.)"""
+        """Journal one FINAL result; durable (fsync) before returning,
+        traced as a ``journal`` span."""
         if self.header is None:
             raise LedgerError("ledger has no header — call ensure_header first")
         score = float(result.score)
@@ -559,7 +558,8 @@ class SweepLedger:
                 if k not in rec:
                     rec[k] = v
         if not self.read_only:
-            self._write_line(rec)
+            with trace.span("journal", n=1):
+                self._write_line(rec)
         # read-only ranks still track the record in memory: completed()
         # and the dedup views must agree with rank 0's across the gang
         self.records.append(rec)

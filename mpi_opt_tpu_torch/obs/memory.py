@@ -9,7 +9,7 @@ caching allocator and the driver answer:
   ``reset_peak`` (``max_memory_allocated``), and the card's total
   memory (``mem_get_info``). None on the CPU, where the JAX package's
   live-array fallback has no counterpart in PyTorch;
-- ``note(attrs)``: attach the reading to a dict (a result record);
+- ``note(sp)``: attach the reading to a traced span's attrs;
 - ``measured_budget()``: the card's total memory, the budget
   ``train/staging.py::estimate_wave_size`` sizes ``auto`` waves from
   when no explicit budget is given (None on the CPU);
@@ -57,14 +57,18 @@ def sample(device=None) -> Optional[dict]:
 
 
 def note(attrs: dict, device=None) -> None:
-    """Attach the current reading to ``attrs`` as ``mem_bytes`` /
-    ``mem_peak_bytes`` / ``mem_src`` (nothing on the CPU)."""
-    m = sample(device)
-    if m is None:
+    """Attach the current reading to an active span's attrs as
+    ``mem_bytes`` / ``mem_peak_bytes`` / ``mem_src``. No-op untraced
+    (``obs/trace.py``) and on the CPU; the readings are the caching
+    allocator's host-side counters, which wait for no kernel."""
+    from mpi_opt_tpu_torch.obs import trace
+
+    dev = _cuda_device(device)
+    if dev is None or not trace.enabled():
         return
-    attrs["mem_bytes"] = m["bytes_in_use"]
-    attrs["mem_peak_bytes"] = m["peak_bytes"]
-    attrs["mem_src"] = m["source"]
+    attrs["mem_bytes"] = int(torch.cuda.memory_allocated(dev))
+    attrs["mem_peak_bytes"] = int(torch.cuda.max_memory_allocated(dev))
+    attrs["mem_src"] = "cuda_allocator"
 
 
 def measured_budget(device=None) -> Optional[int]:

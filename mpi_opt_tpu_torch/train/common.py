@@ -5,6 +5,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mpi_opt_tpu_torch.obs import trace
+
 
 def finite_winner(scores, ok=None):
     """(best_i, diverged) for a host score vector: the argmax over finite
@@ -18,13 +20,62 @@ def finite_winner(scores, ok=None):
 
 def workload_arrays(workload, member_chunk: int, dev):
     """(trainer, space, train_x, train_y, val_x, val_y) of a population
-    workload, the data on ``dev`` (labels as int64)."""
-    trainer = workload.make_trainer(member_chunk=member_chunk, device=dev)
-    d = workload.data()
-    train_x, train_y, val_x, val_y = (
-        torch.from_numpy(d[k]).to(dev) for k in ("train_x", "train_y", "val_x", "val_y")
-    )
-    return trainer, workload.default_space(), train_x, train_y.long(), val_x, val_y.long()
+    workload, the data on ``dev`` (labels as int64), cached on the
+    workload instance as the JAX package caches them: the brackets of a
+    Hyperband sweep, or a bench's warm-up and measured run, upload the
+    data once. The key holds what shapes the trainer (member chunk,
+    device, momentum dtype). A miss is traced as the ``setup`` span,
+    with the device kind the roofline's cap is looked up by."""
+    from mpi_opt_tpu_torch.workloads.base import resolve_momentum_dtype
+
+    key = (member_chunk, str(dev), resolve_momentum_dtype())
+    cache = getattr(workload, "_fused_cache", None)
+    if cache is None or cache[0] != key:
+        with trace.span("setup", workload=getattr(workload, "name", None)) as sp:
+            trace.note_device(sp, dev)
+            trainer = workload.make_trainer(member_chunk=member_chunk, device=dev,
+                                            momentum_dtype=key[2])
+            d = workload.data()
+            train_x, train_y, val_x, val_y = (
+                torch.from_numpy(d[k]).to(dev) for k in ("train_x", "train_y", "val_x", "val_y")
+            )
+            workload._fused_cache = (key, trainer, workload.default_space(), train_x,
+                                     train_y.long(), val_x, val_y.long())
+    return workload._fused_cache[1:]
+
+
+def journal_boundary(journal, b_local: int, members, units, scores, step: int) -> None:
+    """Journal (or, on a resume, verify) one boundary's member records
+    before its snapshot, as a ``journal`` span; no-op without a
+    journal. One span a boundary, not a record, so the trace grows with
+    boundaries, not members."""
+    if journal is None:
+        return
+    with trace.span("journal", boundary=int(b_local), n=len(members)):
+        journal.record_boundary(b_local, members, units, scores, step=step)
+
+
+def segment_flops_hint(workload, population: int, steps: int):
+    """FLOPs of one boundary (``steps`` training steps of ``population``
+    members and one eval), for the ``flops`` attr of ``train`` spans, so
+    the trace reports achieved TF/s. Paid only when tracing is on;
+    cached per (population, steps) on the workload instance, and its
+    own time is traced as ``setup`` (op ``flops_probe``) with anything
+    inside suppressed. None untraced."""
+    if not trace.enabled():
+        return None
+    cache = getattr(workload, "_flops_hint_cache", None)
+    if cache is None:
+        cache = workload._flops_hint_cache = {}
+    key = (int(population), int(steps))
+    if key not in cache:
+        from mpi_opt_tpu_torch.utils.flops import population_sweep_flops
+
+        with trace.span("setup", op="flops_probe", members=int(population)):
+            with trace.suppressed():
+                cache[key] = population_sweep_flops(workload, int(population), 1, int(steps),
+                                                    n_evals=1)
+    return cache[key]
 
 
 def hparams_fn(space, workload):

@@ -18,8 +18,12 @@ boundary op (PBT's exploit, SHA's rung cut); this module owns:
 - ``resolve_wave_size``: ``auto`` estimation and the pre-clamp of an
   explicit cap against the measured budget. The port runs one process,
   so the JAX package's multi-process cap agreement is not here;
-- ``boundary_span``: beats the heartbeat with stage ``boundary <op>``
-  around a boundary op (trace spans wait for ``obs/trace.py``).
+- ``boundary_span``: traces a boundary op as a ``boundary`` span and
+  beats the heartbeat from inside it.
+
+Spans (``obs/trace.py``): each interval is one ``train`` span over its
+waves and the drain that ends it (with ``flops`` once the drain
+completed); each wave's stage-in is a ``stage_in`` span inside it.
 
 Bit identity. The JAX package has two wave programs, one mapping the
 unit matrix to hyperparameters inside the program (PBT, TPE) and one
@@ -41,6 +45,7 @@ import gc
 
 import torch
 
+from mpi_opt_tpu_torch.obs import memory, trace
 from mpi_opt_tpu_torch.train.common import launch_boundary
 from mpi_opt_tpu_torch.train.population import PopState
 from mpi_opt_tpu_torch.utils import resources
@@ -57,9 +62,29 @@ def balanced_split(total: int, chunk: int) -> list[int]:
     return [base + 1] * extra + [base] * (n - extra)
 
 
-def wave_layout(population: int, wave_size: int):
-    """(wave_lens, offs, n_waves) for a wave cap."""
-    wave_lens = balanced_split(population, wave_size)
+def whole_chunks(wave_size: int, member_chunk: int, population: int) -> int:
+    """A wave cap that holds whole member chunks: rounded down to a
+    multiple of ``member_chunk``, and never below one chunk (a padded
+    launch below the chunk saves no memory). Unchanged without a member
+    chunk or at or above ``population`` (resident)."""
+    if member_chunk <= 0 or not 0 < wave_size < population:
+        return wave_size
+    return max(member_chunk, wave_size // member_chunk * member_chunk)
+
+
+def wave_layout(population: int, wave_size: int, member_chunk: int = 0):
+    """(wave_lens, offs, n_waves) for a wave cap. Without a member chunk
+    the JAX package's near-equal split. With one, waves hold whole
+    chunks: the cohort's chunks are split near-equally into waves of at
+    most ``wave_size // member_chunk`` (at least one), so every member
+    keeps the chunk and the place in it it has resident, and only the
+    cohort's last chunk is short (padded at launch)."""
+    if member_chunk > 0 and population > 0:
+        per = balanced_split(-(-population // member_chunk), max(1, wave_size // member_chunk))
+        ends = [min(population, member_chunk * sum(per[:i + 1])) for i in range(len(per))]
+        wave_lens = [e - s for s, e in zip([0] + ends[:-1], ends)]
+    else:
+        wave_lens = balanced_split(population, wave_size)
     offs = [0]
     for w in wave_lens[:-1]:
         offs.append(offs[-1] + w)
@@ -84,13 +109,14 @@ def engine_rollover(old):
 
 @contextlib.contextmanager
 def boundary_span(op: str, **attrs):
-    """Around a boundary op (exploit, rung_cut): beat the heartbeat with
-    stage ``boundary <op>`` first, so a stall inside the op is
-    attributed to it."""
+    """Trace a boundary op (exploit, rung_cut) as a ``boundary`` span and
+    beat the heartbeat from inside it: the beat's ``phase`` reads
+    ``boundary:<op>``, so a stall inside the op is attributed to it."""
     from mpi_opt_tpu_torch.health import heartbeat
 
-    heartbeat.beat(stage=f"boundary {op}", **attrs)
-    yield attrs
+    with trace.span("boundary", op=op, **attrs) as sp:
+        heartbeat.beat(stage=f"boundary {op}")
+        yield sp
 
 
 def resolve_wave_size(trainer, population: int, *, wave_size, oom_backoff: int = 0) -> int:
@@ -98,8 +124,9 @@ def resolve_wave_size(trainer, population: int, *, wave_size, oom_backoff: int =
     ``population``-member sweep; 0 (or a cap >= population) means
     resident. ``auto`` is ``estimate_wave_size``; with ``oom_backoff``
     on and a measured device budget, an explicit cap above the estimate
-    is clamped to it before the first launch. Either change is notified
-    as a ``wave_resized`` event."""
+    is clamped to it before the first launch. With a member chunk the
+    cap holds whole chunks (``whole_chunks``), never less than one.
+    Every change is notified as a ``wave_resized`` event."""
     if not wave_size:
         return 0
     from mpi_opt_tpu_torch.train.staging import estimate_wave_size
@@ -122,6 +149,11 @@ def resolve_wave_size(trainer, population: int, *, wave_size, oom_backoff: int =
                 resources.notify("wave_resized", requested=wave_size, wave_size=est,
                                  population=population)
                 wave_size = est
+    whole = whole_chunks(wave_size, trainer.member_chunk, population)
+    if whole != wave_size:
+        resources.notify("wave_resized", requested=wave_size, wave_size=whole,
+                         population=population, member_chunk=trainer.member_chunk)
+        wave_size = whole
     return wave_size
 
 
@@ -133,8 +165,13 @@ def run_wave(trainer, pool, rows, offset: int, hp, train_x, train_y, val_x, val_
     survivors' gather); ``hp`` the interval's hyperparameters over the
     whole cohort; ``rng_start`` the generator state at the interval's
     start. Returns (the wave's state, its scores), both on the card."""
+    from mpi_opt_tpu_torch.train.staging import tree_bytes
+
     resources.launch_fault("wave")
-    dev = engine.stage_in(pool, rows)
+    with trace.span("stage_in", members=len(rows)) as sp:
+        dev = engine.stage_in(pool, rows)
+        sp["bytes"] = tree_bytes(dev)
+        memory.note(sp, engine.device)
     st = PopState(params=dev["params"], momentum=dev["momentum"], step=dev["step"])
     generator.set_state(rng_start)
     trainer.train_segment_window(st, hp, train_x, train_y, generator, steps, offset)
@@ -147,19 +184,35 @@ class WaveRunner:
     adopts the OOM-settled cap instead of paying the OOM again; halved
     by absorbed OOMs) and the backoff budget. After
     ``run_interval`` returns, ``wave_size`` / ``wave_lens`` / ``offs`` /
-    ``n_waves`` are the layout the interval ran under."""
+    ``n_waves`` are the layout the interval ran under.
 
-    def __init__(self, population: int, wave_size: int, *, oom_backoff: int = 0, device=None):
+    ``member_chunk`` is the sweep's launch width: waves hold whole
+    chunks (``wave_layout``) and a halving never goes below one chunk,
+    so every launch keeps the resident shape. Without a member chunk a
+    launch is the whole wave, so a halving changes the launch shape:
+    the ``oom_backoff`` event and ``result_extras`` say so
+    (``launch_shape_changed``)."""
+
+    def __init__(self, population: int, wave_size: int, *, member_chunk: int = 0,
+                 oom_backoff: int = 0, device=None):
         from mpi_opt_tpu_torch.train.staging import StagingEngine
 
         self.population = int(population)
         self.wave_size = int(wave_size)
+        self.member_chunk = max(0, int(member_chunk))
+        self.launch_width_before = self.launch_width
         self.oom_budget = max(0, int(oom_backoff))
         self.oom_backoffs = 0
         self.waves_run = 0  # every wave dispatched, re-runs included
         self.device = torch.device("cpu") if device is None else torch.device(device)
         self.engine = StagingEngine(self.device)
-        self.wave_lens, self.offs, self.n_waves = wave_layout(self.population, self.wave_size)
+        self.wave_lens, self.offs, self.n_waves = wave_layout(
+            self.population, self.wave_size, self.member_chunk)
+
+    @property
+    def launch_width(self) -> int:
+        """Members a launch runs: the member chunk, else the wave cap."""
+        return self.member_chunk or self.wave_size
 
     def close(self) -> None:
         self.engine.close()
@@ -176,6 +229,8 @@ class WaveRunner:
         midpoint_snapshot=None,
         start_wave: int = 0,
         notify_fields=(),
+        span_attrs=None,
+        flops=None,
     ):
         """Run ONE interval of ``n`` cohort members as waves; returns the
         waves' score tensors on the card, in wave order.
@@ -189,7 +244,10 @@ class WaveRunner:
         - ``stage_label(w, n_waves)`` / ``boundary_kwargs(w, n_waves)`` /
           ``midpoint_snapshot(w, n_waves)`` shape the heartbeat, the
           between-waves ``launch_boundary`` progress fields and its
-          drain snapshot (None: no mid-interval snapshot).
+          drain snapshot (None: no mid-interval snapshot);
+        - ``span_attrs(n_waves)`` are the interval's ``train`` span attrs
+          and ``flops`` its FLOPs, attached once the drain completed (an
+          interval cut short reports its partial wall without them).
 
         ``start_wave`` skips completed waves (a mid-interval resume),
         taking their scores from ``scores_host``. On a ``DeviceOOM``
@@ -197,19 +255,22 @@ class WaveRunner:
         the cap: the pools are only read, and each wave restarts the
         generator from the interval's start, so the re-run reproduces
         the interval exactly. An ``oom_backoff`` event carries
-        ``notify_fields``. With no budget left (or a cap of 1) the
-        ``DeviceOOM`` propagates."""
+        ``notify_fields`` and the launch width before and after. With no
+        budget left, or at a cap of one member chunk (1 without a chunk),
+        the ``DeviceOOM`` propagates."""
         from mpi_opt_tpu_torch.health import heartbeat
 
         while True:  # one pass per OOM-backoff attempt
-            wave_lens, offs, n_waves = wave_layout(n, self.wave_size)
+            wave_lens, offs, n_waves = wave_layout(n, self.wave_size, self.member_chunk)
             self.wave_lens, self.offs, self.n_waves = wave_lens, offs, n_waves
             wave_scores: list = [None] * n_waves
             for w in range(start_wave):
                 off, wl = offs[w], wave_lens[w]
                 wave_scores[w] = scores_host[off:off + wl].to(self.device)
             try:
-                with resources.oom_funnel(self.wave_size):
+                with resources.oom_funnel(self.wave_size), trace.span(
+                        "train", **({"waves": n_waves} if span_attrs is None else span_attrs(n_waves))
+                ) as sp:
                     for w in range(start_wave, n_waves):
                         off, wl = offs[w], wave_lens[w]
                         st, sc = run_wave_fn(w, off, wl, self.engine)
@@ -233,9 +294,12 @@ class WaveRunner:
                     # the interval's only hard barrier: the boundary op
                     # needs every score and a settled pool
                     self.engine.drain()
+                    if flops:
+                        sp["flops"] = flops
+                    memory.note(sp, self.device)
                 return wave_scores
             except resources.DeviceOOM as e:
-                if self.oom_budget <= 0 or self.wave_size <= 1:
+                if self.oom_budget <= 0 or self.wave_size <= max(1, self.member_chunk):
                     raise
                 error = str(e)[:300]
             # the failed attempt's tensors die with its frames; settle
@@ -253,11 +317,14 @@ class WaveRunner:
                 torch.cuda.empty_cache()
             self.oom_budget -= 1
             self.oom_backoffs += 1
-            self.wave_size = max(1, self.wave_size // 2)
+            width = self.launch_width
+            self.wave_size = whole_chunks(max(1, self.wave_size // 2), self.member_chunk, n)
             scores_host.fill_(float("nan"))
             start_wave = 0
             resources.notify("oom_backoff", **dict(notify_fields), wave_size=self.wave_size,
-                             remaining=self.oom_budget, error=error)
+                             remaining=self.oom_budget, error=error, launch_width_before=width,
+                             launch_width_after=self.launch_width,
+                             launch_shape_changed=self.launch_width != width)
 
     def result_extras(self) -> dict:
         """The wave fields every wave-scheduled result reports: the
@@ -274,5 +341,8 @@ class WaveRunner:
             "stage_transfer_s": float(self.engine.transfer_s),
             "stage_wait_s": float(self.engine.wait_s),
             "stage_overlap_s": float(self.engine.overlap_s),
+            "launch_width_before": self.launch_width_before,
+            "launch_width_after": self.launch_width,
+            "launch_shape_changed": self.launch_width != self.launch_width_before,
         }
 

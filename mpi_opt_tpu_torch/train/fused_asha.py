@@ -13,9 +13,14 @@ row map. Bit-identical to the resident sweep on the CPU for any wave
 size. The resident sweep without snapshot or journal fetches nothing
 until its last rung (one fetch replays the per-rung records).
 
+``fused_hyperband`` runs one ``fused_sha`` a bracket, each journaling
+under its bracket's boundary/trial/member offsets, so one ledger spans
+the whole sweep as one contiguous boundary sequence.
+
 Not here yet (the JAX package's ``fused_sha`` has them): ``mesh`` and
-``round_to``, ``init_unit``, the hyperband boundary/trial/member
-offsets, ``warm_obs``, ``objectives``, and ``fused_hyperband``.
+``round_to``, ``init_unit``, ``warm_obs`` and ``objectives``; the
+``cohort_fn``/``observe_fn`` hooks of ``fused_hyperband`` come with
+fused BOHB.
 """
 
 from __future__ import annotations
@@ -25,11 +30,14 @@ import torch
 
 from mpi_opt_tpu_torch.device import resolve_device
 from mpi_opt_tpu_torch.ledger.fused import make_journal
+from mpi_opt_tpu_torch.obs import memory, trace
 from mpi_opt_tpu_torch.ops.asha import asha_cut, asha_rungs
 from mpi_opt_tpu_torch.train.common import (
     finite_winner,
+    journal_boundary,
     launch_boundary,
     momentum_dtype_str,
+    segment_flops_hint,
     workload_arrays,
 )
 from mpi_opt_tpu_torch.train.engine import WaveRunner, boundary_span, resolve_wave_size
@@ -42,9 +50,6 @@ _NOT_PORTED = {
     "mesh": None,
     "round_to": 1,
     "init_unit": None,
-    "boundary_offset": 0,
-    "trial_offset": 0,
-    "member_offset": 0,
     "warm_obs": None,
     "objectives": None,
 }
@@ -92,6 +97,9 @@ def fused_sha(  # sweeplint: barrier(rung host loop: gathers cohort scores for t
     wave_size=0,
     oom_backoff: int = 2,
     device=None,
+    boundary_offset: int = 0,
+    trial_offset: int = 0,
+    member_offset: int = 0,
     **not_ported,
 ):
     """Run a whole successive-halving sweep with on-device rung cuts.
@@ -105,7 +113,9 @@ def fused_sha(  # sweeplint: barrier(rung host loop: gathers cohort scores for t
     with the unkilled sweep's result, and a snapshot of another config
     (wave and resident sweeps refuse each other) raises ``ValueError``.
     ``ledger`` journals one record per cohort member per rung (its
-    pre-cut score at the rung's budget) before the rung's snapshot.
+    pre-cut score at the rung's budget) before the rung's snapshot;
+    ``boundary_offset``/``trial_offset``/``member_offset`` shift its
+    boundaries, trial ids and members (``fused_hyperband``'s brackets).
 
     Returns the JAX package's result: best_score, best_params,
     best_trial, diverged, rung_budgets, rung_sizes, stop_rung,
@@ -177,7 +187,8 @@ def fused_sha(  # sweeplint: barrier(rung host loop: gathers cohort scores for t
             state = PopState({k: v.to(dev) for k, v in host_state.params.items()},
                              {k: v.to(dev) for k, v in host_state.momentum.items()},
                              host_state.step.to(dev))
-    journal = make_journal(ledger, space)
+    journal = make_journal(ledger, space, boundary_offset=boundary_offset,
+                           trial_offset=trial_offset, member_offset=member_offset)
     if journal is not None:
         journal.require_prefix(start_rung)
     if restored is None:
@@ -186,8 +197,9 @@ def fused_sha(  # sweeplint: barrier(rung host loop: gathers cohort scores for t
         if waves:
             from mpi_opt_tpu_torch.train.staging import population_pool
 
-            pool_front = population_pool(trainer, n_trials)
-            trainer.init_population_into(gen, pool_front["params"])
+            with trace.span("setup", op="pools", members=n_trials):
+                pool_front = population_pool(trainer, n_trials)
+                trainer.init_population_into(gen, pool_front["params"])
             perm = np.arange(n_trials)
         else:
             state = trainer.init_population(gen, n_trials)
@@ -208,13 +220,18 @@ def fused_sha(  # sweeplint: barrier(rung host loop: gathers cohort scores for t
     defer = snap is None and journal is None and not waves
     runner = None
     if waves:
-        runner = WaveRunner(n_trials, run_wave_size, oom_backoff=oom_backoff, device=dev)
+        runner = WaveRunner(n_trials, run_wave_size, member_chunk=member_chunk,
+                            oom_backoff=oom_backoff, device=dev)
     rung_scores_dev: list = []
     rung_keep_dev: list = []
     try:
         for r in range(start_rung, len(rungs)):
             budget = rungs[r]
             steps = budget - (rungs[r - 1] if r > 0 else 0)
+            # the rung's FLOPs for the trace (None untraced), probed
+            # before its span; a deferred rung's span times dispatch only
+            # and carries none
+            f = None if defer else segment_flops_hint(workload, sizes[r], steps)
             # the cohort's hyperparameters, mapped eagerly (a wave trains
             # its rows of them)
             hp = workload.make_hparams(space.from_unit(unit))
@@ -222,7 +239,8 @@ def fused_sha(  # sweeplint: barrier(rung host loop: gathers cohort scores for t
                 from mpi_opt_tpu_torch.train.staging import nan_scores, pool_rows, population_pool
 
                 n_r = sizes[r]
-                pool_back = population_pool(trainer, n_r)
+                with trace.span("setup", op="pools", members=n_r):
+                    pool_back = population_pool(trainer, n_r)
                 scores_host = nan_scores(n_r, dev)
                 rng_start = gen.get_state()
 
@@ -243,23 +261,34 @@ def fused_sha(  # sweeplint: barrier(rung host loop: gathers cohort scores for t
                     # the interrupted rung
                     midpoint_snapshot=None,
                     notify_fields=(("rung", r + 1),),
+                    span_attrs=lambda nw, r=r, n_r=n_r, steps=steps: {
+                        "launch": boundary_offset + r + 1, "rung": r + 1, "members": n_r,
+                        "steps": steps, "waves": nw},
+                    flops=f,
                 )
                 scores = torch.cat(wave_scores)
                 del wave_scores
                 np_scores = scores_host.numpy().copy()
                 record_rung(r, np_scores)
             else:
-                trainer.train_segment(state, hp, train_x, train_y, gen, steps)
-                scores = trainer.eval_population(state, val_x, val_y)
-                if defer:
-                    rung_scores_dev.append(scores)
-                else:
-                    np_scores = scores.cpu().numpy()
+                with trace.span("train", launch=boundary_offset + r + 1, rung=r + 1,
+                                members=sizes[r], steps=steps) as sp:
+                    trainer.train_segment(state, hp, train_x, train_y, gen, steps)
+                    scores = trainer.eval_population(state, val_x, val_y)
+                    if defer:
+                        rung_scores_dev.append(scores)
+                    else:
+                        # the fetch is the rung's completion barrier
+                        np_scores = scores.cpu().numpy()
+                        if f:
+                            sp["flops"] = f
+                        memory.note(sp, dev)
+                if not defer:
                     record_rung(r, np_scores)
             if journal is not None:
                 # one record per pre-cut member at the rung's budget,
                 # before the rung's snapshot
-                journal.record_boundary(r, alive, unit.cpu().numpy(), np_scores, step=budget)
+                journal_boundary(journal, r, alive, unit.cpu().numpy(), np_scores, step=budget)
             if r < len(rungs) - 1:
                 with boundary_span("rung_cut", rung=r + 1):
                     if waves:
@@ -308,6 +337,8 @@ def fused_sha(  # sweeplint: barrier(rung host loop: gathers cohort scores for t
     finally:
         if runner is not None:
             runner.close()
+        if snap is not None:
+            snap.close()
 
     if defer and rung_scores_dev:
         # the one fetch: every rung's scores and cuts, replayed into the
@@ -340,4 +371,134 @@ def fused_sha(  # sweeplint: barrier(rung host loop: gathers cohort scores for t
         "objectives": None,
         "pareto": None,
         **({} if runner is None else runner.result_extras()),
+    }
+
+
+# arguments of the JAX package's fused_hyperband that the port does not
+# take yet, with their defaults: a non-default value raises
+_HB_NOT_PORTED = {
+    "mesh": None,
+    "round_to": 1,
+    "cohort_fn": None,
+    "observe_fn": None,
+    "warm_obs": None,
+}
+
+
+def fused_hyperband(
+    workload,
+    max_budget: int = 270,
+    eta: int = 3,
+    seed: int = 0,
+    member_chunk: int = 0,
+    checkpoint_dir: str | None = None,
+    ledger=None,
+    wave_size=0,
+    oom_backoff: int = 2,
+    device=None,
+    **not_ported,
+):
+    """Hyperband with every bracket a fused SHA sweep (port of the JAX
+    package's ``fused_hyperband``).
+
+    Brackets (``algorithms.hyperband.bracket_plan``) run one after the
+    other, bracket b as ``fused_sha`` with seed ``seed + 7919*b`` (the
+    host Hyperband's seeds). ``wave_size``/``oom_backoff`` pass through,
+    and each bracket resolves the cap against its own cohort: a bracket
+    that fits runs resident. One ledger spans the brackets: each
+    journals under its bracket's boundary, trial and member offsets, so
+    the sweep reads as one contiguous boundary sequence.
+
+    ``checkpoint_dir`` gives bracket b its own rung-snapshotted
+    directory ``bracket_{b}``: a resume restarts inside the interrupted
+    bracket, and completed brackets replay from their final snapshot. A
+    ``launch_boundary`` between brackets lets a drain land there (each
+    bracket's last rung suppresses its own).
+
+    Returns the JAX package's result: best_score and best_params (the
+    best finite bracket's, ``best_finite``), the per-bracket summaries
+    (``brackets``), member_failures flattened over brackets, n_trials,
+    journal totals (None without a ledger), and, when any bracket ran in
+    waves, the wave fields summed over brackets (``wave_size`` the
+    largest settled cap).
+    """
+    import os
+
+    from mpi_opt_tpu_torch.algorithms.base import best_finite
+    from mpi_opt_tpu_torch.algorithms.hyperband import bracket_plan
+
+    for name, value in not_ported.items():
+        if name not in _HB_NOT_PORTED:
+            raise TypeError(f"fused_hyperband() got an unexpected keyword argument {name!r}")
+        default = _HB_NOT_PORTED[name]
+        if (value is not None) if default is None else (value != default):
+            raise NotImplementedError(f"fused_hyperband({name}=...) is not ported yet")
+    best = None
+    brackets = []
+    n_total = 0
+    journal_totals = {"written": 0, "verified": 0}
+    # wave fields over the brackets: counters sum, the cap is the
+    # largest any bracket settled at
+    wave_totals = {"wave_size": 0, "n_waves": 0, "waves_run": 0, "oom_backoffs": 0,
+                   "staged_bytes": 0, "stage_transfer_s": 0.0, "stage_wait_s": 0.0,
+                   "stage_overlap_s": 0.0}
+    any_waves = False
+    plan = bracket_plan(max_budget, eta)
+    boundary_off = trial_off = member_off = 0
+    for b, (n, r) in enumerate(plan):
+        res = fused_sha(
+            workload,
+            n_trials=n,
+            min_budget=r,
+            max_budget=max_budget,
+            eta=eta,
+            seed=seed + 7919 * b,
+            member_chunk=member_chunk,
+            checkpoint_dir=os.path.join(checkpoint_dir, f"bracket_{b}") if checkpoint_dir else None,
+            ledger=ledger,
+            wave_size=wave_size,
+            oom_backoff=oom_backoff,
+            device=device,
+            boundary_offset=boundary_off,
+            trial_offset=trial_off,
+            member_offset=member_off,
+        )
+        boundary_off += len(res["rung_budgets"])
+        trial_off += sum(res["rung_sizes"])
+        member_off += n
+        n_total += n
+        if res["journal"]:
+            journal_totals["written"] += res["journal"]["written"]
+            journal_totals["verified"] += res["journal"]["verified"]
+        summary = {
+            "bracket": b,
+            "n_trials": n,
+            "start_budget": r,
+            "rung_sizes": res["rung_sizes"],
+            "rung_budgets": res["rung_budgets"],
+            "member_failures": res["member_failures"],
+            "best_score": res["best_score"],
+        }
+        if res.get("wave_size"):
+            any_waves = True
+            wave_totals["wave_size"] = max(wave_totals["wave_size"], res["wave_size"])
+            for k in ("n_waves", "waves_run", "oom_backoffs", "staged_bytes", "stage_transfer_s",
+                      "stage_wait_s", "stage_overlap_s"):
+                wave_totals[k] += res[k]
+            summary.update(wave_size=res["wave_size"], n_waves=res["n_waves"],
+                           oom_backoffs=res["oom_backoffs"])
+        brackets.append(summary)
+        launch_boundary(f"hyperband bracket {b + 1}/{len(plan)}", final=b + 1 == len(plan),
+                        bracket=b + 1, of=len(plan))
+        # a diverged bracket never sticks as the winner; the first
+        # bracket stands when all diverged
+        best = res if best is None else best_finite([best, res], key=lambda x: x["best_score"])
+    return {
+        "best_score": best["best_score"],
+        "best_params": best["best_params"],
+        "brackets": brackets,
+        "member_failures": [m for s in brackets for m in s["member_failures"]],
+        "n_trials": n_total,
+        "journal": journal_totals if ledger is not None else None,
+        **(wave_totals if any_waves else {}),
     }

@@ -34,12 +34,15 @@ import torch
 
 from mpi_opt_tpu_torch.device import resolve_device
 from mpi_opt_tpu_torch.ledger.fused import make_journal
+from mpi_opt_tpu_torch.obs import memory, trace
 from mpi_opt_tpu_torch.ops.pbt import PBTConfig, pbt_exploit_explore
 from mpi_opt_tpu_torch.train.common import (
     finite_winner,
     hparams_fn,
+    journal_boundary,
     launch_boundary,
     momentum_dtype_str,
+    segment_flops_hint,
     workload_arrays,
 )
 from mpi_opt_tpu_torch.train.engine import (
@@ -243,67 +246,80 @@ def fused_pbt(  # sweeplint: barrier(resident host loop: launch boundaries, expl
         state = trainer.init_population(gen, population)
 
     snapshot_every = max(1, snapshot_every)
-    for i in range(start_launch, n_launches):
-        t0 = time.perf_counter()
-        best, mean, fails, pre_s, pre_u = [], [], [], [], []
-        # a resident sweep has no wave to halve: a CUDA OOM leaves as
-        # DeviceOOM, which the CLI exits 74 on
-        with resources.oom_funnel():
-            resources.launch_fault("launch")
-            for _ in range(launch_lens[i]):
-                state, unit, b, m, f, scores, s_pre, u_pre = _run_stepped_generation(
-                    trainer, state, unit, to_hparams, train_x, train_y, val_x, val_y, gen, disc,
-                    steps_per_gen, step_chunk, cfg)
-                best.append(b)
-                mean.append(m)
-                fails.append(f)
-                pre_s.append(s_pre)
-                pre_u.append(u_pre)
-            # the fetch is the launch's completion barrier
-            best_parts.append(torch.stack(best).cpu().numpy())
-            mean_parts.append(torch.stack(mean).cpu().numpy())
-            fail_parts.append(torch.stack(fails).cpu().numpy())
-            scores_np = scores.cpu().numpy()
-        launch_walls.append(time.perf_counter() - t0)
-        g0 = sum(launch_lens[:i])
-        if journal is not None:
-            # journal this launch's generations (their pre-exploit scores
-            # and units) BEFORE its snapshot, so the journal never lags it;
-            # a generation re-computed on resume verifies instead
-            for j, (s_j, u_j) in enumerate(zip(pre_s, pre_u)):
-                g = g0 + j
-                journal.record_boundary(g, np.arange(population), u_j.cpu().numpy(),
-                                        s_j.cpu().numpy(), step=(g + 1) * steps_per_gen)
-        is_last = i + 1 == n_launches
-        due = (i + 1) % snapshot_every == 0
+    # a generation's FLOPs for the trace's achieved TF/s (None untraced)
+    flops_gen = segment_flops_hint(workload, population, steps_per_gen)
+    try:
+        for i in range(start_launch, n_launches):
+            t0 = time.perf_counter()
+            best, mean, fails, pre_s, pre_u = [], [], [], [], []
+            # a resident sweep has no wave to halve: a CUDA OOM leaves as
+            # DeviceOOM, which the CLI exits 74 on. The launch's train span
+            # ends after the curve fetch, its completion barrier
+            with resources.oom_funnel(), trace.span("train", launch=i + 1, gens=launch_lens[i]) as sp:
+                resources.launch_fault("launch")
+                for _ in range(launch_lens[i]):
+                    state, unit, b, m, f, scores, s_pre, u_pre = _run_stepped_generation(
+                        trainer, state, unit, to_hparams, train_x, train_y, val_x, val_y, gen, disc,
+                        steps_per_gen, step_chunk, cfg)
+                    best.append(b)
+                    mean.append(m)
+                    fails.append(f)
+                    pre_s.append(s_pre)
+                    pre_u.append(u_pre)
+                # the fetch is the launch's completion barrier
+                best_parts.append(torch.stack(best).cpu().numpy())
+                mean_parts.append(torch.stack(mean).cpu().numpy())
+                fail_parts.append(torch.stack(fails).cpu().numpy())
+                scores_np = scores.cpu().numpy()
+                # after the barrier: a launch that raised reports its
+                # partial wall without FLOPs
+                if flops_gen:
+                    sp["flops"] = flops_gen * launch_lens[i]
+                memory.note(sp, dev)
+            launch_walls.append(time.perf_counter() - t0)
+            g0 = sum(launch_lens[:i])
+            if journal is not None:
+                # journal this launch's generations (their pre-exploit
+                # scores and units) BEFORE its snapshot, so the journal
+                # never lags it; a generation re-computed on resume
+                # verifies instead
+                for j, (s_j, u_j) in enumerate(zip(pre_s, pre_u)):
+                    g = g0 + j
+                    journal_boundary(journal, g, np.arange(population), u_j.cpu().numpy(),
+                                     s_j.cpu().numpy(), step=(g + 1) * steps_per_gen)
+            is_last = i + 1 == n_launches
+            due = (i + 1) % snapshot_every == 0
 
-        def save_now(i=i):
-            snap.save_population_sweep(
-                i + 1, state, unit, gen, scores_np,
-                meta_extra={
-                    "launches_done": i + 1,
-                    # the ledger cross-check unit: generations complete
-                    "boundaries_done": sum(launch_lens[: i + 1]),
-                    "best": [v.tolist() for v in best_parts],
-                    "mean": [v.tolist() for v in mean_parts],
-                    "member_fail": [v.tolist() for v in fail_parts],
-                    "launch_walls": [float(w) for w in launch_walls],
-                },
+            def save_now(i=i):
+                snap.save_population_sweep(
+                    i + 1, state, unit, gen, scores_np,
+                    meta_extra={
+                        "launches_done": i + 1,
+                        # the ledger cross-check unit: generations complete
+                        "boundaries_done": sum(launch_lens[: i + 1]),
+                        "best": [v.tolist() for v in best_parts],
+                        "mean": [v.tolist() for v in mean_parts],
+                        "member_fail": [v.tolist() for v in fail_parts],
+                        "launch_walls": [float(w) for w in launch_walls],
+                    },
+                )
+
+            saved = False
+            if snap is not None and ((due and not is_last) or (is_last and snapshot_last)):
+                save_now()
+                saved = True
+            # heartbeat + graceful drain: a pending shutdown flushes an
+            # off-cadence snapshot (unless one was just saved), then raises
+            launch_boundary(
+                f"pbt launch {i + 1}/{n_launches}",
+                final=is_last,
+                snapshot=None if (snap is None or saved) else save_now,
+                launch=i + 1,
+                of=n_launches,
             )
-
-        saved = False
-        if snap is not None and ((due and not is_last) or (is_last and snapshot_last)):
-            save_now()
-            saved = True
-        # heartbeat + graceful drain: a pending shutdown flushes an
-        # off-cadence snapshot (unless one was just saved), then raises
-        launch_boundary(
-            f"pbt launch {i + 1}/{n_launches}",
-            final=is_last,
-            snapshot=None if (snap is None or saved) else save_now,
-            launch=i + 1,
-            of=n_launches,
-        )
+    finally:
+        if snap is not None:
+            snap.close()
 
     best_i, diverged = finite_winner(scores_np)
     np_unit = unit.cpu().numpy()
@@ -348,10 +364,10 @@ def _fused_pbt_waves(  # sweeplint: barrier(wave host loop: stages pools, gather
     (``init_population_into``), every wave restarts the generator at the
     generation's start and makes the whole population's draws
     (``train_segment_window``), and the exploit sees the same generator,
-    unit matrix and scores. On the card cuDNN and cuBLAS may choose other
-    algorithms for another member count, so identity there holds for
-    wave sizes whose member chunks have the resident shapes (a multiple
-    of ``member_chunk``).
+    unit matrix and scores. cuDNN (and oneDNN) choose algorithms by the
+    member count of a launch, so the convolutional models hold identity
+    through ``member_chunk``: every launch runs one chunk's members and
+    waves hold whole chunks (``engine.wave_layout``).
 
     ``oom_backoff``: a device OOM in a generation's waves halves the cap
     and re-runs the generation from its first wave, bit-identically. The
@@ -368,7 +384,7 @@ def _fused_pbt_waves(  # sweeplint: barrier(wave host loop: stages pools, gather
 
     train_x, train_y, val_x, val_y = data
     req_wave_size = wave_size
-    wave_lens, _, _ = wave_layout(population, wave_size)
+    wave_lens, _, _ = wave_layout(population, wave_size, member_chunk)
     disc = space.discrete_mask()
     to_hparams = hparams_fn(space, workload)
     gen = torch.Generator(device=dev)
@@ -422,17 +438,22 @@ def _fused_pbt_waves(  # sweeplint: barrier(wave host loop: stages pools, gather
     journal = make_journal(ledger, space)
     if journal is not None:
         journal.require_prefix(start_gen)
-    if restored is None:
-        gen.manual_seed(seed)
-        unit = space.sample_unit(gen, population)
-        perm = np.arange(population)
-        pool_front = population_pool(trainer, population)
-        trainer.init_population_into(gen, pool_front["params"])
-    if pool_back is None:
-        pool_back = population_pool(trainer, population)
+    # the pinned pools and the initial population written into them:
+    # set-up a resident sweep does not pay
+    with trace.span("setup", op="pools", members=population):
+        if restored is None:
+            gen.manual_seed(seed)
+            unit = space.sample_unit(gen, population)
+            perm = np.arange(population)
+            pool_front = population_pool(trainer, population)
+            trainer.init_population_into(gen, pool_front["params"])
+        if pool_back is None:
+            pool_back = population_pool(trainer, population)
 
     snapshot_every = max(1, snapshot_every)
-    runner = WaveRunner(population, wave_size, oom_backoff=oom_backoff, device=dev)
+    flops_gen = segment_flops_hint(workload, population, steps_per_gen)
+    runner = WaveRunner(population, wave_size, member_chunk=member_chunk,
+                         oom_backoff=oom_backoff, device=dev)
     try:
         for g in range(start_gen, generations):
             t_gen = time.perf_counter()
@@ -487,13 +508,15 @@ def _fused_pbt_waves(  # sweeplint: barrier(wave host loop: stages pools, gather
                 midpoint_snapshot=None if snap is None else midgen_snapshot,
                 start_wave=start_wave if resumed_mid else 0,
                 notify_fields=(("gen", g + 1),),
+                span_attrs=lambda nw, g=g: {"launch": g + 1, "gens": 1, "waves": nw},
+                flops=flops_gen,
             )
             n_waves = runner.n_waves
             if journal is not None:
                 # the generation's members (pre-exploit scores, the units
                 # they trained with) BEFORE its snapshot
-                journal.record_boundary(g, np.arange(population), unit.cpu().numpy(),
-                                        scores_host.numpy(), step=(g + 1) * steps_per_gen)
+                journal_boundary(journal, g, np.arange(population), unit.cpu().numpy(),
+                                 scores_host.numpy(), step=(g + 1) * steps_per_gen)
             with boundary_span("exploit", gen=g + 1):
                 unit, src_idx, best, mean, n_fail, post = _wave_exploit(
                     gen, unit, torch.cat(wave_scores), disc, cfg)
@@ -534,6 +557,8 @@ def _fused_pbt_waves(  # sweeplint: barrier(wave host loop: stages pools, gather
             )
     finally:
         runner.close()
+        if snap is not None:
+            snap.close()
 
     best_i, diverged = finite_winner(post_scores)
     np_unit = unit.cpu().numpy()

@@ -17,10 +17,22 @@ A wave of a larger population (``train/engine.py``) trains through
 ``train_segment_window`` and is initialised by ``init_population_into``;
 both make the draws of the whole population, so a wave's members get
 the numbers they would get resident.
+
+One launch width. cuDNN on the card and oneDNN on the CPU choose a
+grouped convolution's algorithm by its group count, so a member's
+numbers depend on how many members share its launch. With
+``member_chunk`` = k every launch (training step or eval chunk) runs
+exactly k members: a short chunk is padded with copies of its last real
+member, whose losses, gradients and scores are dropped before anything
+reads them. A resident sweep, its waves, an OOM-backed-off re-run and
+an SHA rung of any size then launch the same shape, and each member
+gives the same bits. Without a member chunk a launch is the whole
+cohort (or wave) the trainer is handed.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import torch
@@ -91,6 +103,15 @@ def apply_augment(x: torch.Tensor, do_flip, dy, dx) -> torch.Tensor:
     return x[bi, rows.t().reshape(1, h, 1, p), cols.permute(1, 2, 0).reshape(b, 1, w, p)]
 
 
+def _rows(t: torch.Tensor, a: int, b: int, width: int) -> torch.Tensor:
+    """Rows [a, b) of ``t``, padded to ``width`` rows with copies of row
+    b-1 (a view when no padding is needed)."""
+    if b - a == width:
+        return t[a:b]
+    idx = torch.arange(a, a + width, device=t.device).clamp_(max=b - 1)
+    return t.index_select(0, idx)
+
+
 def _member_loss(logits: torch.Tensor, by: torch.Tensor) -> torch.Tensor:
     """Mean cross-entropy per member, in f32: logits [P, B, K] -> [P]."""
     logp = torch.log_softmax(logits.float(), dim=-1)
@@ -106,8 +127,9 @@ class PopulationTrainer:
             population form (input ``[B, P*C, H, W]``, logits ``[P, B, K]``).
         batch_size: per-step minibatch size (shared across members).
         augment: whether image augmentation applies.
-        member_chunk: if >0, members run in slices of this size
-            (activation-memory relief; params/momentum stay resident).
+        member_chunk: if >0, every launch runs exactly this many members
+            (activation-memory relief; params/momentum stay resident); a
+            short slice is padded with stand-ins whose results are dropped.
         device: where the population lives.
         momentum_dtype: the momentum's storage dtype (None: f32, as the
             parameters); the update runs in f32 whatever it is.
@@ -157,20 +179,23 @@ class PopulationTrainer:
                    for p in self.template.parameters())
 
     def _chunks(self, n: int):
-        size = self.member_chunk if self.member_chunk > 0 else n
-        return [(a, min(a + size, n)) for a in range(0, n, size)]
+        """(a, b, width) of each launch over members [0, n): rows [a, b)
+        are real, the rest of ``width`` (the member chunk, or the whole
+        cohort without one) are stand-ins."""
+        w = self.member_chunk if self.member_chunk > 0 else n
+        return [(a, min(a + w, n), w) for a in range(0, n, w)]
 
     def logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         """Population forward: folded input -> logits [P, B, K]."""
         return functional_call(self.template, params, (x,))
 
-    def _inputs(self, bx, aug, a: int, b: int):
-        """Folded ``[B, P'*C, H, W]`` input of members [a, b)."""
+    def _inputs(self, bx, aug, a: int, b: int, width: int):
+        """Folded ``[B, width*C, H, W]`` input of members [a, b), padded
+        to ``width`` members."""
         if aug is None:
-            xp = bx[:, :, :, None, :].expand(-1, -1, -1, b - a, -1).contiguous()
+            xp = bx[:, :, :, None, :].expand(-1, -1, -1, width, -1).contiguous()
         else:
-            do_flip, dy, dx = aug
-            xp = apply_augment(bx, do_flip[a:b], dy[a:b], dx[a:b])
+            xp = apply_augment(bx, *(_rows(t, a, b, width) for t in aug))
         return fold_members(xp)
 
     def _pop_update(self, state: PopState, hp: OptHParams, aug, bx, by) -> torch.Tensor:
@@ -179,13 +204,15 @@ class PopulationTrainer:
         slice's params and momentum are rewritten as soon as its
         gradient exists, so no second copy of the population is held."""
         losses = []
-        for a, b in self._chunks(state.step.shape[0]):
-            params = {k: v[a:b].detach().requires_grad_() for k, v in state.params.items()}
-            loss = _member_loss(self.logits(params, self._inputs(bx, aug, a, b)), by)
+        for a, b, w in self._chunks(state.step.shape[0]):
+            params = {k: _rows(v, a, b, w).detach().requires_grad_() for k, v in state.params.items()}
+            loss = _member_loss(self.logits(params, self._inputs(bx, aug, a, b, w)), by)
             grads = torch.autograd.grad(loss.sum(), list(params.values()))
             lr, mu, wd = hp.lr[a:b], hp.momentum[a:b], hp.weight_decay[a:b]
             with torch.no_grad():
                 for k, g in zip(params, grads):
+                    # the stand-ins' gradients are dropped here
+                    g = g[:b - a]
                     p, m = state.params[k][a:b], state.momentum[k][a:b]
                     shape = (-1,) + (1,) * (p.dim() - 1)
                     # m32 = mu*m + g + wd*p; p -= lr*m32 (f32, coupled
@@ -195,7 +222,7 @@ class PopulationTrainer:
                     p.sub_(lr.view(shape) * m32)
                     if m32 is not m:
                         m.copy_(m32)
-            losses.append(loss.detach())
+            losses.append(loss.detach()[:b - a])
         state.step += 1
         return torch.cat(losses)
 
@@ -247,18 +274,22 @@ class PopulationTrainer:
         correct = torch.zeros(n, dtype=torch.int64, device=val_x.device)
         for i in range(n_chunks):
             cx, cy = vx[i * eval_chunk:(i + 1) * eval_chunk], vy[i * eval_chunk:(i + 1) * eval_chunk]
-            for a, b in self._chunks(n):
-                params = {k: v[a:b] for k, v in state.params.items()}
-                pred = self.logits(params, self._inputs(cx, None, a, b)).argmax(dim=-1)
-                correct[a:b] += ((pred == cy) & (cy >= 0)).sum(dim=1)
+            for a, b, w in self._chunks(n):
+                params = {k: _rows(v, a, b, w) for k, v in state.params.items()}
+                pred = self.logits(params, self._inputs(cx, None, a, b, w)).argmax(dim=-1)
+                correct[a:b] += ((pred[:b - a] == cy) & (cy >= 0)).sum(dim=1)
         return correct.float() / n_val
 
     def member_flops(self, image_shape: tuple, eval_chunk: int = 1024) -> tuple[int, int]:
         """(FLOPs of one member's training step, of one member's eval of
         one ``eval_chunk``-image chunk) on ``image_shape`` images, counted
         by ``FlopCounterMode`` on the meta device: shapes only, nothing is
-        computed or allocated."""
+        computed or allocated. The one member runs unchunked: a member
+        chunk's stand-ins do no useful work."""
         from torch.utils.flop_counter import FlopCounterMode
+
+        one = copy.copy(self)
+        one.member_chunk = 0
 
         meta = torch.device("meta")
 
@@ -278,10 +309,10 @@ class PopulationTrainer:
             aug = (torch.zeros((1, b), dtype=torch.bool, device=meta),
                    torch.zeros(1, dtype=torch.long, device=meta),
                    torch.zeros(1, dtype=torch.long, device=meta))
-        f_step = count(lambda: self._pop_update(state, OptHParams.defaults(1, device=meta), aug, bx, by))
+        f_step = count(lambda: one._pop_update(state, OptHParams.defaults(1, device=meta), aug, bx, by))
         vx = torch.empty((eval_chunk,) + image, device=meta)
         vy = torch.zeros(eval_chunk, dtype=torch.long, device=meta)
-        f_eval = count(lambda: self.eval_population(state, vx, vy, eval_chunk))
+        f_eval = count(lambda: one.eval_population(state, vx, vy, eval_chunk))
         return f_step, f_eval
 
     @staticmethod

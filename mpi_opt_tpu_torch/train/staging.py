@@ -20,7 +20,9 @@ memory, and the card trains it a WAVE of W members at a time
   main thread dispatches the next wave. A worker thread waits for each
   copy, lands it (``on_done``), beats the heartbeat and does the
   accounting. ``drain()`` is the interval's only hard barrier;
-- ``estimate_wave_size``: the ``--wave-size auto`` residency estimate.
+- ``estimate_wave_size``: the ``--wave-size auto`` residency estimate;
+  ``measured_train_peak``/``envelope_report`` hold it against the
+  watermark of an earlier traced run.
 
 The CUDA rules the design follows:
 
@@ -39,6 +41,12 @@ Memory contract (the JAX package's): the card holds at most two waves
 plus one wave-sized staging slice. On the CPU the same engine runs with
 plain copies: the worker thread does the stage-out copy itself.
 
+Spans (``obs/trace.py``): each copy out is a ``stage_out`` span on the
+worker (its wait on the copy's event, and the landing), and the time
+``drain()`` blocks on transfers after the last wave's compute is a
+``stage_wait`` span; both carry the engine's cumulative ``wait_s`` and
+``overlap_s``, which ``obs/bubbles.py`` reads.
+
 Accounting (``WaveRunner.result_extras``): ``staged_bytes`` both ways;
 ``transfer_s`` the copies' own time (CUDA events on the copy streams,
 plus the landing callbacks); ``wait_s`` the main thread's time blocked
@@ -55,6 +63,8 @@ import time
 from typing import Callable, Optional
 
 import torch
+
+from mpi_opt_tpu_torch.obs import memory, trace
 
 
 def tree_leaves(tree) -> list:
@@ -171,22 +181,32 @@ class StagingEngine:
             t0 = time.perf_counter()
             copy_s = 0.0
             try:
-                if events is None:  # the CPU: the copy is this thread's
-                    tree_map(lambda d, s: d.copy_(s), dst, src)
-                else:
-                    start, end = events
-                    end.synchronize()
-                    copy_s = start.elapsed_time(end) / 1e3
-                t1 = time.perf_counter()
-                if on_done is not None:
-                    on_done()
-                with self._lock:
-                    self.staged_bytes += n_bytes
-                    self.transfers += 1
-                    self.transfer_s += copy_s + (time.perf_counter() - (t1 if events else t0))
-                    n = self.transfers
-                # per-transfer liveness while the main thread waits in drain()
-                heartbeat.beat(stage="staging transfer", transfers=n)
+                with trace.span("stage_out") as sp:
+                    if events is None:  # the CPU: the copy is this thread's
+                        tree_map(lambda d, s: d.copy_(s), dst, src)
+                    else:
+                        start, end = events
+                        end.synchronize()
+                        copy_s = start.elapsed_time(end) / 1e3
+                    t1 = time.perf_counter()
+                    if on_done is not None:
+                        on_done()
+                    sp["bytes"] = n_bytes
+                    memory.note(sp, self.device)
+                    with self._lock:
+                        self.staged_bytes += n_bytes
+                        self.transfers += 1
+                        self.transfer_s += copy_s + (time.perf_counter() - (t1 if events else t0))
+                        n = self.transfers
+                        # the engine's cumulative accounting on every
+                        # transfer span, so a run killed mid-interval
+                        # still carries its overlap evidence
+                        sp["wait_s"] = round(self.wait_s, 6)
+                        sp["overlap_s"] = round(self.overlap_s, 6)
+                    # per-transfer liveness while the main thread waits in
+                    # drain(), beaten inside the span so its phase reads
+                    # stage_out
+                    heartbeat.beat(stage="staging transfer", transfers=n)
             # sweeplint: disable=drain-swallow -- transfer-thread containment: the error is stored and re-raised to the main thread by drain()
             except BaseException as e:
                 with self._lock:
@@ -272,7 +292,7 @@ class StagingEngine:
         if self._last_ready is not None:
             self._last_ready.synchronize()
         t0 = time.perf_counter()
-        with self._idle:
+        with trace.span("stage_wait") as sp, self._idle:
             while self._pending:
                 self._idle.wait(timeout=0.5)
             self.wait_s += time.perf_counter() - t0
@@ -280,6 +300,8 @@ class StagingEngine:
                 end.synchronize()
                 self.transfer_s += start.elapsed_time(end) / 1e3
             self._in_events.clear()
+            sp["wait_s"] = round(self.wait_s, 6)
+            sp["overlap_s"] = round(self.overlap_s, 6)
             if self._errors:
                 raise self._errors[0]
 
@@ -295,6 +317,58 @@ class StagingEngine:
         self._thread.join(timeout=60)
 
 
+def measured_train_peak(metrics_path: str) -> Optional[int]:
+    """The largest ``mem_peak_bytes`` over the device-occupying spans
+    (train, stage_in, stage_out) of an earlier traced run's metrics
+    stream; None when the stream has none (untraced, missing, or a CPU
+    run). Torn or foreign lines are skipped: a stream may end mid-line
+    after a kill."""
+    import json
+
+    peak = None
+    try:
+        with open(metrics_path) as f:
+            for line in f:
+                try:
+                    rec = json.loads(line)
+                except ValueError:
+                    continue
+                if not isinstance(rec, dict) or rec.get("event") != "span":
+                    continue
+                if rec.get("span") not in ("train", "stage_in", "stage_out"):
+                    continue
+                v = rec.get("mem_peak_bytes")
+                if isinstance(v, (int, float)):
+                    peak = max(peak or 0, int(v))
+    except OSError:
+        return None
+    return peak
+
+
+def envelope_report(trainer, population: int, metrics_path: str) -> dict:
+    """The static per-member envelope against a measured watermark:
+    ``metrics_path`` is an earlier traced run of the same (workload,
+    population), whose span ``mem_peak_bytes`` is what the population
+    cost the card (the allocator's peak, which includes activations and
+    the data). Returns ``per_member_bytes`` (``member_bytes``: parameters
+    and momentum), ``static_pop_bytes``, ``measured_peak_bytes`` and
+    ``measured_over_static`` (None fields without a watermark). A ratio
+    far above the headroom ``estimate_wave_size`` assumes means ``auto``
+    waves would not fit: pass the measurement back as its
+    ``measured_peak``."""
+    per_member = trainer.member_bytes()
+    static_pop = per_member * int(population)
+    peak = measured_train_peak(metrics_path)
+    return {
+        "per_member_bytes": int(per_member),
+        "static_pop_bytes": int(static_pop),
+        "measured_peak_bytes": None if peak is None else int(peak),
+        "measured_over_static": (
+            None if peak is None or static_pop <= 0 else round(peak / static_pop, 4)
+        ),
+    }
+
+
 def estimate_wave_size(trainer, population: int, budget_bytes: Optional[int] = None,
                        measured_peak: Optional[tuple] = None) -> int:
     """The ``--wave-size auto`` residency estimate: the largest wave
@@ -308,7 +382,11 @@ def estimate_wave_size(trainer, population: int, budget_bytes: Optional[int] = N
     ``measured_peak`` = ``(peak_bytes, resident_members)`` of an earlier
     run sizes a second estimate at 85% of the budget from the measured
     all-in cost a member, and the smaller estimate wins. Returns a value
-    in [1, population]; ``population`` means everything fits."""
+    in [1, population]; ``population`` means everything fits. With a
+    member chunk the estimate holds whole chunks, at least one
+    (``engine.whole_chunks``)."""
+    from mpi_opt_tpu_torch.train.engine import whole_chunks
+
     per_member = trainer.member_bytes()
     if budget_bytes is None:
         env = os.environ.get("MPI_OPT_TPU_DEVICE_BYTES")
@@ -326,4 +404,4 @@ def estimate_wave_size(trainer, population: int, budget_bytes: Optional[int] = N
         if peak_bytes and members:
             measured_member = max(1, int(peak_bytes) // max(1, int(members)))
             w = min(w, max(1, int(budget_bytes * 0.85 // measured_member)))
-    return max(1, min(population, w))
+    return whole_chunks(max(1, min(population, w)), trainer.member_chunk, population)

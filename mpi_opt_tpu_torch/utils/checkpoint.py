@@ -26,6 +26,7 @@ import os
 import shutil
 from typing import Optional
 
+from mpi_opt_tpu_torch.obs import memory, trace
 from mpi_opt_tpu_torch.utils import integrity, resources
 
 
@@ -148,14 +149,17 @@ class SweepCheckpointer:
 
     def save(self, step: int, sweep: dict, meta_extra: dict) -> None:
         """Commit ``sweep`` (host tensors) and the meta as ``step``, then
-        drop committed steps beyond the newest ``keep``."""
-        meta = {"config": self.config, **meta_extra}
-        manifest = integrity.build_manifest({"meta": meta}, {"sweep": sweep})
-        _save_storage_guard(
-            self, lambda: integrity.write_step(self.directory, step, sweep, meta, manifest)
-        )
-        for old in self.all_steps()[: -self.keep]:
-            shutil.rmtree(os.path.join(self.directory, str(old)), ignore_errors=True)
+        drop committed steps beyond the newest ``keep``; traced as a
+        ``save`` span."""
+        with trace.span("save", step=step) as sp:
+            memory.note(sp)  # snapshot-time watermark: the sweep's state resident
+            meta = {"config": self.config, **meta_extra}
+            manifest = integrity.build_manifest({"meta": meta}, {"sweep": sweep})
+            _save_storage_guard(
+                self, lambda: integrity.write_step(self.directory, step, sweep, meta, manifest)
+            )
+            for old in self.all_steps()[: -self.keep]:
+                shutil.rmtree(os.path.join(self.directory, str(old)), ignore_errors=True)
 
     def restore(self):
         """(sweep, meta) of the newest verified step, or None when the
@@ -163,7 +167,8 @@ class SweepCheckpointer:
         none verifies and ``ValueError`` on a config mismatch."""
 
         def attempt(step):
-            manifest, meta, sweep = integrity.read_step(self.directory, step)
+            with trace.span("restore", step=step):
+                manifest, meta, sweep = integrity.read_step(self.directory, step)
             problems = integrity.verify_restored(manifest, {"meta": meta}, {"sweep": sweep})
             if problems:
                 raise integrity.SnapshotCorruptError("; ".join(problems))
@@ -186,7 +191,10 @@ class SweepCheckpointer:
         return sweep, meta
 
     def close(self) -> None:
-        """Nothing to drain: saves are synchronous."""
+        """Nothing to drain: saves are synchronous. Traced as the JAX
+        package's ``save_wait`` span, which reads 0 s here."""
+        with trace.span("save_wait"):
+            pass
 
     # -- the population-sweep payload ---------------------------------------
 

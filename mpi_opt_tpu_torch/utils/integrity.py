@@ -155,30 +155,40 @@ def json_digest(obj) -> str:
 
 
 def build_manifest(json_items: dict, tree_items: dict) -> dict:
-    """``{"version", "items": {name: {"kind": "json"|"tree", "digest"}}}``."""
-    items = {name: {"kind": "json", "digest": json_digest(v)} for name, v in json_items.items()}
-    items.update({name: {"kind": "tree", "digest": tree_digest(v)} for name, v in tree_items.items()})
-    return {"version": MANIFEST_VERSION, "items": items}
+    """``{"version", "items": {name: {"kind": "json"|"tree", "digest"}}}``,
+    traced as a ``digest`` span (op ``build``)."""
+    from mpi_opt_tpu_torch.obs import trace
+
+    with trace.span("digest", op="build", items=len(json_items) + len(tree_items)):
+        items = {name: {"kind": "json", "digest": json_digest(v)} for name, v in json_items.items()}
+        items.update({name: {"kind": "tree", "digest": tree_digest(v)}
+                      for name, v in tree_items.items()})
+        return {"version": MANIFEST_VERSION, "items": items}
 
 
 def verify_restored(manifest: dict, json_items: dict, tree_items: dict) -> list:
     """Recompute the digests of restored values against ``manifest``;
-    returns the problems (empty = verified). An item the manifest lists
-    but that was not restored is a problem too."""
+    returns the problems (empty = verified), traced as a ``digest`` span
+    (op ``verify``). An item the manifest lists but that was not
+    restored is a problem too."""
+    from mpi_opt_tpu_torch.obs import trace
+
     problems = []
     recorded = manifest.get("items", {})
     restored = {**json_items, **tree_items}
-    for name, entry in recorded.items():
-        want = entry.get("digest")
-        if name not in restored:
-            problems.append(f"item {name!r}: recorded in manifest but not restored")
-            continue
-        got = json_digest(restored[name]) if entry.get("kind") == "json" else tree_digest(restored[name])
-        if got != want:
-            problems.append(
-                f"item {name!r}: content digest mismatch "
-                f"(saved {str(want)[:12]}..., restored {got[:12]}...)"
-            )
+    with trace.span("digest", op="verify", items=len(recorded)):
+        for name, entry in recorded.items():
+            want = entry.get("digest")
+            if name not in restored:
+                problems.append(f"item {name!r}: recorded in manifest but not restored")
+                continue
+            got = (json_digest(restored[name]) if entry.get("kind") == "json"
+                   else tree_digest(restored[name]))
+            if got != want:
+                problems.append(
+                    f"item {name!r}: content digest mismatch "
+                    f"(saved {str(want)[:12]}..., restored {got[:12]}...)"
+                )
     for name in restored:
         if name not in recorded:
             problems.append(f"item {name!r}: present but not in manifest")

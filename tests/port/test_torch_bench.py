@@ -180,8 +180,11 @@ def test_bench_record_on_the_cpu(small_run):
     assert rec["tflops_per_sec"] == rec["flops_total"] / rec["wall_s"] / 1e12
     assert rec["mfu"] is None and rec["device_memory"] is None
     assert rec["vs_baseline"] == 1.0 and rec["baseline"] == "skipped"
-    for k in ("trace", "trace_stream", "platform_matmul_tflops", "mfu_vs_platform_cap"):
+    for k in ("trace_stream", "platform_matmul_tflops", "mfu_vs_platform_cap"):
         assert rec[k] is None, k
+    # both runs traced into a temporary stream: its attribution rides the
+    # record, with one train span a launch of each run
+    assert rec["trace"]["phases"]["train"]["count"] == 2 and rec["trace"]["coverage"] > 0
     assert rec["best_val_acc"] == res["best_score"] and 0.0 <= rec["best_val_acc"] <= 1.0
     assert rec["wall_to_target_s"] == metrics.sweep_wall_to_target(res, rec["wall_s"], 0.70)
     assert rec["launch_gens"] == [1] and len(rec["launch_walls_s"]) == 1

@@ -223,11 +223,14 @@ def test_cli_flags_not_ported_are_usage_errors(tmp_path, flag, capsys):
     (["report", "l.jsonl"], "'report' subcommand is not ported yet"),
     (["fsck", "ck"], "'fsck' subcommand is not ported yet"),
     (["--workload", "fashion_mlp", "--algorithm", "pbt"], "driver path (no --fused) is not ported yet"),
-    (["--workload", "fashion_mlp", "--algorithm", "hyperband", "--fused"],
-     "--algorithm hyperband is not ported yet"),
+    (["--workload", "fashion_mlp", "--algorithm", "bohb", "--fused"],
+     "--algorithm bohb is not ported yet"),
     (["--workload", "fashion_mlp", "--algorithm", "tpe", "--fused"], "--algorithm tpe is not ported yet"),
     (["--workload", "fashion_mlp", "--algorithm", "pbt", "--fused", "--resume"],
      "--resume requires --checkpoint-dir or --ledger"),
+    (["--workload", "fashion_mlp", "--algorithm", "pbt", "--fused", "--trace"],
+     "--trace needs --metrics-file"),
+    (["trace", "m.jsonl", "--diff"], "trace --diff is not ported yet"),
 ])
 def test_cli_refusals_are_usage_errors(argv, message, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -260,8 +263,9 @@ def test_cli_runs_on_cuda_unless_told(monkeypatch, tmp_path):
 # -- the wave engine and successive halving through the CLI ----------------
 
 #: the JAX CLI's summary wave fields (``_wave_extras``) and the port's ``waves_run``
+#: and ``launch_shape_changed``
 WAVE_KEYS = {"wave_size", "n_waves", "staged_bytes", "stage_overlap_s", "stage_wait_s",
-             "oom_backoffs", "waves_run"}
+             "oom_backoffs", "waves_run", "launch_shape_changed"}
 
 
 def _pbt(tmp_path, *extra, name="run"):

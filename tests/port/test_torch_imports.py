@@ -31,6 +31,7 @@ def test_no_jax_imports(path):
 
 @pytest.mark.parametrize("module", [
     "train/engine.py", "train/staging.py", "train/fused_asha.py", "ops/asha.py", "obs/memory.py",
+    "obs/trace.py", "obs/report.py", "obs/bubbles.py", "algorithms/base.py", "algorithms/hyperband.py",
 ])
 def test_wave_engine_modules_are_scanned(module):
     assert ROOT / "mpi_opt_tpu_torch" / module in FILES
