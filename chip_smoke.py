@@ -58,13 +58,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    most 5% (resident, traced, traced, resident in turns); where the
    wave-64 run's extra wall goes, by span; the time to allocate two
    pinned pools;
-   (b) a real OOM: the CLI at 64 members in waves of 32 and of 16, each
-   in a subprocess whose launcher reports the allocator's peak of
-   allocated bytes; then, capped by ``torch.cuda.set_per_process_memory_fraction``
-   halfway between the two peaks (only the launcher knows the cap),
-   ``--wave-size 32 --oom-backoff 2`` must exit 0 with one backoff and
-   the half-cap run's ledger records (without a member chunk the
-   halving changes the launch shape), and ``--oom-backoff 0`` exit 74;
+   (b) a real OOM without a member chunk: the CLI on cifar100_cnn at 64
+   members in waves of 32 with ``--oom-backoff 2`` (every launch 32 >> 2
+   = 8 members) and of 16 with ``--oom-backoff 1`` (launches of 8 too),
+   each in a subprocess whose launcher reports the allocator's peaks, and
+   waves of 32 with ``--oom-backoff 0`` (launches of 32, whole waves:
+   what the narrower launches cost); then, capped by
+   ``torch.cuda.set_per_process_memory_fraction`` three quarters of the
+   way from the half-cap run's allocated peak to the cap-32 run's (only
+   the launcher knows the cap), ``--wave-size 32 --oom-backoff 2`` must
+   exit 0 with one backoff, no launch-shape change and the UNFAULTED
+   waves-of-32 run's ledger records, and ``--oom-backoff 0`` exit 74;
    (b2) the same inside one launch width: cifar100_resnet18 at 64
    members in chunks of 16, waves of 32 and of 16, capped between their
    allocated peaks: ``--wave-size 32`` must back off once to 16 with no
@@ -76,9 +80,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    dispatched must exit 75, and ``--resume`` exit 0, train only the
    waves not yet completed (``waves_run``) and end with those records;
    (d) fused SHA on fashion_mlp, 64 trials, budgets 10 -> 270, eta 3
-   (BENCH_ALL.json config 2), resident and in waves of 16 (config 9):
-   rung sizes [64, 22, 8, 3] and budgets [10, 30, 90, 270], trials/s
-   and staging counters; whether survivors and best agree is reported;
+   (BENCH_ALL.json config 2), resident and in waves of 16 (config 9,
+   launches of 16 >> 2 = 4 members), and in waves of 16 with
+   ``oom_backoff=0`` (launches of 16): rung sizes [64, 22, 8, 3] and
+   budgets [10, 30, 90, 270], trials/s and staging counters; whether
+   survivors and best agree is reported;
    (e) config 5's wave cap (cifar100_resnet18, 1024 members): per-member
    bytes, the measured budget, ``estimate_wave_size``, no training;
 11. fused Hyperband: (a) fashion_mlp through the CLI at its defaults
@@ -87,20 +93,38 @@ Phases, in order; any failure exits non-zero and prints no result:
    validate, trials/s; (b) full-width cifar10_cnn at R=27 in member
    chunks of 8, resident and then in waves of 8: the same records and
    best, both GN kernels in every bracket and the plain versions never;
-12. the script's wall, the ``kernels`` line (JSON), then the device line
+12. fused TPE: (a) BASELINE.json config 4 at full size, nothing cut:
+   ``fused_tpe`` over ``tabular_mlp`` on breast_cancer, 256 trials in
+   batches of 64, 30 steps each, a call on a fresh workload (set-up
+   included) then a timed call; trials/s both ways, the best score, the
+   ``suggest`` spans of a traced call, and the acquisition's own time
+   at C=1024, M=256, d=3 by CUDA events; (b) full-width cifar10_cnn, 64
+   trials in batches of 32, 20 steps, member chunk 8, resident and then
+   in waves of 16: the same records and best, both GN kernels in every
+   generation and the plain versions never; (c) the CLI on tabular_mlp
+   at config 4's shape with a ledger and snapshots, SIGKILLed once batch
+   2 is journaled: ``--resume`` exits 0 with the unkilled run's records
+   and best;
+13. fused BOHB: (a) fashion_mlp through the CLI at its defaults (R=270,
+   eta 3) with a ledger: a finite best, boundaries that run contiguously
+   across the brackets and validate, the model drawing in a later
+   bracket, trials/s; (b) full-width cifar10_cnn at R=27, member chunk
+   8, resident and then in waves of 8: the same records and best, both
+   GN kernels in every bracket and the plain versions never;
+14. the script's wall, the ``kernels`` line (JSON), then the device line
    (JSON, last).
 
-Each path (4, 6, 8, 9, 10a, 10d, 11b) runs through the entry points a
-user calls, with the launch counts zeroed just before and read just
-after (in phase 9, its runs in this process; in 10a, each run; in 11b,
-read at each bracket boundary too): where the model has GroupNorm both
-kernels must have run, the plain versions never; the best score must be
-finite and the curves in [0, 1].
+Each path (4, 6, 8, 9, 10a, 10d, 11b, 12b, 13b) runs through the entry
+points a user calls, with the launch counts zeroed just before and read
+just after (in phase 9, its runs in this process; in 10a, each run; in
+11b, 12b and 13b, read at each bracket or generation boundary too):
+where the model has GroupNorm both kernels must have run, the plain
+versions never; the best score must be finite and the curves in [0, 1].
 
 Run from the repo root: ``python3 chip_smoke.py``. Details also go to
 chiprun_out/chip_smoke.json, written after each phase. ``--phases
-waves,hyperband`` runs only the named phases after the build (a partial
-run prints no result line).
+tpe,bohb`` runs only the named phases after the build (a partial run
+prints no result line).
 
 ``--baseline-cu PATH`` names the two-pass GroupNorm source of commit
 788c451, written out with ``git show 788c451:mpi_opt_tpu_torch/csrc/
@@ -864,7 +888,10 @@ def durability_phase(gn, fused_pbt, get_workload, smi):
 # resident and in waves (d), and config 5's wave cap (e)
 WAVE, WAVE_ODD = 64, 48  # the north star's wave sizes: a multiple of CNN_CHUNK, and not
 TRACE_COVERAGE, TRACE_COST = 0.9, 0.05  # the traced runs' gates: coverage, and cost over untraced
-OOM_P, OOM_GENS, OOM_STEPS, OOM_W = 64, 2, 5, 32  # the OOM drill: W fails, W/2 fits
+# the OOM drill without a member chunk: W fails, W/2 fits. Every launch
+# runs W >> 2 members either way, so the two caps differ only by the
+# waves' state: cifar100_cnn's 19 MB a member puts 0.3-0.6 GB between them
+OOM_WL, OOM_P, OOM_GENS, OOM_STEPS, OOM_W = "cifar100_cnn", 64, 2, 5, 32
 # the OOM drill inside one launch width: ResNet-18 (a member's state ~90
 # MB, so waves of B2_W and B2_CHUNK differ by GBs) in chunks of B2_CHUNK
 B2_P, B2_GENS, B2_STEPS, B2_W, B2_CHUNK = 64, 2, 3, 32, 16
@@ -873,7 +900,7 @@ SHA_TRIALS, SHA_MIN, SHA_MAX, SHA_ETA, SHA_W = 64, 10, 270, 3, 16  # BENCH_ALL.j
 C5_P = 1024  # BASELINE.json config 5: PBT over 1024 ResNet-18 members
 # the phases after the build, in order (``--phases`` picks some)
 PHASES = ("kernels", "slice", "north_star", "mlp", "durability", "waves", "oom", "oom_chunk", "drain",
-          "sha", "config5", "hyperband")
+          "sha", "config5", "hyperband", "tpe", "bohb")
 
 # a launcher for the port's CLI: caps this process's CUDA allocator at a
 # fraction of the card (0: no cap), runs the CLI, and writes the
@@ -1051,12 +1078,16 @@ def _launch_cli(argv, frac: float, peaks: str):
 
 
 def oom_drill_phase(smi):
-    """(b) A real device OOM absorbed by the CLI: clean runs at waves of
-    OOM_W and OOM_W/2 measure the allocator's peak of allocated bytes
-    (the reserved peak also holds cached blocks the allocator frees
-    before it gives up); a run capped between the two, at --wave-size
-    OOM_W --oom-backoff 2, must exit 0 with one backoff and the clean
-    half-cap run's records; with --oom-backoff 0 it must exit 74."""
+    """(b) A real device OOM absorbed by the CLI without a member chunk.
+    Clean runs: waves of OOM_W with --oom-backoff 2 (launches of OOM_W >> 2
+    members), waves of OOM_W/2 with --oom-backoff 1 (launches of the same
+    width) and waves of OOM_W with --oom-backoff 0 (launches of OOM_W,
+    whole waves): their allocator peaks and rates. Then a run capped three quarters of the way from the
+    half-cap run's allocated peak to the cap-OOM_W run's (its allocated
+    bytes must pass the cap; the backed-off waves keep a quarter of the gap
+    for the allocator's fragmentation), at --wave-size OOM_W --oom-backoff
+    2: exit 0 with one backoff, no launch-shape change and the records of
+    the UNFAULTED cap-OOM_W run; with --oom-backoff 0 it must exit 74."""
     import shutil
 
     from mpi_opt_tpu_torch.utils.exitcodes import EX_IOERR
@@ -1065,28 +1096,36 @@ def oom_drill_phase(smi):
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
     torch.cuda.empty_cache()  # this process's cached blocks are the card's too
-    out = {"card": smi, "population": OOM_P, "generations": OOM_GENS, "steps_per_gen": OOM_STEPS,
-           "wave_size": OOM_W}
+    out = {"card": smi, "workload": OOM_WL, "population": OOM_P, "generations": OOM_GENS,
+           "steps_per_gen": OOM_STEPS, "wave_size": OOM_W}
     try:
         def argv(name, ws, backoff):
-            return ["--workload", "cifar10_cnn", "--algorithm", "pbt", "--fused", "--population",
+            return ["--workload", OOM_WL, "--algorithm", "pbt", "--fused", "--population",
                     str(OOM_P), "--generations", str(OOM_GENS), "--steps-per-generation",
                     str(OOM_STEPS), "--seed", "0", "--device", "cuda", "--wave-size", str(ws),
                     "--oom-backoff", str(backoff), "--ledger", os.path.join(tmp, f"{name}.jsonl")]
 
         clean = {}
-        for ws in (OOM_W, OOM_W // 2):
-            rc, lines, err, mem = _launch_cli(argv(f"clean{ws}", ws, 2), 0.0,
-                                              os.path.join(tmp, f"clean{ws}.json"))
+        for name, ws, backoff in (("w32", OOM_W, 2), ("w16", OOM_W // 2, 1), ("w32_wide", OOM_W, 0)):
+            t0 = time.perf_counter()
+            rc, lines, err, mem = _launch_cli(argv(name, ws, backoff), 0.0, os.path.join(tmp, f"{name}.json"))
             if rc != 0 or mem is None:
-                return out, f"OOM drill: the clean run at waves of {ws} exited {rc}:\n{err[-3000:]}"
-            clean[ws] = {"summary": lines[-1], "peaks": mem}
+                return out, f"OOM drill: the clean run {name} exited {rc}:\n{err[-3000:]}"
+            summary = lines[-1]
+            clean[name] = {"summary": summary, "peaks": mem, "process_wall_s": time.perf_counter() - t0,
+                           "launch_width": summary.get("launch_width"),
+                           "member_generations_per_s": summary.get("trials_per_sec_per_chip")}
         out["clean"] = clean
+        print(f"oom drill ({smi}): clean runs, launch width and member-generations/s (CLI summary): "
+              + json.dumps({k: [v["launch_width"], v["member_generations_per_s"]] for k, v in clean.items()}))
+        if (clean["w32"]["launch_width"], clean["w16"]["launch_width"]) != (OOM_W >> 2, OOM_W >> 2):
+            return out, f"OOM drill: launch widths {clean['w32']['launch_width']}, {clean['w16']['launch_width']}"
         total = torch.cuda.get_device_properties(0).total_memory
-        lo, hi = clean[OOM_W // 2]["peaks"]["max_allocated"], clean[OOM_W]["peaks"]["max_allocated"]
+        lo = clean["w16"]["peaks"]["max_allocated"]
+        hi = clean["w32"]["peaks"]["max_allocated"]
         if not hi > lo:
             return out, f"OOM drill: waves of {OOM_W} allocated {hi} bytes, not more than {lo}"
-        cap = (lo + hi) // 2
+        cap = lo + 3 * (hi - lo) // 4
         frac = cap / total
         out.update(cap_bytes=cap, cap_fraction=frac, card_bytes=total)
         rc, lines, err, mem = _launch_cli(argv("oom", OOM_W, 2), frac, os.path.join(tmp, "oom.json"))
@@ -1094,13 +1133,17 @@ def oom_drill_phase(smi):
         events = [x for x in lines if x.get("event") == "oom_backoff"]
         out["backoff"] = {"exit": rc, "summary": summary, "oom_backoff_events": events, "peaks": mem}
         print(f"oom drill ({smi}): cap {cap} bytes ({frac:.4f} of the card) between allocated peaks "
-              f"{lo} (waves of {OOM_W // 2}) and {hi} (waves of {OOM_W}); --oom-backoff 2: exit {rc}, "
-              f"oom_backoffs {summary.get('oom_backoffs')}, settled wave {summary.get('wave_size')}")
+              f"{lo} (waves of {OOM_W // 2}) and {hi} (waves of {OOM_W}); "
+              f"--oom-backoff 2: exit {rc}, oom_backoffs {summary.get('oom_backoffs')}, settled wave "
+              f"{summary.get('wave_size')}, launch width {summary.get('launch_width')}, events {events}")
         if rc != 0 or summary.get("oom_backoffs") != 1 or summary.get("wave_size") != OOM_W // 2:
             return out, f"OOM drill: exit {rc}, summary {summary}:\n{err[-3000:]}"
-        got, want = (_records(os.path.join(tmp, f"{n}.jsonl")) for n in ("oom", f"clean{OOM_W // 2}"))
+        if summary.get("launch_shape_changed") or any(e.get("launch_shape_changed") for e in events):
+            return out, f"OOM drill: the launch shape changed: {events}"
+        got, want = (_records(os.path.join(tmp, f"{n}.jsonl")) for n in ("oom", "w32"))
         if got != want:
-            return out, "OOM drill: the backed-off run's records differ from the clean half-cap run's"
+            n = sum(a != b for a, b in zip(got, want)) + abs(len(got) - len(want))
+            return out, f"OOM drill: {n} records differ from the unfaulted cap-{OOM_W} run's"
         rc, lines, err, _ = _launch_cli(argv("nobackoff", OOM_W, 0), frac,
                                         os.path.join(tmp, "nobackoff.json"))
         out["no_backoff"] = {"exit": rc, "last_line": lines[-1] if lines else None}
@@ -1240,7 +1283,9 @@ def drain_waves_phase(smi):
 def sha_phase(gn, get_workload, smi):
     """(d) Fused SHA on fashion_mlp, SHA_TRIALS trials, budgets SHA_MIN ->
     SHA_MAX, eta SHA_ETA (BENCH_ALL.json config 2), resident, then in
-    waves of SHA_W (config 9). Returns (record, GN launches, problem)."""
+    waves of SHA_W (config 9; launches of SHA_W >> 2 members), then in
+    waves of SHA_W launching whole waves (``oom_backoff=0``). Returns
+    (record, GN launches, problem)."""
     from mpi_opt_tpu_torch.train.fused_asha import fused_sha
 
     wl = get_workload("fashion_mlp")
@@ -1248,17 +1293,20 @@ def sha_phase(gn, get_workload, smi):
     out = {"card": smi, "n_trials": SHA_TRIALS, "budgets": [SHA_MIN, SHA_MAX], "eta": SHA_ETA}
     gn.reset_launches()
     runs = {}
-    for tag, ws in (("resident", 0), ("waves", SHA_W)):
+    # waves of SHA_W launch SHA_W >> 2 members (the OOM budget's smallest
+    # cap); with oom_backoff=0 a launch is the whole wave
+    for tag, ws, backoff in (("resident", 0, 2), ("waves", SHA_W, 2), ("waves_wide", SHA_W, 0)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = fused_sha(wl, n_trials=SHA_TRIALS, min_budget=SHA_MIN, max_budget=SHA_MAX, eta=SHA_ETA,
-                        seed=0, wave_size=ws)
+                        seed=0, wave_size=ws, oom_backoff=backoff)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         runs[tag] = res
         out[tag] = {"wall_s": wall, "trials_per_s": SHA_TRIALS / wall, "best_score": res["best_score"],
                     "best_trial": res["best_trial"], "rung_sizes": res["rung_sizes"],
-                    "rung_budgets": res["rung_budgets"], **_wave_fields(res)}
+                    "rung_budgets": res["rung_budgets"], "launch_width": res.get("launch_width"),
+                    **_wave_fields(res)}
         print(f"sha {tag} ({smi}): {json.dumps(out[tag])}")
         if res["rung_sizes"] != [64, 22, 8, 3] or res["rung_budgets"] != [10, 30, 90, 270]:
             return out, dict(gn.LAUNCHES), f"sha {tag}: rungs {res['rung_sizes']} {res['rung_budgets']}"
@@ -1294,6 +1342,19 @@ def config5_phase(get_workload, smi):
     return out
 
 
+def _per_boundary(gn, prefix: str):
+    """(counts, injector): the GN launch counts at each launch boundary
+    whose stage starts with ``prefix`` (between-wave boundaries are
+    skipped), for ``resources.set_boundary_fault_injector``."""
+    counts = []
+
+    def at_boundary(stage):
+        if stage.startswith(prefix) and " wave " not in stage:
+            counts.append(dict(gn.LAUNCHES))
+
+    return counts, at_boundary
+
+
 # Fused Hyperband: fashion_mlp through the CLI at its defaults (R=270,
 # eta 3), and full-width cifar10_cnn at R=27 in chunks of 8, resident
 # and in waves of 8
@@ -1302,23 +1363,24 @@ HB_CNN_R, HB_CNN_CHUNK, HB_CNN_W = 27, 8, 8
 HB_CNN_PLAN = [(27, 1), (12, 3), (6, 9), (4, 27)]
 
 
-def hyperband_mlp_phase(smi):
-    """(a) ``--algorithm hyperband --fused`` on fashion_mlp at the CLI
-    defaults, with a ledger: HB_MLP_PLAN's brackets, 415 trials, a finite
-    best, and one ledger whose boundaries run contiguously across the
-    brackets and that the port's reader validates."""
+def hyperband_mlp_phase(smi, algorithm: str = "hyperband"):
+    """(a) ``--algorithm hyperband|bohb --fused`` on fashion_mlp at the
+    CLI defaults, with a ledger: HB_MLP_PLAN's brackets, 415 trials, a
+    finite best, and one ledger whose boundaries run contiguously across
+    the brackets and that the port's reader validates; BOHB's model must
+    draw in a later bracket."""
     import shutil
 
     from mpi_opt_tpu_torch.ledger import validate_ledger
 
-    tmp = os.path.join(ROOT, "build", "chip_smoke_hyperband")
+    tmp = os.path.join(ROOT, "build", f"chip_smoke_{algorithm}")
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
     ledger = os.path.join(tmp, "ledger.jsonl")
     try:
         t0 = time.perf_counter()
         rc, summary = _run_to_end([sys.executable, "-m", "mpi_opt_tpu_torch", "--workload",
-                                   "fashion_mlp", "--algorithm", "hyperband", "--fused", "--seed", "0",
+                                   "fashion_mlp", "--algorithm", algorithm, "--fused", "--seed", "0",
                                    "--device", "cuda", "--ledger", ledger])
         wall = time.perf_counter() - t0
         recs = _records(ledger) if os.path.exists(ledger) else []
@@ -1328,37 +1390,45 @@ def hyperband_mlp_phase(smi):
         out = {"card": smi, "exit": rc, "process_wall_s": wall, "summary": summary,
                "records": len(recs), "ledger_problems": problems, "plan": plan,
                "trials_per_s": summary.get("trials_per_sec_per_chip")}
-        print(f"hyperband fashion_mlp ({smi}): exit {rc}, {summary.get('n_trials')} trials, "
+        n_model = [b.get("n_model_sampled") for b in summary.get("brackets", [])]
+        out["n_model_sampled"] = n_model
+        print(f"{algorithm} fashion_mlp ({smi}): exit {rc}, {summary.get('n_trials')} trials, "
               f"best {summary.get('best_score')}, {summary.get('trials_per_sec_per_chip')} trials/s "
-              f"(sweep wall {summary.get('wall_s')} s, process {wall:.3f} s), {len(recs)} records")
+              f"(sweep wall {summary.get('wall_s')} s, process {wall:.3f} s), {len(recs)} records, "
+              f"model-drawn by bracket {n_model}")
         if rc != 0 or plan != HB_MLP_PLAN or summary.get("n_trials") != 415:
-            return out, f"hyperband fashion_mlp: exit {rc}, plan {plan}, summary {str(summary)[:2000]}"
+            return out, f"{algorithm} fashion_mlp: exit {rc}, plan {plan}, summary {str(summary)[:2000]}"
         if summary.get("best_score") is None or not math.isfinite(summary["best_score"]):
-            return out, f"hyperband fashion_mlp: best score {summary.get('best_score')}"
+            return out, f"{algorithm} fashion_mlp: best score {summary.get('best_score')}"
         if problems or sorted({r["boundary"] for r in recs}) != list(range(n_rungs)):
-            return out, f"hyperband fashion_mlp: ledger problems {problems}, boundaries not 0..{n_rungs - 1}"
+            return out, f"{algorithm} fashion_mlp: ledger problems {problems}, boundaries not 0..{n_rungs - 1}"
         if len(recs) != sum(sum(b["rung_sizes"]) for b in summary["brackets"]):
-            return out, f"hyperband fashion_mlp: {len(recs)} records for rung sizes {summary['brackets']}"
+            return out, f"{algorithm} fashion_mlp: {len(recs)} records for rung sizes {summary['brackets']}"
+        if algorithm == "bohb" and not any(n_model[1:]):
+            return out, f"bohb fashion_mlp: the model drew in no later bracket: {n_model}"
         return out, None
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def hyperband_cnn_phase(gn, get_workload, smi):
-    """(b) ``fused_hyperband`` over full-width cifar10_cnn (SmallCNN
-    32-32-64-64, GN(8)) at R=HB_CNN_R, eta 3, member chunk HB_CNN_CHUNK,
-    resident and then in waves of HB_CNN_W, each journaled: the rung
-    cohorts 27, 9, 3, ... are not multiples of the chunk, so the padded
-    launches run. Both runs must end with the same records and best; both
-    GN kernels must launch in every bracket, the plain versions never.
-    Returns (record, GN launches of both runs, problem)."""
+def hyperband_cnn_phase(gn, get_workload, smi, algorithm: str = "hyperband"):
+    """(b) ``fused_hyperband`` (or ``fused_bohb``) over full-width
+    cifar10_cnn (SmallCNN 32-32-64-64, GN(8)) at R=HB_CNN_R, eta 3, member
+    chunk HB_CNN_CHUNK, resident and then in waves of HB_CNN_W, each
+    journaled: the rung cohorts 27, 9, 3, ... are not multiples of the
+    chunk, so the padded launches run. Both runs must end with the same
+    records and best; both GN kernels must launch in every bracket, the
+    plain versions never. Returns (record, GN launches of both runs,
+    problem)."""
     import shutil
 
     from mpi_opt_tpu_torch.ledger import SweepLedger, validate_ledger
     from mpi_opt_tpu_torch.train.fused_asha import fused_hyperband
+    from mpi_opt_tpu_torch.train.fused_bohb import fused_bohb
     from mpi_opt_tpu_torch.utils import resources
 
-    tmp = os.path.join(ROOT, "build", "chip_smoke_hyperband_cnn")
+    sweep = fused_hyperband if algorithm == "hyperband" else fused_bohb
+    tmp = os.path.join(ROOT, "build", f"chip_smoke_{algorithm}_cnn")
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
     wl = get_workload("cifar10_cnn")
@@ -1369,21 +1439,16 @@ def hyperband_cnn_phase(gn, get_workload, smi):
     try:
         for tag, ws in (("resident", 0), ("waves", HB_CNN_W)):
             led = SweepLedger(os.path.join(tmp, f"{tag}.jsonl"), read_only=False)
-            led.ensure_header({"mode": "fused", "granularity": "rung", "algorithm": "hyperband",
+            led.ensure_header({"mode": "fused", "granularity": "rung", "algorithm": algorithm,
                                "seed": 0, "space_hash": space.space_hash()}, space_spec=space.spec())
-            per_bracket = []
-
-            def at_boundary(stage, per_bracket=per_bracket):
-                if stage.startswith("hyperband bracket"):
-                    per_bracket.append(dict(gn.LAUNCHES))
-
+            per_bracket, at_boundary = _per_boundary(gn, "hyperband bracket")
             gn.reset_launches()
             resources.set_boundary_fault_injector(at_boundary)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             try:
-                res = fused_hyperband(wl, max_budget=HB_CNN_R, eta=3, seed=0, member_chunk=HB_CNN_CHUNK,
-                                      ledger=led, wave_size=ws)
+                res = sweep(wl, max_budget=HB_CNN_R, eta=3, seed=0, member_chunk=HB_CNN_CHUNK,
+                            ledger=led, wave_size=ws)
                 torch.cuda.synchronize()
             finally:
                 resources.set_boundary_fault_injector(None)
@@ -1399,25 +1464,238 @@ def hyperband_cnn_phase(gn, get_workload, smi):
                         "launches": run_launches, "launches_by_bracket": deltas,
                         "ledger_problems": validate_ledger(led.path),
                         **{k: res[k] for k in ("wave_size", "waves_run", "staged_bytes") if k in res}}
-            print(f"hyperband cifar10_cnn {tag} ({smi}): {json.dumps(out[tag])}")
+            print(f"{algorithm} cifar10_cnn {tag} ({smi}): {json.dumps(out[tag])}")
             plan = [(b["n_trials"], b["start_budget"]) for b in res["brackets"]]
             if plan != HB_CNN_PLAN or not math.isfinite(res["best_score"]):
-                return out, launches, f"hyperband cifar10_cnn {tag}: plan {plan}, best {res['best_score']}"
+                return out, launches, f"{algorithm} cifar10_cnn {tag}: plan {plan}, best {res['best_score']}"
             if out[tag]["ledger_problems"]:
-                return out, launches, f"hyperband cifar10_cnn {tag}: ledger {out[tag]['ledger_problems']}"
+                return out, launches, f"{algorithm} cifar10_cnn {tag}: ledger {out[tag]['ledger_problems']}"
             if len(deltas) != len(HB_CNN_PLAN) or any(
                     d["gn_fwd"] <= 0 or d["gn_bwd"] <= 0 or d["plain"] for d in deltas):
-                return out, launches, f"hyperband cifar10_cnn {tag}: launches by bracket {deltas}"
+                return out, launches, f"{algorithm} cifar10_cnn {tag}: launches by bracket {deltas}"
         a, b = out["resident"], out["waves"]
         same_records = _records(os.path.join(tmp, "resident.jsonl")) == _records(
             os.path.join(tmp, "waves.jsonl"))
         out["waves_vs_resident"] = {"same_records": same_records,
                                     "same_best": a["best_score"] == b["best_score"]}
-        print(f"hyperband cifar10_cnn waves vs resident: {json.dumps(out['waves_vs_resident'])}")
+        print(f"{algorithm} cifar10_cnn waves vs resident: {json.dumps(out['waves_vs_resident'])}")
         if not (same_records and a["best_score"] == b["best_score"]):
-            return out, launches, "hyperband cifar10_cnn: the wave run's records or best differ from resident"
+            return out, launches, f"{algorithm} cifar10_cnn: the wave run's records or best differ from resident"
         out["launches"] = launches
         return out, launches, None
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# Fused TPE: BASELINE.json config 4 (bench_all.py's fused_tpe(tabular_mlp,
+# n_trials=256, batch=64, budget=30)), nothing cut; the SmallCNN at full
+# width cut to 64 trials in batches of 32, 20 steps, chunk 8, resident and
+# in waves of 16; the acquisition timed at config 4's shapes
+C4_TRIALS, C4_BATCH, C4_BUDGET = 256, 64, 30
+TPE_CNN_TRIALS, TPE_CNN_BATCH, TPE_CNN_BUDGET, TPE_CNN_CHUNK, TPE_CNN_W = 64, 32, 20, 8, 16
+ACQ_C, ACQ_M, ACQ_D = 1024, 256, 3
+
+
+def _event_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean time of ``fn`` between two CUDA events, host dispatch
+    included where the host is the slower side (a call of many small
+    kernels: the acquisition's greedy picks)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def tpe_config4_phase(smi):
+    """(a) Config 4 at full size through ``fused_tpe``: a call on a fresh
+    workload (set-up included), a timed call, a traced call (its
+    ``suggest`` spans), each with its trials/s and best; then the
+    acquisition alone at C=ACQ_C candidates over M=ACQ_M observations in
+    d=ACQ_D, by CUDA events: the whole suggestion of a batch (the
+    diversified greedy picks) and of one point (a plain top-k)."""
+    from mpi_opt_tpu_torch import get_workload
+    from mpi_opt_tpu_torch.obs import report, trace
+    from mpi_opt_tpu_torch.ops import tpe
+    from mpi_opt_tpu_torch.train.fused_tpe import fused_tpe
+    from mpi_opt_tpu_torch.utils.metrics import MetricsLogger
+
+    out = {"card": smi, "workload": "tabular_mlp", "dataset": "breast_cancer", "n_trials": C4_TRIALS,
+           "batch": C4_BATCH, "budget": C4_BUDGET, "runs": {}}
+    path = os.path.join(ROOT, "build", "chip_smoke_traces", "tpe_config4.jsonl")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    wl = get_workload("tabular_mlp")  # fresh: its data loads inside the first call
+    for tag, traced in (("setup_included", False), ("warm", False), ("traced", True)):
+        if traced:
+            metrics = MetricsLogger(path=path)
+            prior = trace.configure(metrics)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            res = fused_tpe(wl, n_trials=C4_TRIALS, batch=C4_BATCH, budget=C4_BUDGET, seed=0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            if traced:
+                trace.deconfigure(prior)
+                metrics.close()
+        curve = res["best_curve"].tolist()
+        out["runs"][tag] = {"wall_s": wall, "trials_per_s": C4_TRIALS / wall, "best_score": res["best_score"],
+                            "best_params": res["best_params"], "best_curve": curve,
+                            "member_failures": res["member_failures"]}
+        print(f"tpe config 4 {tag} ({smi}): {json.dumps(out['runs'][tag])}")
+        if not (math.isfinite(res["best_score"]) and 0 <= res["best_score"] <= 1) or len(curve) != 4 \
+                or curve != sorted(curve):
+            return out, f"tpe config 4 {tag}: best {res['best_score']}, curve {curve}"
+    spans = [r for r in report.load_stream(path) if r.get("event") == "span"]
+    out["suggest_spans_s"] = [r["dur_s"] for r in spans if r["span"] == "boundary" and r.get("op") == "suggest"]
+    out["train_spans_s"] = [r["dur_s"] for r in spans if r["span"] == "train"]
+    print(f"tpe config 4 traced: suggest spans {out['suggest_spans_s']} s, train spans {out['train_spans_s']} s")
+    if len(out["suggest_spans_s"]) != C4_TRIALS // C4_BATCH:
+        return out, f"tpe config 4: {len(out['suggest_spans_s'])} suggest spans"
+    # the acquisition alone, at config 4's ring once full
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    unit = torch.rand((ACQ_M, ACQ_D), generator=gen, device="cuda")
+    scores = -((unit - 0.7) ** 2).sum(1)
+    valid = torch.ones(ACQ_M, dtype=torch.bool, device="cuda")
+    cfg = tpe.TPEConfig(n_candidates=ACQ_C)
+    acq = {}
+    for label, n in (("batch_of_64", C4_BATCH), ("one_point", 1)):
+        acq[label] = _event_ms(lambda n=n: tpe.tpe_suggest(gen, unit, scores, valid, n, cfg))
+    model = tpe.tpe_fit(unit, scores, valid, cfg)
+    draws = tpe.draw_tpe(gen, ACQ_M, ACQ_D, cfg)
+    comp = tpe.pick_components(draws.u_pick, model.probs)
+    acq["mixture_of_candidates"] = _event_ms(lambda: tpe._log_mixture(draws.uni, unit, model.good_w, model.bw_g, 1.0))
+    acq["apply_one_point"] = _event_ms(lambda: tpe.tpe_apply(unit, model, comp, draws.jitter, draws.uni, 1, cfg))
+    out["acquisition_ms"] = acq
+    print(f"tpe acquisition ({smi}), C={ACQ_C} M={ACQ_M} d={ACQ_D}, ms a call: {json.dumps(acq)}")
+    return out, None
+
+
+def tpe_cnn_phase(gn, get_workload, smi):
+    """(b) ``fused_tpe`` over full-width cifar10_cnn, TPE_CNN_TRIALS trials
+    in batches of TPE_CNN_BATCH, TPE_CNN_BUDGET steps, member chunk
+    TPE_CNN_CHUNK, journaled, resident and then in waves of TPE_CNN_W: the
+    same records and best; both GN kernels launch in every generation,
+    the plain versions never. Returns (record, GN launches, problem)."""
+    import shutil
+
+    from mpi_opt_tpu_torch.ledger import SweepLedger, validate_ledger
+    from mpi_opt_tpu_torch.train.fused_tpe import fused_tpe
+    from mpi_opt_tpu_torch.utils import resources
+
+    tmp = os.path.join(ROOT, "build", "chip_smoke_tpe_cnn")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    wl = get_workload("cifar10_cnn")
+    wl.data()
+    space = wl.default_space()
+    n_gens = TPE_CNN_TRIALS // TPE_CNN_BATCH
+    out = {"card": smi, "n_trials": TPE_CNN_TRIALS, "batch": TPE_CNN_BATCH, "budget": TPE_CNN_BUDGET,
+           "member_chunk": TPE_CNN_CHUNK}
+    launches = {"gn_fwd": 0, "gn_bwd": 0, "plain": 0}
+    try:
+        for tag, ws in (("resident", 0), ("waves", TPE_CNN_W)):
+            led = SweepLedger(os.path.join(tmp, f"{tag}.jsonl"), read_only=False)
+            led.ensure_header({"mode": "fused", "granularity": "batch", "algorithm": "tpe", "seed": 0,
+                               "space_hash": space.space_hash()}, space_spec=space.spec())
+            per_gen, at_boundary = _per_boundary(gn, "tpe generation")
+            gn.reset_launches()
+            resources.set_boundary_fault_injector(at_boundary)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                res = fused_tpe(wl, n_trials=TPE_CNN_TRIALS, batch=TPE_CNN_BATCH, budget=TPE_CNN_BUDGET,
+                                seed=0, member_chunk=TPE_CNN_CHUNK, ledger=led, wave_size=ws)
+                torch.cuda.synchronize()
+            finally:
+                resources.set_boundary_fault_injector(None)
+                led.close()
+            wall = time.perf_counter() - t0
+            run_launches = dict(gn.LAUNCHES)
+            for k in launches:
+                launches[k] += run_launches[k]
+            deltas = [{k: c[k] - (per_gen[i - 1][k] if i else 0) for k in c} for i, c in enumerate(per_gen)]
+            out[tag] = {"wall_s": wall, "trials_per_s": TPE_CNN_TRIALS / wall, "best_score": res["best_score"],
+                        "best_curve": res["best_curve"].tolist(), "launches": run_launches,
+                        "launches_by_generation": deltas, "ledger_problems": validate_ledger(led.path),
+                        **{k: res[k] for k in ("wave_size", "wave_lens", "waves_run", "launch_width",
+                                               "staged_bytes") if k in res}}
+            print(f"tpe cifar10_cnn {tag} ({smi}): {json.dumps(out[tag])}")
+            if not (math.isfinite(res["best_score"]) and 0 <= res["best_score"] <= 1):
+                return out, launches, f"tpe cifar10_cnn {tag}: best {res['best_score']}"
+            if out[tag]["ledger_problems"]:
+                return out, launches, f"tpe cifar10_cnn {tag}: ledger {out[tag]['ledger_problems']}"
+            if len(deltas) != n_gens or any(d["gn_fwd"] <= 0 or d["gn_bwd"] <= 0 or d["plain"] for d in deltas):
+                return out, launches, f"tpe cifar10_cnn {tag}: launches by generation {deltas}"
+        same_records = _records(os.path.join(tmp, "resident.jsonl")) == _records(
+            os.path.join(tmp, "waves.jsonl"))
+        same_best = out["resident"]["best_score"] == out["waves"]["best_score"]
+        out["waves_vs_resident"] = {"same_records": same_records, "same_best": same_best}
+        print(f"tpe cifar10_cnn waves vs resident: {json.dumps(out['waves_vs_resident'])}")
+        if not (same_records and same_best):
+            return out, launches, "tpe cifar10_cnn: the wave run's records or best differ from resident"
+        out["launches"] = launches
+        return out, launches, None
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def tpe_cli_phase(smi):
+    """(c) The CLI at config 4's shape on tabular_mlp with a ledger and
+    snapshots: an unkilled run; a run SIGKILLed once batch 2 is journaled
+    (exit -9), then ``--resume`` (exit 0) must end with the unkilled
+    run's records, best and curve."""
+    import shutil
+
+    tmp = os.path.join(ROOT, "build", "chip_smoke_tpe_cli")
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    def argv(name):
+        os.makedirs(os.path.join(tmp, name), exist_ok=True)
+        return [sys.executable, "-m", "mpi_opt_tpu_torch", "--workload", "tabular_mlp", "--algorithm", "tpe",
+                "--fused", "--trials", str(C4_TRIALS), "--population", str(C4_BATCH), "--budget",
+                str(C4_BUDGET), "--seed", "0", "--device", "cuda", "--checkpoint-dir",
+                os.path.join(tmp, name, "ck"), "--ledger", os.path.join(tmp, name, "ledger.jsonl")]
+
+    def batches_journaled(path, n):
+        def ready():
+            try:
+                with open(path) as f:
+                    return sum(1 for x in f if '"boundary"' in x) >= n * C4_BATCH
+            except OSError:
+                return False
+        return ready
+
+    out = {"card": smi}
+    try:
+        rc, whole = _run_to_end(argv("whole"))
+        out["unkilled"] = {"exit": rc, "summary": whole}
+        if rc != 0:
+            return out, f"tpe CLI: the unkilled run exited {rc}"
+        cut = argv("cut")
+        rc, _, err = _interrupt(cut, batches_journaled(os.path.join(tmp, "cut", "ledger.jsonl"), 2),
+                                signal.SIGKILL, "tpe CLI SIGKILL")
+        out["killed"] = {"exit": rc}
+        if rc != -signal.SIGKILL:
+            return out, f"tpe CLI: the killed run exited {rc}:\n{err[-3000:]}"
+        resumed = _resume(cut, "tpe CLI")
+        out["resumed"] = resumed
+        same = _records(os.path.join(tmp, "cut", "ledger.jsonl")) == _records(
+            os.path.join(tmp, "whole", "ledger.jsonl"))
+        out["same_records"] = same
+        print(f"tpe CLI ({smi}): unkilled {whole.get('trials_per_sec_per_chip')} trials/s, best "
+              f"{whole.get('best_score')}; SIGKILL exit {rc}; resumed best {resumed.get('best_score')}, "
+              f"journal {resumed.get('journal')}, same records {same}")
+        if not same or (resumed.get("best_score"), resumed.get("best_curve")) != (
+                whole.get("best_score"), whole.get("best_curve")):
+            return out, "tpe CLI: the resumed run's records, best or curve differ from the unkilled run's"
+        return out, None
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1634,12 +1912,40 @@ def main() -> int:
         if bad:
             return fail(bad)
 
+    if "tpe" in phases:
+        # 12. fused TPE: (a) config 4 at full size, (b) full-width SmallCNN
+        # resident and in waves, (c) the CLI killed and resumed
+        c4, bad = tpe_config4_phase(smi)
+        done("tpe_config4", c4)
+        if bad:
+            return fail(bad)
+        tpe_cnn, launches["tpe_smallcnn"], bad = tpe_cnn_phase(gn, get_workload, smi)
+        done("tpe_cnn", tpe_cnn)
+        if bad:
+            return fail(bad)
+        tpe_cli, bad = tpe_cli_phase(smi)
+        done("tpe_cli", tpe_cli)
+        if bad:
+            return fail(bad)
+
+    if "bohb" in phases:
+        # 13. fused BOHB: (a) fashion_mlp through the CLI at its defaults,
+        # (b) full-width SmallCNN resident and in waves
+        bohb_mlp, bad = hyperband_mlp_phase(smi, "bohb")
+        done("bohb_mlp", bohb_mlp)
+        if bad:
+            return fail(bad)
+        bohb_cnn, launches["bohb_smallcnn"], bad = hyperband_cnn_phase(gn, get_workload, smi, "bohb")
+        done("bohb_cnn", bohb_cnn)
+        if bad:
+            return fail(bad)
+
     print(f"chip_smoke wall: {time.perf_counter() - T_START} s")
     if phases != PHASES:
         print(f"chip_smoke: partial run ({','.join(phases)}): no result line")
         return 0
 
-    # 12. the kernels line (a population step of each path, summed; launches
+    # 14. the kernels line (a population step of each path, summed; launches
     # summed over every path), then the device line
     src = "mpi_opt_tpu_torch/csrc/group_norm.cu"
     kernels = []
@@ -1651,7 +1957,7 @@ def main() -> int:
         entry["max_abs_err"] = max(t[k]["max_abs_err"] for t in tot.values())
         entry["bound_share"] = entry["bound_ms"] / entry["ms"]
         entry["by_path"] = {path: {**tot[path][k], "launches": launches[path][k]} for path in STEP_PATHS}
-        for path in ("durability", "north_star_waves", "hyperband_smallcnn"):
+        for path in ("durability", "north_star_waves", "hyperband_smallcnn", "tpe_smallcnn", "bohb_smallcnn"):
             entry["by_path"][path] = {"launches": launches[path][k]}
         kernels.append(entry)
     done("kernels", kernels)

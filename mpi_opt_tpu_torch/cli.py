@@ -1,6 +1,6 @@
 """Command line of the port (port of the fused ``--algorithm
-pbt|asha|random|hyperband`` paths of ``mpi_opt_tpu/cli.py``, and of its
-``trace`` subcommand).
+pbt|asha|random|hyperband|tpe|bohb`` paths of ``mpi_opt_tpu/cli.py``,
+and of its ``trace`` subcommand).
 
     python -m mpi_opt_tpu_torch --workload cifar10_cnn --algorithm pbt --fused \\
         --population 32 --generations 4 --steps-per-generation 20 \\
@@ -9,6 +9,10 @@ pbt|asha|random|hyperband`` paths of ``mpi_opt_tpu/cli.py``, and of its
         --trials 64 --min-budget 10 --max-budget 270 --eta 3 [--wave-size 16|auto]
     python -m mpi_opt_tpu_torch --workload fashion_mlp --algorithm hyperband --fused \\
         --max-budget 270 --eta 3 --trace --metrics-file m.jsonl
+    python -m mpi_opt_tpu_torch --workload tabular_mlp --algorithm tpe --fused \
+        --trials 256 --population 64 --budget 30
+    python -m mpi_opt_tpu_torch --workload fashion_mlp --algorithm bohb --fused \
+        --max-budget 270 --eta 3
     python -m mpi_opt_tpu_torch trace m.jsonl [--json]
 
 It runs on CUDA unless ``--device cpu`` is given. The summary is the JAX
@@ -40,7 +44,7 @@ from mpi_opt_tpu_torch.workloads import _REGISTRY, get_workload
 
 # the JAX CLI's algorithms, and those the port runs (fused)
 ALGORITHMS = ("asha", "bohb", "hyperband", "pbt", "random", "tpe")
-PORTED_ALGORITHMS = ("pbt", "asha", "random", "hyperband")
+PORTED_ALGORITHMS = ("pbt", "asha", "random", "hyperband", "tpe", "bohb")
 # the JAX CLI's subcommands
 _SUBCOMMANDS = ("report", "fsck", "lint", "trace", "serve", "submit", "status", "cancel",
                 "drain", "corpus", "suggest-client")
@@ -61,7 +65,7 @@ class _NotPorted(argparse.Action):
 
     def __call__(self, parser, namespace, values, option_string=None):
         parser.error(f"{option_string} is not ported yet (mpi_opt_tpu_torch runs "
-                     "--fused --algorithm pbt|asha|random|hyperband only)")
+                     "--fused --algorithm pbt|asha|random|hyperband|tpe|bohb only)")
 
 
 def _wire_integrity_observer(metrics):
@@ -121,10 +125,10 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--workload", required=True, choices=sorted(_REGISTRY))
     p.add_argument("--algorithm", default="random", choices=ALGORITHMS,
-                   help="pbt, asha, random and hyperband are ported (fused)")
+                   help="every algorithm is ported as a fused sweep")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--trials", type=int, default=16, help="total trials (random/asha)")
-    p.add_argument("--budget", type=int, default=100, help="steps per trial (random)")
+    p.add_argument("--trials", type=int, default=16, help="total trials (random/tpe/asha)")
+    p.add_argument("--budget", type=int, default=100, help="steps per trial (random/tpe)")
     p.add_argument("--metrics-file", default=None, help="JSONL metrics output path")
     p.add_argument("--trace", action="store_true",
                    help="emit span records (setup/train/staging/boundary/journal/save "
@@ -144,7 +148,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--min-budget", type=int, default=10)
     p.add_argument("--max-budget", type=int, default=270)
     p.add_argument("--eta", type=int, default=3)
-    p.add_argument("--population", type=int, default=32)
+    p.add_argument("--population", type=int, default=32,
+                   help="PBT's population; TPE's batch (trials a generation)")
     p.add_argument("--generations", type=int, default=10)
     p.add_argument("--steps-per-generation", type=int, default=200)
     p.add_argument("--truncation", type=float, default=0.25)
@@ -317,7 +322,7 @@ def _open_fused_ledger(args, parser, space, metrics):
         )
     config = {
         "mode": "fused",
-        "granularity": "generation" if args.algorithm == "pbt" else "rung",
+        "granularity": {"pbt": "generation", "tpe": "batch"}.get(args.algorithm, "rung"),
         "algorithm": args.algorithm,
         "workload": args.workload,
         "backend": "fused",
@@ -329,9 +334,11 @@ def _open_fused_ledger(args, parser, space, metrics):
     if args.algorithm == "pbt":
         config.update(population=args.population, generations=args.generations,
                       steps_per_generation=args.steps_per_generation)
+    elif args.algorithm == "tpe":
+        config.update(trials=args.trials, batch=args.population, budget=args.budget)
     elif args.algorithm == "random":
         config.update(trials=args.trials, budget=args.budget)
-    elif args.algorithm == "hyperband":
+    elif args.algorithm in ("hyperband", "bohb"):
         config.update(max_budget=args.max_budget, eta=args.eta)
     else:
         config.update(trials=args.trials, min_budget=args.min_budget,
@@ -351,10 +358,11 @@ def _open_fused_ledger(args, parser, space, metrics):
 def _wave_extras(res: dict) -> dict:
     """The wave fields of the summary line (empty for a resident
     sweep): the JAX CLI's, ``waves_run``, the waves this process
-    trained (a resume that re-trains no completed wave shows it), and
-    ``launch_shape_changed``: an OOM halving without a member chunk ran
-    the rest at another launch width, so the records may differ from
-    the unfaulted run's."""
+    trained (a resume that re-trains no completed wave shows it),
+    ``launch_width``, the members every launch ran, and
+    ``launch_shape_changed``, true if an OOM halving ran the rest at
+    another launch width (it stays false: the width is fixed for the
+    sweep, ``train/engine.py::launch_chunk``)."""
     if not res.get("wave_size"):
         return {}
     return dict(
@@ -365,6 +373,7 @@ def _wave_extras(res: dict) -> dict:
         stage_wait_s=round(res["stage_wait_s"], 3),
         oom_backoffs=res.get("oom_backoffs", 0),
         waves_run=res["waves_run"],
+        **({"launch_width": res["launch_width"]} if "launch_width" in res else {}),
         launch_shape_changed=res.get("launch_shape_changed", False),
     )
 
@@ -395,10 +404,30 @@ def _run_fused_dispatch(args, workload, metrics, t0, ledger) -> int:
         ), args.retries, metrics)
         n_trials = args.population * args.generations
         extra = {"best_curve": [round(float(v), 4) for v in res["best_curve"]]}
-    elif args.algorithm == "hyperband":
-        from mpi_opt_tpu_torch.train.fused_asha import fused_hyperband
+    elif args.algorithm == "tpe":
+        from mpi_opt_tpu_torch.train.fused_tpe import fused_tpe
 
-        res = _run_with_retries(lambda: fused_hyperband(
+        res = _run_with_retries(lambda: fused_tpe(
+            workload,
+            n_trials=args.trials,
+            batch=args.population,
+            budget=args.budget,
+            seed=args.seed,
+            member_chunk=args.member_chunk,
+            wave_size=args.wave_size,
+            oom_backoff=args.oom_backoff,
+            checkpoint_dir=args.checkpoint_dir,
+            ledger=ledger,
+            device=args.device,
+        ), args.retries, metrics)
+        n_trials = res["n_trials"]
+        extra = {"best_curve": [round(float(v), 4) for v in res["best_curve"]]}
+    elif args.algorithm in ("hyperband", "bohb"):
+        from mpi_opt_tpu_torch.train.fused_asha import fused_hyperband
+        from mpi_opt_tpu_torch.train.fused_bohb import fused_bohb
+
+        sweep = fused_hyperband if args.algorithm == "hyperband" else fused_bohb
+        res = _run_with_retries(lambda: sweep(
             workload,
             max_budget=args.max_budget,
             eta=args.eta,
@@ -505,7 +534,7 @@ def main(argv=None) -> int:
         parser.error("the driver path (no --fused) is not ported yet; pass --fused")
     if args.algorithm not in PORTED_ALGORITHMS:
         parser.error(f"--fused --algorithm {args.algorithm} is not ported yet; "
-                     "the port runs --algorithm pbt|asha|random|hyperband")
+                     "the port runs --algorithm pbt|asha|random|hyperband|tpe|bohb")
     # --wave-size: an integer or 'auto', checked here as a usage error
     if args.wave_size != "auto":
         try:

@@ -1,17 +1,113 @@
-"""Dataset registry of the port: the synthetic image sets.
+"""Dataset registry of the port: the synthetic image sets and two UCI
+tabular sets.
 
 The same generator and arguments as ``mpi_opt_tpu/data/loaders.py``, so
 the arrays are byte-equal to the JAX package's (NHWC float32 images,
-int32 labels). The sklearn sets are not ported yet.
+int32 labels). ``breast_cancer`` and ``wine`` are read from the UCI
+files the port ships in ``data/uci/`` (copied from scikit-learn's
+bundled data, BSD-3, see ``data/uci/LICENSE.txt``) and parsed, split and
+standardised as the JAX package's sklearn loader does, in numpy:
+scikit-learn itself is not needed. ``digits`` and ``diabetes`` are not
+ported yet.
 """
 
 from __future__ import annotations
 
+import csv
+import math
+import os
+
+import numpy as np
+
 from mpi_opt_tpu_torch.data.synthetic import make_image_classification
 
 _CACHE: dict = {}
+UCI_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "uci")
+UCI_FILES = {"breast_cancer": "breast_cancer.csv", "wine": "wine_data.csv"}
+
+
+def read_uci_csv(name: str):
+    """(data float64[n, f], target int64[n]) of a shipped UCI file, parsed
+    as scikit-learn's ``load_csv_data``: a header ``n_samples,n_features,
+    class names...``, then one row of features and the class per line.
+    A missing file raises: nothing falls back."""
+    path = os.path.join(UCI_DIR, UCI_FILES[name])
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"the {name!r} data file {path} is missing from the package")
+    with open(path, encoding="utf-8") as f:
+        rows = csv.reader(f)
+        head = next(rows)
+        n, n_features = int(head[0]), int(head[1])
+        data = np.empty((n, n_features))
+        target = np.empty((n,), dtype=np.int64)
+        for i, row in enumerate(rows):
+            data[i] = np.asarray(row[:-1], dtype=np.float64)
+            target[i] = np.asarray(row[-1], dtype=np.int64)
+    return data, target
+
+
+def _approximate_mode(class_counts, n_draws: int, rng: np.random.RandomState):
+    """scikit-learn's ``utils.extmath._approximate_mode``: the per-class
+    counts of ``n_draws`` draws nearest the multivariate hypergeometric
+    mode, ties in the leftover broken by ``rng``."""
+    continuous = class_counts / class_counts.sum() * n_draws
+    floored = np.floor(continuous)
+    need_to_add = int(n_draws - floored.sum())
+    if need_to_add > 0:
+        remainder = continuous - floored
+        for value in np.sort(np.unique(remainder))[::-1]:
+            (inds,) = np.where(remainder == value)
+            add_now = min(len(inds), need_to_add)
+            inds = rng.choice(inds, size=add_now, replace=False)
+            floored[inds] += 1
+            need_to_add -= add_now
+            if need_to_add == 0:
+                break
+    return floored.astype(int)
+
+
+def stratified_split(y, test_size: float, seed: int):
+    """(train, test) row indices of scikit-learn's ``train_test_split(...,
+    test_size=test_size, random_state=seed, stratify=y)``: the first
+    split of ``StratifiedShuffleSplit`` with ``RandomState(seed)`` draws
+    (the train and test counts per class, each class's permutation,
+    then the two final permutations)."""
+    n = len(y)
+    n_test = math.ceil(test_size * n)
+    n_train = n - n_test
+    _classes, y_indices, class_counts = np.unique(y, return_inverse=True, return_counts=True)
+    class_indices = np.split(np.argsort(y_indices, kind="stable"), np.cumsum(class_counts)[:-1])
+    rng = np.random.RandomState(seed)
+    n_i = _approximate_mode(class_counts, n_train, rng)
+    t_i = _approximate_mode(class_counts - n_i, n_test, rng)
+    train, test = [], []
+    for i in range(len(class_counts)):
+        perm = class_indices[i].take(rng.permutation(class_counts[i]), mode="clip")
+        train.extend(perm[:n_i[i]])
+        test.extend(perm[n_i[i]:n_i[i] + t_i[i]])
+    return rng.permutation(train), rng.permutation(test)
+
+
+def _uci_tabular(name: str, seed: int = 0, val_frac: float = 0.25):
+    """A UCI classification set as the JAX package's ``_sklearn_tabular``
+    gives it: f32 features standardised over the whole set, int32
+    labels, a stratified split."""
+    data, target = read_uci_csv(name)
+    x = np.asarray(data, dtype=np.float32)
+    x = (x - x.mean(0)) / (x.std(0) + 1e-8)
+    y = target.astype(np.int32)
+    train, test = stratified_split(y, val_frac, seed)
+    return {
+        "train_x": x[train],
+        "train_y": y[train],
+        "val_x": x[test],
+        "val_y": y[test],
+        "n_classes": int(y.max()) + 1,
+    }
 
 DATASETS = {
+    "wine": lambda seed=0: _uci_tabular("wine", seed),
+    "breast_cancer": lambda seed=0: _uci_tabular("breast_cancer", seed),
     "fashion_mnist": lambda seed=0, n_train=16384, n_val=2048, **kw: make_image_classification(
         n_train, n_val, 28, 28, 1, 10, seed=seed, **kw
     ),

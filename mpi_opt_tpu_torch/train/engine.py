@@ -2,10 +2,11 @@
 wave/stage/drain/OOM skeleton every fused algorithm runs its intervals
 through.
 
-A population (PBT) or a rung cohort (SHA) that exceeds the card's
-residency trains as WAVES of W members, staged through host pools
-(``train/staging.py``). The algorithm supplies only its shapes and its
-boundary op (PBT's exploit, SHA's rung cut); this module owns:
+A population (PBT), a rung cohort (SHA) or a generation's cohort (TPE)
+that exceeds the card's residency trains as WAVES of W members, staged
+through host pools (``train/staging.py``). The algorithm supplies only
+its shapes and its boundary op (PBT's exploit, SHA's rung cut, TPE's
+ring update); this module owns:
 
 - ``WaveRunner.run_interval``: one interval (a PBT generation, an SHA
   rung) as waves: the wave loop, a heartbeat a wave, stage-out, the
@@ -28,8 +29,8 @@ completed); each wave's stage-in is a ``stage_in`` span inside it.
 Bit identity. The JAX package has two wave programs, one mapping the
 unit matrix to hyperparameters inside the program (PBT, TPE) and one
 taking them mapped eagerly (SHA), because XLA's fused and eager ops
-round differently. Both of the port's resident paths map eagerly, so
-ONE wave function serves both drivers: it takes the interval's eagerly
+round differently. The port's resident paths all map eagerly, so ONE
+wave function serves every driver: it takes the interval's eagerly
 mapped ``OptHParams`` over the whole cohort and trains the wave's rows
 (``PopulationTrainer.train_segment_window``). One ``torch.Generator``
 threads every draw: each wave starts from the generator state saved at
@@ -70,6 +71,22 @@ def whole_chunks(wave_size: int, member_chunk: int, population: int) -> int:
     if member_chunk <= 0 or not 0 < wave_size < population:
         return wave_size
     return max(member_chunk, wave_size // member_chunk * member_chunk)
+
+
+def launch_chunk(population: int, wave_size: int, member_chunk: int = 0,
+                 oom_backoff: int = 0) -> int:
+    """The members every launch of a wave sweep runs, fixed for the
+    sweep (0: a launch is the whole wave). With a member chunk, the
+    chunk. Without one, a wave sweep (``0 < wave_size < population``)
+    whose OOM budget is k > 0 launches ``max(1, wave_size >> k)``
+    members, the smallest cap its halvings can reach, so a halving never
+    changes the launch shape. With k = 0 nothing halves, and a launch
+    stays the whole wave."""
+    if member_chunk > 0:
+        return member_chunk
+    if oom_backoff > 0 and 0 < wave_size < population:
+        return max(1, wave_size >> oom_backoff)
+    return 0
 
 
 def wave_layout(population: int, wave_size: int, member_chunk: int = 0):
@@ -158,16 +175,20 @@ def resolve_wave_size(trainer, population: int, *, wave_size, oom_backoff: int =
 
 
 def run_wave(trainer, pool, rows, offset: int, hp, train_x, train_y, val_x, val_y,
-             generator: torch.Generator, rng_start, steps: int, engine):
+             generator: torch.Generator, rng_start, steps: int, engine, launch_width: int = 0):
     """Stage in, train and eval ONE wave: members [offset, offset+W) of
     the interval's cohort. ``rows`` are the pool rows to stage in (the
     previous boundary's map applied: staging in IS the winners' or
     survivors' gather); ``hp`` the interval's hyperparameters over the
     whole cohort; ``rng_start`` the generator state at the interval's
-    start. Returns (the wave's state, its scores), both on the card."""
+    start; ``launch_width`` the runner's ``chunk`` (0: the trainer's own
+    member chunk). Returns (the wave's state, its scores), both on the
+    card."""
     from mpi_opt_tpu_torch.train.staging import tree_bytes
 
     resources.launch_fault("wave")
+    if launch_width and launch_width != trainer.member_chunk:
+        trainer = trainer.launching(launch_width)
     with trace.span("stage_in", members=len(rows)) as sp:
         dev = engine.stage_in(pool, rows)
         sp["bytes"] = tree_bytes(dev)
@@ -186,20 +207,25 @@ class WaveRunner:
     ``run_interval`` returns, ``wave_size`` / ``wave_lens`` / ``offs`` /
     ``n_waves`` are the layout the interval ran under.
 
-    ``member_chunk`` is the sweep's launch width: waves hold whole
-    chunks (``wave_layout``) and a halving never goes below one chunk,
-    so every launch keeps the resident shape. Without a member chunk a
-    launch is the whole wave, so a halving changes the launch shape:
-    the ``oom_backoff`` event and ``result_extras`` say so
-    (``launch_shape_changed``)."""
+    ``chunk`` is the sweep's launch width (``launch_chunk``, from the
+    requested cap: a resume that adopts a halved ``wave_size`` keeps the
+    width): the member chunk, or without one the smallest cap the OOM
+    budget can reach. Waves hold whole chunks (``wave_layout``), a
+    halving never goes below one chunk, and the drivers pass ``chunk``
+    to ``run_wave``, so every launch has one shape and an OOM-backed-off
+    sweep ends in the unfaulted sweep's bits. Only with no member chunk
+    and no OOM budget is a launch the whole wave (nothing halves). The
+    ``oom_backoff`` event and ``result_extras`` report the width before
+    and after a halving (``launch_shape_changed`` stays false)."""
 
     def __init__(self, population: int, wave_size: int, *, member_chunk: int = 0,
-                 oom_backoff: int = 0, device=None):
+                 oom_backoff: int = 0, device=None, requested: int | None = None):
         from mpi_opt_tpu_torch.train.staging import StagingEngine
 
         self.population = int(population)
         self.wave_size = int(wave_size)
-        self.member_chunk = max(0, int(member_chunk))
+        self.chunk = launch_chunk(self.population, self.wave_size if requested is None else int(requested),
+                                  max(0, int(member_chunk)), max(0, int(oom_backoff)))
         self.launch_width_before = self.launch_width
         self.oom_budget = max(0, int(oom_backoff))
         self.oom_backoffs = 0
@@ -207,12 +233,12 @@ class WaveRunner:
         self.device = torch.device("cpu") if device is None else torch.device(device)
         self.engine = StagingEngine(self.device)
         self.wave_lens, self.offs, self.n_waves = wave_layout(
-            self.population, self.wave_size, self.member_chunk)
+            self.population, self.wave_size, self.chunk)
 
     @property
     def launch_width(self) -> int:
-        """Members a launch runs: the member chunk, else the wave cap."""
-        return self.member_chunk or self.wave_size
+        """Members a launch runs: the chunk, else the wave cap."""
+        return self.chunk or self.wave_size
 
     def close(self) -> None:
         self.engine.close()
@@ -240,7 +266,9 @@ class WaveRunner:
         - ``dst_fn(off, wl)`` is the host destination of a wave's
           ``{"state": {"params", "momentum", "step"}, "scores"}``: pool
           rows and ``scores_host[off:off+wl]``, which a mid-interval
-          resume and an OOM re-run read and reset;
+          resume and an OOM re-run read and reset. A destination without
+          ``"state"`` stages out the scores alone (TPE carries no state
+          between generations);
         - ``stage_label(w, n_waves)`` / ``boundary_kwargs(w, n_waves)`` /
           ``midpoint_snapshot(w, n_waves)`` shape the heartbeat, the
           between-waves ``launch_boundary`` progress fields and its
@@ -261,7 +289,7 @@ class WaveRunner:
         from mpi_opt_tpu_torch.health import heartbeat
 
         while True:  # one pass per OOM-backoff attempt
-            wave_lens, offs, n_waves = wave_layout(n, self.wave_size, self.member_chunk)
+            wave_lens, offs, n_waves = wave_layout(n, self.wave_size, self.chunk)
             self.wave_lens, self.offs, self.n_waves = wave_lens, offs, n_waves
             wave_scores: list = [None] * n_waves
             for w in range(start_wave):
@@ -278,11 +306,14 @@ class WaveRunner:
                         self.waves_run += 1
                         heartbeat.beat(stage=f"{stage_label(w, n_waves)} dispatched")
                         # the copy out runs behind the wave's compute
-                        # while this loop dispatches the next wave
+                        # while this loop dispatches the next wave; no
+                        # name here may outlive the call, or the wave's
+                        # tensors stay on the card through the next one
+                        dst = dst_fn(off, wl)
                         self.engine.stage_out(
-                            {"state": {"params": st.params, "momentum": st.momentum,
-                                       "step": st.step}, "scores": sc},
-                            dst_fn(off, wl))
+                            {**({"state": {"params": st.params, "momentum": st.momentum,
+                                           "step": st.step}} if "state" in dst else {}),
+                             "scores": sc}, dst)
                         del st, sc
                         if w + 1 < n_waves:
                             launch_boundary(
@@ -299,7 +330,7 @@ class WaveRunner:
                     memory.note(sp, self.device)
                 return wave_scores
             except resources.DeviceOOM as e:
-                if self.oom_budget <= 0 or self.wave_size <= max(1, self.member_chunk):
+                if self.oom_budget <= 0 or self.wave_size <= max(1, self.chunk):
                     raise
                 error = str(e)[:300]
             # the failed attempt's tensors die with its frames; settle
@@ -318,7 +349,7 @@ class WaveRunner:
             self.oom_budget -= 1
             self.oom_backoffs += 1
             width = self.launch_width
-            self.wave_size = whole_chunks(max(1, self.wave_size // 2), self.member_chunk, n)
+            self.wave_size = whole_chunks(max(1, self.wave_size // 2), self.chunk, n)
             scores_host.fill_(float("nan"))
             start_wave = 0
             resources.notify("oom_backoff", **dict(notify_fields), wave_size=self.wave_size,
@@ -329,8 +360,8 @@ class WaveRunner:
     def result_extras(self) -> dict:
         """The wave fields every wave-scheduled result reports: the
         settled split (the last interval's), absorbed OOM halvings,
-        waves dispatched, bytes moved, and how much of the transfer time
-        compute hid."""
+        waves dispatched, bytes moved, how much of the transfer time
+        compute hid, and the launch width."""
         return {
             "wave_size": self.wave_size,
             "wave_lens": list(self.wave_lens),
@@ -341,6 +372,7 @@ class WaveRunner:
             "stage_transfer_s": float(self.engine.transfer_s),
             "stage_wait_s": float(self.engine.wait_s),
             "stage_overlap_s": float(self.engine.overlap_s),
+            "launch_width": self.launch_width,
             "launch_width_before": self.launch_width_before,
             "launch_width_after": self.launch_width,
             "launch_shape_changed": self.launch_width != self.launch_width_before,

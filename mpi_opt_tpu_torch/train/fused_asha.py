@@ -17,13 +17,16 @@ until its last rung (one fetch replays the per-rung records).
 under its bracket's boundary/trial/member offsets, so one ledger spans
 the whole sweep as one contiguous boundary sequence.
 
-Not here yet (the JAX package's ``fused_sha`` has them): ``mesh`` and
-``round_to``, ``init_unit``, ``warm_obs`` and ``objectives``; the
-``cohort_fn``/``observe_fn`` hooks of ``fused_hyperband`` come with
-fused BOHB.
+``init_unit`` replaces a sweep's uniform initial cohort, and
+``fused_hyperband``'s ``cohort_fn``/``observe_fn`` hooks let fused BOHB
+(``train/fused_bohb.py``) sample each bracket's cohort from its model
+and feed every rung back. Not here yet (the JAX package's ``fused_sha``
+has them): ``mesh`` and ``round_to``, ``warm_obs`` and ``objectives``.
 """
 
 from __future__ import annotations
+
+import hashlib
 
 import numpy as np
 import torch
@@ -49,7 +52,6 @@ from mpi_opt_tpu_torch.train.population import PopState
 _NOT_PORTED = {
     "mesh": None,
     "round_to": 1,
-    "init_unit": None,
     "warm_obs": None,
     "objectives": None,
 }
@@ -100,6 +102,7 @@ def fused_sha(  # sweeplint: barrier(rung host loop: gathers cohort scores for t
     boundary_offset: int = 0,
     trial_offset: int = 0,
     member_offset: int = 0,
+    init_unit=None,
     **not_ported,
 ):
     """Run a whole successive-halving sweep with on-device rung cuts.
@@ -116,6 +119,10 @@ def fused_sha(  # sweeplint: barrier(rung host loop: gathers cohort scores for t
     pre-cut score at the rung's budget) before the rung's snapshot;
     ``boundary_offset``/``trial_offset``/``member_offset`` shift its
     boundaries, trial ids and members (``fused_hyperband``'s brackets).
+    ``init_unit`` (float ``[n_trials, dim]`` in the unit cube) replaces
+    the uniform initial cohort (fused BOHB's model draws); its SHA-1 is
+    part of the snapshot's identity, so a resume under other initial
+    configurations is refused.
 
     Returns the JAX package's result: best_score, best_params,
     best_trial, diverged, rung_budgets, rung_sizes, stop_rung,
@@ -135,6 +142,10 @@ def fused_sha(  # sweeplint: barrier(rung host loop: gathers cohort scores for t
     waves = 0 < wave_size < n_trials
     rungs = asha_rungs(min_budget, max_budget, eta)
     sizes = sha_cohort_sizes(n_trials, len(rungs), eta)
+    if init_unit is not None:
+        init_unit = np.asarray(init_unit, dtype=np.float32)
+        if init_unit.shape != (n_trials, space.dim):
+            raise ValueError(f"init_unit shape {init_unit.shape} != ({n_trials}, {space.dim})")
 
     # which original trial occupies each cohort row, and the trial records
     alive = np.arange(n_trials)
@@ -163,6 +174,9 @@ def fused_sha(  # sweeplint: barrier(rung host loop: gathers cohort scores for t
             # and wave and resident sweeps refuse each other's snapshots
             "wave_size": wave_size if waves else 0,
             "device": dev.type,
+            # the initial cohort defines the sweep
+            "init_unit_digest": (None if init_unit is None
+                                 else hashlib.sha1(init_unit.tobytes()).hexdigest()),
         })
         restored = snap.restore_population_sweep()
     if restored is not None:
@@ -193,7 +207,10 @@ def fused_sha(  # sweeplint: barrier(rung host loop: gathers cohort scores for t
         journal.require_prefix(start_rung)
     if restored is None:
         gen.manual_seed(seed)
-        unit = space.sample_unit(gen, n_trials)
+        if init_unit is not None:
+            unit = torch.from_numpy(init_unit).to(dev)
+        else:
+            unit = space.sample_unit(gen, n_trials)
         if waves:
             from mpi_opt_tpu_torch.train.staging import population_pool
 
@@ -221,7 +238,7 @@ def fused_sha(  # sweeplint: barrier(rung host loop: gathers cohort scores for t
     runner = None
     if waves:
         runner = WaveRunner(n_trials, run_wave_size, member_chunk=member_chunk,
-                            oom_backoff=oom_backoff, device=dev)
+                            oom_backoff=oom_backoff, device=dev, requested=wave_size)
     rung_scores_dev: list = []
     rung_keep_dev: list = []
     try:
@@ -247,7 +264,8 @@ def fused_sha(  # sweeplint: barrier(rung host loop: gathers cohort scores for t
                 def dispatch(w, off, wl, eng, hp=hp, pool_front=pool_front, perm=perm,
                              rng_start=rng_start, steps=steps):
                     return _run_wave(trainer, pool_front, perm[off:off + wl], off, hp, train_x,
-                                     train_y, val_x, val_y, gen, rng_start, steps, eng)
+                                     train_y, val_x, val_y, gen, rng_start, steps, eng,
+                                     launch_width=runner.chunk)
 
                 wave_scores = runner.run_interval(
                     n=n_r,
@@ -379,10 +397,41 @@ def fused_sha(  # sweeplint: barrier(rung host loop: gathers cohort scores for t
 _HB_NOT_PORTED = {
     "mesh": None,
     "round_to": 1,
-    "cohort_fn": None,
-    "observe_fn": None,
     "warm_obs": None,
 }
+
+
+def _bracket_cohort(checkpoint_dir, b: int, n: int, tag: str, cohort_fn):  # sweeplint: barrier(bracket cohort cache: materializes suggested units to disk)
+    """Bracket ``b``'s initial cohort ``(unit [n, dim], n_model)`` from
+    ``cohort_fn``, persisted as ``cohort_{b}.npz`` beside the bracket
+    snapshots when the sweep checkpoints, and REUSED on resume: resume
+    correctness never depends on the model drawing the same bits again.
+    The file carries the sweep's identity (``tag``: workload, plan,
+    seed) and row count, checked here, since a crash before the
+    bracket's first snapshot leaves no snapshot to refuse a reused
+    directory: a cohort of another sweep raises ``ValueError``."""
+    import os
+
+    path = None
+    if checkpoint_dir:
+        path = os.path.join(checkpoint_dir, f"cohort_{b}.npz")
+        if os.path.exists(path):
+            with np.load(path) as z:
+                cohort, n_model, saved_tag = np.array(z["cohort"]), int(z["n_model"]), str(z["tag"])
+            if cohort.shape[0] != n or saved_tag != tag:
+                raise ValueError(
+                    f"persisted cohort for bracket {b} is from a different sweep "
+                    f"({cohort.shape[0]} rows, tag {saved_tag!r}; expected {n} rows, tag "
+                    f"{tag!r}): use a fresh checkpoint dir")
+            return cohort, n_model
+    cohort, n_model = cohort_fn(b, n)
+    if path is not None:
+        os.makedirs(checkpoint_dir, exist_ok=True)
+        # write, then rename: a crash mid-write leaves no torn cohort
+        with open(f"{path}.tmp", "wb") as f:
+            np.savez(f, cohort=cohort, n_model=n_model, tag=np.asarray(tag))
+        os.replace(f"{path}.tmp", path)
+    return cohort, n_model
 
 
 def fused_hyperband(
@@ -396,6 +445,8 @@ def fused_hyperband(
     wave_size=0,
     oom_backoff: int = 2,
     device=None,
+    cohort_fn=None,
+    observe_fn=None,
     **not_ported,
 ):
     """Hyperband with every bracket a fused SHA sweep (port of the JAX
@@ -414,6 +465,12 @@ def fused_hyperband(
     bracket, and completed brackets replay from their final snapshot. A
     ``launch_boundary`` between brackets lets a drain land there (each
     bracket's last rung suppresses its own).
+
+    ``cohort_fn(b, n) -> (unit [n, dim], n_model)`` and ``observe_fn(b,
+    cohort, res)`` are fused BOHB's model hooks: sample bracket b's
+    initial cohort (``init_unit``; persisted by ``_bracket_cohort``
+    under ``checkpoint_dir``), feed its results back. Plain Hyperband is
+    the hookless case of the same loop.
 
     Returns the JAX package's result: best_score and best_params (the
     best finite bracket's, ``best_finite``), the per-bracket summaries
@@ -443,9 +500,15 @@ def fused_hyperband(
                    "staged_bytes": 0, "stage_transfer_s": 0.0, "stage_wait_s": 0.0,
                    "stage_overlap_s": 0.0}
     any_waves = False
+    # the persisted cohorts' identity: what decides which search they
+    # belong to
+    tag = f"{getattr(workload, 'name', type(workload).__name__)}|R={max_budget}|eta={eta}|seed={seed}"
     plan = bracket_plan(max_budget, eta)
     boundary_off = trial_off = member_off = 0
     for b, (n, r) in enumerate(plan):
+        cohort = n_model = None
+        if cohort_fn is not None:
+            cohort, n_model = _bracket_cohort(checkpoint_dir, b, n, tag, cohort_fn)
         res = fused_sha(
             workload,
             n_trials=n,
@@ -462,10 +525,13 @@ def fused_hyperband(
             boundary_offset=boundary_off,
             trial_offset=trial_off,
             member_offset=member_off,
+            init_unit=cohort,
         )
         boundary_off += len(res["rung_budgets"])
         trial_off += sum(res["rung_sizes"])
         member_off += n
+        if observe_fn is not None:
+            observe_fn(b, cohort, res)
         n_total += n
         if res["journal"]:
             journal_totals["written"] += res["journal"]["written"]
@@ -479,6 +545,8 @@ def fused_hyperband(
             "member_failures": res["member_failures"],
             "best_score": res["best_score"],
         }
+        if cohort_fn is not None:
+            summary["n_model_sampled"] = n_model
         if res.get("wave_size"):
             any_waves = True
             wave_totals["wave_size"] = max(wave_totals["wave_size"], res["wave_size"])

@@ -49,6 +49,7 @@ from mpi_opt_tpu_torch.train.engine import (
     WaveRunner,
     balanced_split,
     boundary_span,
+    launch_chunk,
     resolve_wave_size,
     wave_layout,
 )
@@ -384,7 +385,8 @@ def _fused_pbt_waves(  # sweeplint: barrier(wave host loop: stages pools, gather
 
     train_x, train_y, val_x, val_y = data
     req_wave_size = wave_size
-    wave_lens, _, _ = wave_layout(population, wave_size, member_chunk)
+    wave_lens, _, _ = wave_layout(population, wave_size,
+                                  launch_chunk(population, wave_size, member_chunk, oom_backoff))
     disc = space.discrete_mask()
     to_hparams = hparams_fn(space, workload)
     gen = torch.Generator(device=dev)
@@ -453,7 +455,7 @@ def _fused_pbt_waves(  # sweeplint: barrier(wave host loop: stages pools, gather
     snapshot_every = max(1, snapshot_every)
     flops_gen = segment_flops_hint(workload, population, steps_per_gen)
     runner = WaveRunner(population, wave_size, member_chunk=member_chunk,
-                         oom_backoff=oom_backoff, device=dev)
+                         oom_backoff=oom_backoff, device=dev, requested=req_wave_size)
     try:
         for g in range(start_gen, generations):
             t_gen = time.perf_counter()
@@ -468,7 +470,8 @@ def _fused_pbt_waves(  # sweeplint: barrier(wave host loop: stages pools, gather
 
             def dispatch(w, off, wl, eng, hp=hp, pool_front=pool_front, perm=perm, rng_start=rng_start):
                 return _run_wave(trainer, pool_front, perm[off:off + wl], off, hp, train_x, train_y,
-                                 val_x, val_y, gen, rng_start, steps_per_gen, eng)
+                                 val_x, val_y, gen, rng_start, steps_per_gen, eng,
+                                 launch_width=runner.chunk)
 
             def dst(off, wl, pool_back=pool_back):
                 return {"state": pool_rows(pool_back, off, wl), "scores": scores_host[off:off + wl]}

@@ -27,7 +27,9 @@ member, whose losses, gradients and scores are dropped before anything
 reads them. A resident sweep, its waves, an OOM-backed-off re-run and
 an SHA rung of any size then launch the same shape, and each member
 gives the same bits. Without a member chunk a launch is the whole
-cohort (or wave) the trainer is handed.
+cohort (or wave) the trainer is handed, except in a wave sweep that
+may halve its cap: the wave engine then gives every launch one fixed
+width (``train/engine.py::launch_chunk``, through ``launching``).
 """
 
 from __future__ import annotations
@@ -170,6 +172,13 @@ class PopulationTrainer:
             for name, p in layer.named_parameters():
                 params[f"{prefix}.{name}" if prefix else name].copy_(p)
             layer.to_empty(device="meta")
+
+    def launching(self, member_chunk: int) -> "PopulationTrainer":
+        """This trainer with every launch running ``member_chunk`` members
+        (a shallow copy: the template, device and dtypes are shared)."""
+        trainer = copy.copy(self)
+        trainer.member_chunk = member_chunk
+        return trainer
 
     def member_bytes(self) -> int:
         """Bytes of one member's carried state: parameters at their

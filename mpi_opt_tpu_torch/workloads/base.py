@@ -44,8 +44,9 @@ class PopulationWorkload:
     dataset: str = ""
     batch_size: int = 256
     augment: bool = True
-    default_n_train: int = 16384
-    default_n_val: int = 2048
+    # synthetic sets are subsettable; fixed-size sets set these to None
+    default_n_train: int | None = 16384
+    default_n_val: int | None = 2048
 
     def __init__(self, n_train: int | None = None, n_val: int | None = None):
         self.n_train = n_train if n_train is not None else self.default_n_train
@@ -59,11 +60,16 @@ class PopulationWorkload:
         raise NotImplementedError
 
     def data(self) -> dict:
-        """Host numpy dict(train_x, train_y, val_x, val_y, n_classes)."""
+        """Host numpy dict(train_x, train_y, val_x, val_y, n_classes).
+        The sizes go to the loader only when set: a fixed-size set (the
+        UCI tables) takes none."""
         if self._data is None:
             from mpi_opt_tpu_torch.data import load_dataset
 
-            self._data = load_dataset(self.dataset, n_train=self.n_train, n_val=self.n_val)
+            kwargs = {}
+            if self.n_train is not None:
+                kwargs = {"n_train": self.n_train, "n_val": self.n_val}
+            self._data = load_dataset(self.dataset, **kwargs)
         return self._data
 
     def make_trainer(self, member_chunk: int = 0, device=None, momentum_dtype: str | None = None):

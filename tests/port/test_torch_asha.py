@@ -115,7 +115,7 @@ def test_fused_sha_structure_matches_jax(tmp_path):
     assert got["rung_budgets"] == want["rung_budgets"] == [2, 4, 8]
     assert set(got) - {"wave_size", "wave_lens", "n_waves", "waves_run", "oom_backoffs",
                        "staged_bytes", "stage_transfer_s", "stage_wait_s",
-                       "stage_overlap_s", "launch_width_before", "launch_width_after",
+                       "stage_overlap_s", "launch_width", "launch_width_before", "launch_width_after",
                        "launch_shape_changed"} == set(want)
     assert [len(h["trials"]) for h in got["rung_history"]] == [8, 4, 2]
     assert [h["budget"] for h in got["rung_history"]] == [h["budget"] for h in want["rung_history"]]

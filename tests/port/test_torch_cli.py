@@ -223,9 +223,11 @@ def test_cli_flags_not_ported_are_usage_errors(tmp_path, flag, capsys):
     (["report", "l.jsonl"], "'report' subcommand is not ported yet"),
     (["fsck", "ck"], "'fsck' subcommand is not ported yet"),
     (["--workload", "fashion_mlp", "--algorithm", "pbt"], "driver path (no --fused) is not ported yet"),
-    (["--workload", "fashion_mlp", "--algorithm", "bohb", "--fused"],
-     "--algorithm bohb is not ported yet"),
-    (["--workload", "fashion_mlp", "--algorithm", "tpe", "--fused"], "--algorithm tpe is not ported yet"),
+    # TPE and BOHB are ported; what they leave out is refused
+    (["--workload", "fashion_mlp", "--algorithm", "bohb", "--fused", "--n-pop", "2"],
+     "--n-pop is not ported yet"),
+    (["--workload", "fashion_mlp", "--algorithm", "tpe", "--fused", "--warm-start", "p.jsonl"],
+     "--warm-start is not ported yet"),
     (["--workload", "fashion_mlp", "--algorithm", "pbt", "--fused", "--resume"],
      "--resume requires --checkpoint-dir or --ledger"),
     (["--workload", "fashion_mlp", "--algorithm", "pbt", "--fused", "--trace"],
@@ -262,10 +264,10 @@ def test_cli_runs_on_cuda_unless_told(monkeypatch, tmp_path):
 
 # -- the wave engine and successive halving through the CLI ----------------
 
-#: the JAX CLI's summary wave fields (``_wave_extras``) and the port's ``waves_run``
-#: and ``launch_shape_changed``
+#: the JAX CLI's summary wave fields (``_wave_extras``) and the port's ``waves_run``,
+#: ``launch_width`` and ``launch_shape_changed``
 WAVE_KEYS = {"wave_size", "n_waves", "staged_bytes", "stage_overlap_s", "stage_wait_s",
-             "oom_backoffs", "waves_run", "launch_shape_changed"}
+             "oom_backoffs", "waves_run", "launch_width", "launch_shape_changed"}
 
 
 def _pbt(tmp_path, *extra, name="run"):

@@ -1,5 +1,7 @@
 """The port stands alone: no file of mpi_opt_tpu_torch/, and not
-chip_smoke.py, imports JAX, flax, optax, orbax or the JAX package."""
+chip_smoke.py, imports JAX, flax, optax, orbax, the JAX package or
+scikit-learn (the card's machine has none of them: the UCI tables ship
+with the port)."""
 
 import ast
 from pathlib import Path
@@ -7,7 +9,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[2]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "mpi_opt_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "mpi_opt_tpu", "sklearn"}
 FILES = sorted((ROOT / "mpi_opt_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -32,6 +34,8 @@ def test_no_jax_imports(path):
 @pytest.mark.parametrize("module", [
     "train/engine.py", "train/staging.py", "train/fused_asha.py", "ops/asha.py", "obs/memory.py",
     "obs/trace.py", "obs/report.py", "obs/bubbles.py", "algorithms/base.py", "algorithms/hyperband.py",
+    "ops/tpe.py", "algorithms/bohb.py", "data/loaders.py", "workloads/tabular.py", "train/fused_tpe.py",
+    "train/fused_bohb.py",
 ])
 def test_wave_engine_modules_are_scanned(module):
     assert ROOT / "mpi_opt_tpu_torch" / module in FILES

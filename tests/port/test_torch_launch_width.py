@@ -4,7 +4,9 @@ member chunk every launch runs exactly that many members: a short chunk
 is padded with stand-ins whose results are dropped, waves hold whole
 chunks, and an OOM halving never goes below one chunk. A wave sweep and
 an OOM-backed-off sweep then end in the resident sweep's bits. Without
-a member chunk a halving changes the launch shape, and says so."""
+a member chunk a wave sweep launches at one fixed width, the smallest
+cap its OOM budget can reach, so a backed-off sweep ends in the
+unfaulted sweep's bits too."""
 
 import json
 
@@ -141,18 +143,80 @@ def test_oom_at_a_cap_of_one_chunk_propagates(cnn, wave_size):
     assert exc.value.wave_size == 2
 
 
-def test_halving_without_a_member_chunk_declares_the_shape_change(_events):
-    """Without a member chunk a wave's launch is the whole wave, so a
-    halving changes the launch shape: the event and the result say so."""
+def test_halving_without_a_member_chunk_declares_the_shape_change(tmp_path, _events):
+    """Without a member chunk a wave sweep that may halve its cap twice
+    launches at one fixed width, cap >> 2 (waves of 4 -> launches of 1):
+    an OOM halving keeps the launch shape, and the backed-off run's
+    records, curves, unit matrix and state digest equal the unfaulted
+    run's. (The name is the test's from before the repair, when the
+    halving changed the shape and declared it.)"""
     wl = get_workload("fashion_mlp", n_train=256, n_val=128)
     kw = dict(population=8, generations=2, steps_per_gen=2, seed=2, device="cpu")
-    resources.set_launch_fault_injector(OOMAt(1))
-    res = fp.fused_pbt(wl, wave_size=4, oom_backoff=2, **kw)
+    space = wl.default_space()
+    out = {}
+    for tag, inj in (("clean", None), ("oom", OOMAt(1))):
+        resources.set_launch_fault_injector(inj)
+        led = _ledger(tmp_path / f"{tag}.jsonl", space)
+        try:
+            out[tag] = fp.fused_pbt(wl, wave_size=4, oom_backoff=2, ledger=led, **kw)
+        finally:
+            led.close()
+    res, clean = out["oom"], out["clean"]
     (_, fields), = [e for e in _events if e[0] == "oom_backoff"]
-    assert (fields["launch_width_before"], fields["launch_width_after"]) == (4, 2)
-    assert fields["launch_shape_changed"] is True
-    assert (res["launch_width_before"], res["launch_width_after"]) == (4, 2)
-    assert res["launch_shape_changed"] is True
+    assert (fields["launch_width_before"], fields["launch_width_after"]) == (1, 1)
+    assert fields["launch_shape_changed"] is False
+    assert (res["launch_width_before"], res["launch_width_after"]) == (1, 1)
+    assert res["launch_shape_changed"] is False and res["oom_backoffs"] == 1
+    assert res["wave_size"] == 2 and clean["wave_size"] == 4
+    _same_sweep(res, clean)
+    assert _records(tmp_path / "oom.jsonl") == _records(tmp_path / "clean.jsonl")
+
+
+def test_smallcnn_backoff_without_a_member_chunk_equals_unfaulted(cnn, _events):
+    """The SmallCNN (whose oneDNN convolutions depend on the launch's
+    member count) without a member chunk, 8 members in waves of 4 with
+    one halving allowed: every launch runs 2 members, so an OOM halving
+    to waves of 2 ends in the unfaulted run's digest, curves and unit
+    matrix."""
+    kw = {k: v for k, v in CNN_KW.items() if k != "member_chunk"}
+    clean = fp.fused_pbt(cnn, wave_size=4, oom_backoff=1, **kw)
+    inj = OOMAt(2)
+    resources.set_launch_fault_injector(inj)
+    faulted = fp.fused_pbt(cnn, wave_size=4, oom_backoff=1, **kw)
+    assert inj.fired == 1 and faulted["oom_backoffs"] == 1 and faulted["wave_size"] == 2
+    assert clean["launch_width"] == faulted["launch_width"] == 2
+    assert faulted["launch_shape_changed"] is False
+    _same_sweep(faulted, clean)
+
+
+@pytest.mark.parametrize("n,cap,chunk,backoff,want", [
+    (8, 4, 0, 2, 1),  # the smallest cap two halvings reach
+    (64, 32, 0, 2, 8),
+    (64, 24, 0, 2, 6),
+    (8, 3, 0, 3, 1),  # never below one member
+    (8, 4, 0, 0, 0),  # nothing halves: a launch is the whole wave
+    (8, 8, 0, 2, 0),  # resident
+    (8, 0, 0, 2, 0),
+    (8, 4, 2, 2, 2),  # a member chunk is the width
+])
+def test_launch_chunk(n, cap, chunk, backoff, want):
+    assert engine.launch_chunk(n, cap, chunk, backoff) == want
+
+
+def test_result_extras_report_the_launch_width():
+    """``launch_width`` is the runner's fixed width from the requested
+    cap: a resume that adopts a halved cap keeps it."""
+    for cap, chunk, backoff, requested, width in ((32, 0, 2, None, 8), (16, 0, 2, 32, 8),
+                                                  (32, 0, 0, None, 32), (32, 8, 2, None, 8)):
+        runner = engine.WaveRunner(64, cap, member_chunk=chunk, oom_backoff=backoff,
+                                   requested=requested)
+        try:
+            extras = runner.result_extras()
+        finally:
+            runner.close()
+        assert extras["launch_width"] == width
+        assert extras["launch_width_before"] == extras["launch_width_after"] == width
+        assert extras["launch_shape_changed"] is False
 
 
 def test_padding_reaches_no_loss_update_or_score():

@@ -286,3 +286,48 @@ def test_wave_layout_and_balanced_split():
     assert engine.wave_layout(8, 3) == ([3, 3, 2], [0, 3, 6], 3)
     assert engine.wave_layout(8, 8) == ([8], [0], 1)
     assert engine.wave_layout(22, 16) == ([11, 11], [0, 11], 2)
+
+
+@pytest.mark.parametrize("with_state", [True, False])
+def test_run_interval_keeps_no_wave_past_its_stage_out(with_state):
+    """The card holds at most two waves: once a wave's copy out has
+    landed, nothing of the runner's keeps its state alive while the next
+    wave trains, whether the state was staged out or (TPE) only the
+    scores were. The scores stay: the runner returns them."""
+    import gc
+    import weakref
+
+    n, cap = 6, 2
+    runner = engine.WaveRunner(n, cap)
+    pool = {"params": {"w": torch.zeros(n, 3)}, "momentum": {"w": torch.zeros(n, 3)},
+            "step": torch.zeros(n, dtype=torch.int32)}
+    scores_host = torch.full((n,), float("nan"))
+    refs = []
+
+    def run_wave(w, off, wl, eng):
+        if refs:
+            eng.drain()  # the previous wave's copy has landed
+            gc.collect()
+            assert refs[-1]() is None, "the previous wave is still referenced"
+        st = engine.PopState({"w": torch.full((wl, 3), float(w))}, {"w": torch.ones(wl, 3)},
+                             torch.full((wl,), w, dtype=torch.int32))
+        sc = torch.full((wl,), float(w))
+        refs.append(weakref.ref(st.params["w"]))
+        return st, sc
+
+    def dst(off, wl):
+        d = {"scores": scores_host[off:off + wl]}
+        if with_state:
+            d = {"state": staging.pool_rows(pool, off, wl), **d}
+        return d
+
+    try:
+        runner.run_interval(n=n, run_wave_fn=run_wave, dst_fn=dst, scores_host=scores_host,
+                            stage_label=lambda w, nw: f"wave {w + 1}/{nw}")
+    finally:
+        runner.close()
+    assert scores_host.tolist() == [0.0, 0.0, 1.0, 1.0, 2.0, 2.0]
+    if with_state:
+        assert pool["params"]["w"][:, 0].tolist() == [0.0, 0.0, 1.0, 1.0, 2.0, 2.0]
+    else:
+        assert pool["params"]["w"].eq(0).all()  # a scores-only stage-out writes no state
