@@ -111,13 +111,34 @@ Phases, in order; any failure exits non-zero and prints no result:
    bracket, trials/s; (b) full-width cifar10_cnn at R=27, member chunk
    8, resident and then in waves of 8: the same records and best, both
    GN kernels in every bracket and the plain versions never;
-14. the script's wall, the ``kernels`` line (JSON), then the device line
+14. multi-objective sweeps (``--phases mo``, the 15th of ``PHASES``):
+   (a) BENCH_ALL.json config 8 at full size, nothing cut: ``fused_pbt``
+   over ``digits_mlp``, 8 members x 3 x 40, ``accuracy:max,params:min``,
+   a call on a fresh workload then a timed call (member-generations/s,
+   the front, its hypervolume, the winner's vector), then three
+   journaled calls, one at ``gen_chunk=3``: one state digest, the same
+   records; (b) the CLI on digits_mlp with ``--objectives``, a ledger and
+   snapshots, SIGKILLed once generation 1 is journaled: ``--resume``
+   exits 0 with the unkilled run's records (vectors included) and front;
+   a resume under other objectives exits 2; ``params:min<=1`` ends in
+   ``least_violation`` with an ``objective_degraded`` event;
+   ``--wave-size``/``--step-chunk`` with ``--objectives`` exit 2; (c)
+   the north star's width and population (cifar10_cnn, 256 members,
+   chunk 32, 2 x 20) scalar and multi-objective in turns: both GN
+   kernels in every generation at the scalar run's counts and the plain
+   versions never, the rates side by side, then ``pareto_score`` (m=2,
+   3), ``member_effective_params``, the MO exploit and the MO eval at
+   n=256 by CUDA events; (d) fused SHA on fashion_mlp at config 2's
+   shape under ``accuracy:max,latency:min`` against the scalar sweep in
+   turns: rungs [64, 22, 8, 3], every ok record a 2-vector, trials/s;
+15. the script's wall, the ``kernels`` line (JSON), then the device line
    (JSON, last).
 
-Each path (4, 6, 8, 9, 10a, 10d, 11b, 12b, 13b) runs through the entry
-points a user calls, with the launch counts zeroed just before and read
-just after (in phase 9, its runs in this process; in 10a, each run; in
-11b, 12b and 13b, read at each bracket or generation boundary too):
+Each path (4, 6, 8, 9, 10a, 10d, 11b, 12b, 13b, 14c) runs through the
+entry points a user calls, with the launch counts zeroed just before and
+read just after (in phase 9, its runs in this process; in 10a, each run;
+in 11b, 12b, 13b and 14c, read at each bracket or generation boundary
+too):
 where the model has GroupNorm both kernels must have run, the plain
 versions never; the best score must be finite and the curves in [0, 1].
 
@@ -900,7 +921,7 @@ SHA_TRIALS, SHA_MIN, SHA_MAX, SHA_ETA, SHA_W = 64, 10, 270, 3, 16  # BENCH_ALL.j
 C5_P = 1024  # BASELINE.json config 5: PBT over 1024 ResNet-18 members
 # the phases after the build, in order (``--phases`` picks some)
 PHASES = ("kernels", "slice", "north_star", "mlp", "durability", "waves", "oom", "oom_chunk", "drain",
-          "sha", "config5", "hyperband", "tpe", "bohb")
+          "sha", "config5", "hyperband", "tpe", "bohb", "mo")
 
 # a launcher for the port's CLI: caps this process's CUDA allocator at a
 # fraction of the card (0: no cap), runs the CLI, and writes the
@@ -1700,6 +1721,351 @@ def tpe_cli_phase(smi):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# Multi-objective: BENCH_ALL.json config 8 (bench_all.py:744-790) at full
+# size, nothing cut; the CLI drill runs config 8's members and steps for
+# more generations, so a kill after generation 1 lands mid-run
+MO_SPEC = "accuracy:max,params:min"
+C8_P, C8_GENS, C8_STEPS = 8, 3, 40
+MO_CLI_GENS = 12
+MO_SHA_SPEC = "accuracy:max,latency:min"
+
+
+def _mo_ledger(path, space, spec, algorithm: str, text: str):
+    from mpi_opt_tpu_torch.ledger import SweepLedger
+
+    led = SweepLedger(path, read_only=False)
+    led.ensure_header({"mode": "fused", "granularity": "generation" if algorithm == "pbt" else "rung",
+                       "algorithm": algorithm, "seed": 0, "space_hash": space.space_hash(),
+                       **({"objectives": text} if spec is not None else {})},
+                      space_spec=space.spec(), objective_spec=None if spec is None else spec.spec())
+    return led
+
+
+def _front_fault(res, what: str, selection: str = "feasible") -> str | None:
+    p = res["pareto"]
+    if p is None or p["selection"] != selection or p["front_size"] < 1 or not math.isfinite(p["hypervolume"]):
+        return f"{what}: pareto {p}"
+    if p["front_size"] != len(p["front_members"]) or any(
+            len(v) != len(res["objectives"]) or not all(map(math.isfinite, v)) for v in p["front_scores"]):
+        return f"{what}: pareto {p}"
+    return None
+
+
+def mo_config8_phase(smi):
+    """(a) BENCH_ALL.json config 8 at full size: ``fused_pbt`` over
+    ``digits_mlp``, C8_P members x C8_GENS x C8_STEPS, one generation a
+    launch, ``accuracy:max,params:min``: a call on a fresh workload (the
+    digits table parsed inside it), a timed call, then two journaled
+    calls and one at ``gen_chunk=3``. Member-generations/s, the front,
+    its hypervolume and the winner's vector (the front member with the
+    best primary, as the JAX bench reports it); every call must end in
+    the first one's state digest, the journaled calls in the same
+    records (2-vectors), the gen-chunk split included."""
+    import shutil
+
+    from mpi_opt_tpu_torch import get_workload
+    from mpi_opt_tpu_torch.ledger import validate_ledger
+    from mpi_opt_tpu_torch.objectives import ObjectiveSpec
+    from mpi_opt_tpu_torch.train.fused_pbt import fused_pbt
+
+    spec = ObjectiveSpec.parse(MO_SPEC)
+    wl = get_workload("digits_mlp")  # fresh: the table is parsed inside the first call
+    space = wl.default_space()
+    tmp = os.path.join(ROOT, "build", "chip_smoke_mo")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    out = {"card": smi, "workload": "digits_mlp", "objectives": MO_SPEC, "population": C8_P,
+           "generations": C8_GENS, "steps_per_gen": C8_STEPS, "runs": {}}
+    digests, records = {}, {}
+    try:
+        for tag, chunk, journaled in (("setup_included", 1, False), ("warm", 1, False),
+                                      ("ledger", 1, True), ("ledger_again", 1, True),
+                                      ("ledger_gen_chunk3", 3, True)):
+            path = os.path.join(tmp, f"{tag}.jsonl")
+            led = _mo_ledger(path, space, spec, "pbt", MO_SPEC) if journaled else None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                res = fused_pbt(wl, population=C8_P, generations=C8_GENS, steps_per_gen=C8_STEPS, seed=0,
+                                gen_chunk=chunk, objectives=spec, ledger=led)
+                torch.cuda.synchronize()
+            finally:
+                if led is not None:
+                    led.close()
+            wall = time.perf_counter() - t0
+            p = res["pareto"]
+            out["runs"][tag] = {
+                "wall_s": wall, "member_generations_per_s": C8_P * C8_GENS / wall,
+                "best_score": res["best_score"], "best_curve": res["best_curve"].tolist(),
+                "member_failures": res["member_failures"], "front_size": p["front_size"],
+                "hypervolume": p["hypervolume"], "selection": p["selection"],
+                "winner": max(p["front_scores"], key=lambda v: v[0]), "front_scores": p["front_scores"]}
+            print(f"mo config 8 {tag} ({smi}): {json.dumps(out['runs'][tag])}")
+            bad = sweep_fault(res, C8_GENS, {"gn_fwd": 0, "gn_bwd": 0, "plain": 0}, f"mo config 8 {tag}",
+                              kernels=False) or _front_fault(res, f"mo config 8 {tag}")
+            if bad:
+                return out, bad
+            digests[tag] = _state_digest(res)
+            if journaled:
+                records[tag] = _records(path)
+                problems = validate_ledger(path)
+                vectors = [len(r["scores"]) for r in records[tag] if r["status"] == "ok"]
+                if problems or len(records[tag]) != C8_P * C8_GENS or set(vectors) != {2}:
+                    return out, f"mo config 8 {tag}: ledger {problems}, vectors {vectors}"
+        out["same_digest"] = len(set(digests.values())) == 1
+        out["same_records"] = records["ledger"] == records["ledger_again"] == records["ledger_gen_chunk3"]
+        print(f"mo config 8: one state digest {out['same_digest']}, the same records {out['same_records']}")
+        if not (out["same_digest"] and out["same_records"]):
+            return out, f"mo config 8: digests {digests}, same records {out['same_records']}"
+        return out, None
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def mo_cli_phase(smi):
+    """(b) The CLI on digits_mlp with ``--objectives``, a ledger and
+    snapshots (config 8's members and steps, MO_CLI_GENS generations):
+    an unkilled run; a run SIGKILLed once generation 1 is journaled, then
+    ``--resume`` to the unkilled run's records (vectors included), best,
+    curve and front; ``--resume`` under other objectives exits 2; a bound
+    no member meets (``params:min<=1``) ends in ``least_violation`` with
+    an ``objective_degraded`` event; ``--wave-size`` and ``--step-chunk``
+    with ``--objectives`` exit 2."""
+    import shutil
+
+    import mpi_opt_tpu_torch.cli as cli
+    from mpi_opt_tpu_torch.utils.exitcodes import EX_USAGE
+
+    tmp = os.path.join(ROOT, "build", "chip_smoke_mo_cli")
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    def argv(name, *extra, spec=MO_SPEC):
+        os.makedirs(os.path.join(tmp, name), exist_ok=True)
+        return [sys.executable, "-m", "mpi_opt_tpu_torch", "--workload", "digits_mlp", "--algorithm", "pbt",
+                "--fused", "--population", str(C8_P), "--generations", str(MO_CLI_GENS),
+                "--steps-per-generation", str(C8_STEPS), "--gen-chunk", "1", "--seed", "0", "--device", "cuda",
+                "--objectives", spec, "--checkpoint-dir", os.path.join(tmp, name, "ck"),
+                "--ledger", os.path.join(tmp, name, "ledger.jsonl"),
+                "--metrics-file", os.path.join(tmp, name, "metrics.jsonl"), *extra]
+
+    def journaled(path, n):
+        def ready():
+            try:
+                with open(path) as f:
+                    return sum(1 for x in f if '"boundary"' in x) >= n * C8_P
+            except OSError:
+                return False
+        return ready
+
+    def events(name, kind):
+        with open(os.path.join(tmp, name, "metrics.jsonl")) as f:
+            return [e for e in map(json.loads, f) if e.get("event") == kind]
+
+    out = {"card": smi}
+    try:
+        rc, whole = _run_to_end(argv("whole"))
+        out["unkilled"] = {"exit": rc, "summary": whole}
+        if rc != 0 or whole.get("objectives") != ["accuracy", "params"] or not whole.get("pareto"):
+            return out, f"mo CLI: the unkilled run exited {rc}: {whole}"
+        if len(events("whole", "pareto_front")) != 1 or events("whole", "objective_degraded"):
+            return out, "mo CLI: the unkilled run's events are not one pareto_front and no degradation"
+        cut = argv("cut")
+        rc, _, err = _interrupt(cut, journaled(os.path.join(tmp, "cut", "ledger.jsonl"), 1), signal.SIGKILL,
+                                "mo CLI SIGKILL")
+        out["killed"] = {"exit": rc}
+        if rc != -signal.SIGKILL:
+            return out, f"mo CLI: the killed run exited {rc}:\n{err[-3000:]}"
+        resumed = _resume(cut, "mo CLI")
+        out["resumed"] = resumed
+        recs, want = _records(os.path.join(tmp, "cut", "ledger.jsonl")), _records(
+            os.path.join(tmp, "whole", "ledger.jsonl"))
+        same = recs == want and all(len(r["scores"]) == 2 for r in recs if r["status"] == "ok")
+        out["same_records"] = same
+        keys = ("best_score", "best_curve", "pareto")
+        print(f"mo CLI ({smi}): unkilled {whole.get('trials_per_sec_per_chip')} trials/s, best "
+              f"{whole.get('best_score')}, front {whole['pareto']['front_size']}; SIGKILL exit {rc}; resumed "
+              f"journal {resumed.get('journal')}, same records {same}")
+        if not same or any(resumed.get(k) != whole.get(k) for k in keys):
+            return out, "mo CLI: the resumed run's records, best, curve or front differ from the unkilled run's"
+        other = subprocess.run([*argv("cut", spec="accuracy:max,latency:min"), "--resume"], cwd=ROOT,
+                               capture_output=True, text=True, timeout=300)
+        out["other_objectives_resume_exit"] = other.returncode
+        if other.returncode != EX_USAGE:
+            return out, f"mo CLI: a resume under other objectives exited {other.returncode}"
+        rc, degraded = _run_to_end(argv("degraded", "--generations", str(C8_GENS),
+                                        spec="accuracy:max,params:min<=1"))
+        ev = events("degraded", "objective_degraded")
+        out["degraded"] = {"exit": rc, "pareto": degraded.get("pareto"), "events": ev}
+        print(f"mo CLI degraded ({smi}): exit {rc}, pareto {degraded.get('pareto')}, events {ev}")
+        if rc != 0 or (degraded.get("pareto") or {}).get("selection") != "least_violation" or len(ev) != 1:
+            return out, f"mo CLI: the unmeetable bound gave exit {rc}, {degraded.get('pareto')}, events {ev}"
+        # usage errors: refused before anything touches the card
+        for flag, value in (("--wave-size", "4"), ("--step-chunk", "5")):
+            try:
+                cli.main([*argv("refused", flag, value)[3:]])
+                code = 0
+            except SystemExit as e:
+                code = e.code
+            out[f"refused{flag}"] = code
+            if code != EX_USAGE:
+                return out, f"mo CLI: --objectives with {flag} exited {code}"
+        return out, None
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def mo_north_star_phase(gn, get_workload, smi):
+    """(c) The north star's width and population: full-width cifar10_cnn,
+    CNN_P members, member chunk CNN_CHUNK, NS_GENS x NS_STEPS, one
+    generation a launch, scalar and under ``accuracy:max,params:min`` in
+    turns (scalar, MO, MO, scalar). Both GN kernels must launch in every
+    generation at the scalar run's counts and the plain versions never;
+    a finite best, curves in [0, 1], the two MO runs one digest. Then, by
+    CUDA events at n=CNN_P: ``pareto_score`` at m=2 and m=3 on the final
+    population's objective matrix, ``member_effective_params`` over its
+    weights, the whole MO exploit against the scalar one, and the MO
+    evaluation against the accuracy alone. Returns (record, GN launches
+    of the MO runs, problem)."""
+    from mpi_opt_tpu_torch.objectives import ObjectiveSpec, pareto_score
+    from mpi_opt_tpu_torch.ops.pbt import PBTConfig, pbt_exploit_explore, pbt_exploit_explore_mo
+    from mpi_opt_tpu_torch.train.common import eval_population_objectives, workload_arrays
+    from mpi_opt_tpu_torch.train.fused_pbt import fused_pbt
+    from mpi_opt_tpu_torch.train.population import PopulationTrainer
+    from mpi_opt_tpu_torch.utils import resources
+
+    spec = ObjectiveSpec.parse(MO_SPEC)
+    wl = get_workload("cifar10_cnn")
+    # set-up (the data on the card, the trainer) before the runs in turns
+    trainer, space, _, _, val_x, val_y = workload_arrays(wl, CNN_CHUNK, torch.device("cuda"))
+    out = {"card": smi, "population": CNN_P, "member_chunk": CNN_CHUNK, "generations": NS_GENS,
+           "steps_per_gen": NS_STEPS, "objectives": MO_SPEC, "runs": []}
+    launches = {"gn_fwd": 0, "gn_bwd": 0, "plain": 0}
+    by_gen, digests, mo_res = {}, [], None
+    for tag in ("scalar", "mo", "mo", "scalar"):
+        per_gen, at_boundary = _per_boundary(gn, "pbt launch")
+        gn.reset_launches()
+        resources.set_boundary_fault_injector(at_boundary)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            res = fused_pbt(wl, population=CNN_P, generations=NS_GENS, steps_per_gen=NS_STEPS, seed=0,
+                            member_chunk=CNN_CHUNK, gen_chunk=1, objectives=spec if tag == "mo" else None)
+            torch.cuda.synchronize()
+        finally:
+            resources.set_boundary_fault_injector(None)
+        wall = time.perf_counter() - t0
+        run_launches = dict(gn.LAUNCHES)
+        deltas = [{k: c[k] - (per_gen[i - 1][k] if i else 0) for k in c} for i, c in enumerate(per_gen)]
+        rec = {"tag": tag, "wall_s": wall, "member_generations_per_s": CNN_P * NS_GENS / wall,
+               "best_score": res["best_score"], "best_curve": res["best_curve"].tolist(),
+               "launches": run_launches, "launches_by_generation": deltas}
+        if tag == "mo":
+            rec.update(front_size=res["pareto"]["front_size"], hypervolume=res["pareto"]["hypervolume"],
+                       selection=res["pareto"]["selection"])
+        out["runs"].append(rec)
+        print(f"mo north star {tag} ({smi}): {json.dumps(rec)}")
+        bad = sweep_fault(res, NS_GENS, run_launches, f"the MO north star ({tag})")
+        if tag == "mo":
+            bad = bad or _front_fault(res, "the MO north star")
+        if bad:
+            return out, launches, bad
+        if len(deltas) != NS_GENS or any(d["gn_fwd"] <= 0 or d["gn_bwd"] <= 0 or d["plain"] for d in deltas):
+            return out, launches, f"the MO north star ({tag}): launches by generation {deltas}"
+        if by_gen.setdefault(tag, deltas) != deltas:
+            return out, launches, f"the MO north star ({tag}): launch counts differ between runs"
+        if tag == "mo":
+            for k in launches:
+                launches[k] += run_launches[k]
+            digests.append(_state_digest(res))
+            mo_res = res
+    rate = lambda t: [r["member_generations_per_s"] for r in out["runs"] if r["tag"] == t]
+    out["mo_over_scalar"] = sum(rate("mo")) / sum(rate("scalar"))
+    print(f"mo north star ({smi}): scalar {rate('scalar')}, MO {rate('mo')} member-generations/s, "
+          f"MO / scalar {out['mo_over_scalar']}")
+    if by_gen["mo"] != by_gen["scalar"]:
+        return out, launches, f"the MO north star: GN launches {by_gen['mo']} vs the scalar {by_gen['scalar']}"
+    if digests[0] != digests[1]:
+        return out, launches, "the MO north star: the two MO runs end in different states"
+    # the MO pieces alone, by CUDA events, on the final population
+    state = mo_res["state"]
+    mo3 = eval_population_objectives(trainer, state, val_x, val_y, ("accuracy", "params", "latency"))
+    spec3 = ObjectiveSpec.parse("accuracy:max,params:min,latency:min")
+    norm2, norm3 = spec.normalize(mo3[:, :2].contiguous()), spec3.normalize(mo3)
+    unit = torch.as_tensor(mo_res["unit"], device=val_x.device)
+    disc = space.discrete_mask()
+    gen = torch.Generator(device=val_x.device).manual_seed(0)
+    ms = {
+        "pareto_score_m2": _event_ms(lambda: pareto_score(norm2)),
+        "pareto_score_m3": _event_ms(lambda: pareto_score(norm3)),
+        "member_effective_params": _event_ms(lambda: PopulationTrainer.member_effective_params(state)),
+        "exploit_mo": _event_ms(lambda: pbt_exploit_explore_mo(gen, unit, norm2, disc, PBTConfig())),
+        "exploit_scalar": _event_ms(lambda: pbt_exploit_explore(gen, unit, mo3[:, 0], disc, PBTConfig())),
+        "eval_mo": _event_ms(lambda: eval_population_objectives(trainer, state, val_x, val_y, spec.names),
+                             iters=5, warmup=1),
+        "eval_accuracy": _event_ms(lambda: trainer.eval_population(state, val_x, val_y), iters=5, warmup=1),
+    }
+    out["event_ms"] = ms
+    print(f"mo pieces at n={CNN_P} ({smi}), ms a call by CUDA events: {json.dumps(ms)}")
+    return out, launches, None
+
+
+def mo_sha_phase(smi):
+    """(d) Fused SHA with objectives on fashion_mlp at BENCH_ALL.json
+    config 2's shape (SHA_TRIALS trials, SHA_MIN -> SHA_MAX, eta
+    SHA_ETA), resident and journaled, ``accuracy:max,latency:min``,
+    against the scalar sweep in turns (scalar, MO, MO, scalar): rungs
+    [64, 22, 8, 3], every ok record a 2-vector, trials/s."""
+    import shutil
+
+    from mpi_opt_tpu_torch import get_workload
+    from mpi_opt_tpu_torch.objectives import ObjectiveSpec
+    from mpi_opt_tpu_torch.train.common import workload_arrays
+    from mpi_opt_tpu_torch.train.fused_asha import fused_sha
+
+    spec = ObjectiveSpec.parse(MO_SHA_SPEC)
+    wl = get_workload("fashion_mlp")
+    # set-up (the data on the card, the trainer) before the runs in turns
+    space = workload_arrays(wl, 0, torch.device("cuda"))[1]
+    tmp = os.path.join(ROOT, "build", "chip_smoke_mo_sha")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    out = {"card": smi, "n_trials": SHA_TRIALS, "budgets": [SHA_MIN, SHA_MAX], "eta": SHA_ETA,
+           "objectives": MO_SHA_SPEC, "runs": []}
+    try:
+        for i, tag in enumerate(("scalar", "mo", "mo", "scalar")):
+            objectives = spec if tag == "mo" else None
+            path = os.path.join(tmp, f"{i}.jsonl")
+            led = _mo_ledger(path, space, objectives, "asha", MO_SHA_SPEC)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                res = fused_sha(wl, n_trials=SHA_TRIALS, min_budget=SHA_MIN, max_budget=SHA_MAX, eta=SHA_ETA,
+                                seed=0, ledger=led, objectives=objectives)
+                torch.cuda.synchronize()
+            finally:
+                led.close()
+            wall = time.perf_counter() - t0
+            recs = _records(path)
+            vectors = {len(r["scores"]) for r in recs if r["status"] == "ok"} if objectives else set()
+            rec = {"tag": tag, "wall_s": wall, "trials_per_s": SHA_TRIALS / wall, "best_score": res["best_score"],
+                   "best_trial": res["best_trial"], "rung_sizes": res["rung_sizes"], "records": len(recs),
+                   "pareto": res["pareto"]}
+            out["runs"].append(rec)
+            print(f"mo sha {tag} ({smi}): {json.dumps(rec)}")
+            if res["rung_sizes"] != [64, 22, 8, 3] or not math.isfinite(res["best_score"]):
+                return out, f"mo sha {tag}: rungs {res['rung_sizes']}, best {res['best_score']}"
+            if objectives and (vectors != {2} or any("scores" not in r for r in recs)
+                               or _front_fault(res, "mo sha")):
+                return out, f"mo sha: vectors {vectors}, pareto {res['pareto']}"
+        rate = lambda t: [r["trials_per_s"] for r in out["runs"] if r["tag"] == t]
+        out["mo_over_scalar"] = sum(rate("mo")) / sum(rate("scalar"))
+        print(f"mo sha ({smi}): scalar {rate('scalar')}, MO {rate('mo')} trials/s, MO / scalar "
+              f"{out['mo_over_scalar']}")
+        return out, None
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline-cu", default=None,
@@ -1940,12 +2306,32 @@ def main() -> int:
         if bad:
             return fail(bad)
 
+    if "mo" in phases:
+        # 14. multi-objective: (a) config 8 at full size, (b) the CLI killed
+        # and resumed, (c) the north star's width, (d) fused SHA
+        c8, bad = mo_config8_phase(smi)
+        done("mo_config8", c8)
+        if bad:
+            return fail(bad)
+        mo_cli, bad = mo_cli_phase(smi)
+        done("mo_cli", mo_cli)
+        if bad:
+            return fail(bad)
+        mo_ns, launches["mo_smallcnn"], bad = mo_north_star_phase(gn, get_workload, smi)
+        done("mo_north_star", mo_ns)
+        if bad:
+            return fail(bad)
+        mo_sha, bad = mo_sha_phase(smi)
+        done("mo_sha", mo_sha)
+        if bad:
+            return fail(bad)
+
     print(f"chip_smoke wall: {time.perf_counter() - T_START} s")
     if phases != PHASES:
         print(f"chip_smoke: partial run ({','.join(phases)}): no result line")
         return 0
 
-    # 14. the kernels line (a population step of each path, summed; launches
+    # 15. the kernels line (a population step of each path, summed; launches
     # summed over every path), then the device line
     src = "mpi_opt_tpu_torch/csrc/group_norm.cu"
     kernels = []
@@ -1957,7 +2343,8 @@ def main() -> int:
         entry["max_abs_err"] = max(t[k]["max_abs_err"] for t in tot.values())
         entry["bound_share"] = entry["bound_ms"] / entry["ms"]
         entry["by_path"] = {path: {**tot[path][k], "launches": launches[path][k]} for path in STEP_PATHS}
-        for path in ("durability", "north_star_waves", "hyperband_smallcnn", "tpe_smallcnn", "bohb_smallcnn"):
+        for path in ("durability", "north_star_waves", "hyperband_smallcnn", "tpe_smallcnn", "bohb_smallcnn",
+                     "mo_smallcnn"):
             entry["by_path"][path] = {"launches": launches[path][k]}
         kernels.append(entry)
     done("kernels", kernels)

@@ -13,6 +13,9 @@ and of its ``trace`` subcommand).
         --trials 256 --population 64 --budget 30
     python -m mpi_opt_tpu_torch --workload fashion_mlp --algorithm bohb --fused \
         --max-budget 270 --eta 3
+    python -m mpi_opt_tpu_torch --workload digits_mlp --algorithm pbt --fused \
+        --population 8 --generations 3 --steps-per-generation 40 \
+        --objectives "accuracy:max,params:min"
     python -m mpi_opt_tpu_torch trace m.jsonl [--json]
 
 It runs on CUDA unless ``--device cpu`` is given. The summary is the JAX
@@ -51,7 +54,7 @@ _SUBCOMMANDS = ("report", "fsck", "lint", "trace", "serve", "submit", "status", 
 # the JAX CLI's flags that the port does not take yet: valued, then boolean
 _NOT_PORTED_FLAGS = (
     "--backend", "--workers", "--warm-start", "--profile-dir",
-    "--profile-launches", "--objectives", "--coordinator", "--num-processes", "--process-id",
+    "--profile-launches", "--coordinator", "--num-processes", "--process-id",
     "--platform", "--local-devices", "--n-data", "--n-pop", "--trial-retries",
     "--trial-timeout", "--max-failure-rate", "--chaos", "--coord-dir",
     "--coord-epoch", "--coord-timeout", "--rank-kill", "--suggest-serve",
@@ -181,6 +184,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write a monotonic progress beat (atomic JSON rewrite) to this file "
                    "at every launch boundary and, with --step-chunk, every training "
                    "sub-launch: the liveness signal an external watchdog reads")
+    p.add_argument("--objectives", default=None, metavar="SPEC",
+                   help='fused pbt/asha: multi-objective search, e.g. "accuracy:max,params:min<=2e4": '
+                   "comma-separated name:direction terms, each optionally constrained (<= for "
+                   "min, >= for max). The exploit or rung cut ranks by Pareto front and "
+                   "crowding on the device; the winner is the best feasible member, or the "
+                   "least violating one when none is. The ledger journals each member's "
+                   "objective vector beside the scalarized primary score")
     p.add_argument("--device", default=None, choices=("cuda", "cpu"),
                    help="where the sweep runs (default cuda; the port never falls "
                    "back to the CPU on its own)")
@@ -260,6 +270,13 @@ def run_fused(args, parser, workload) -> int:
 
     if not isinstance(workload, PopulationWorkload):
         parser.error(f"--fused requires a population workload, not {args.workload!r}")
+    if args.objective_spec is not None:
+        from mpi_opt_tpu_torch.train.common import check_objectives
+
+        try:
+            check_objectives(workload, args.objective_spec)
+        except ValueError as e:
+            parser.error(f"--objectives: {e}")
     # resuming is explicit: a stale checkpoint directory must not
     # silently continue an old sweep
     if args.checkpoint_dir and not args.resume and _has_snapshot(args.checkpoint_dir):
@@ -330,6 +347,10 @@ def _open_fused_ledger(args, parser, space, metrics):
         "space_hash": space.space_hash(),
         "warm_start": None,
     }
+    if args.objective_spec is not None:
+        # the objectives shape the selection trajectory: a resume under
+        # others is refused by the config gate; a scalar sweep writes no key
+        config["objectives"] = args.objectives
     # the knobs that shape each algorithm's boundaries and members
     if args.algorithm == "pbt":
         config.update(population=args.population, generations=args.generations,
@@ -344,7 +365,8 @@ def _open_fused_ledger(args, parser, space, metrics):
         config.update(trials=args.trials, min_budget=args.min_budget,
                       max_budget=args.max_budget, eta=args.eta)
     try:
-        ledger.ensure_header(config, space_spec=space.spec())
+        ledger.ensure_header(config, space_spec=space.spec(), objective_spec=(
+            None if args.objective_spec is None else args.objective_spec.spec()))
     except LedgerError as e:
         ledger.close()
         parser.error(f"--ledger: {e}")
@@ -401,6 +423,7 @@ def _run_fused_dispatch(args, workload, metrics, t0, ledger) -> int:
             snapshot_every=args.checkpoint_every,
             ledger=ledger,
             device=args.device,
+            objectives=args.objective_spec,
         ), args.retries, metrics)
         n_trials = args.population * args.generations
         extra = {"best_curve": [round(float(v), 4) for v in res["best_curve"]]}
@@ -448,6 +471,7 @@ def _run_fused_dispatch(args, workload, metrics, t0, ledger) -> int:
         # cohort of --trials members trains to --budget, no cuts
         lo, hi = ((args.budget, args.budget) if args.algorithm == "random"
                   else (args.min_budget, args.max_budget))
+        mo = {} if args.objective_spec is None else {"objectives": args.objective_spec}
         res = _run_with_retries(lambda: fused_sha(
             workload,
             n_trials=args.trials,
@@ -461,6 +485,7 @@ def _run_fused_dispatch(args, workload, metrics, t0, ledger) -> int:
             checkpoint_dir=args.checkpoint_dir,
             ledger=ledger,
             device=args.device,
+            **mo,
         ), args.retries, metrics)
         n_trials = res["n_trials"]
         extra = {"rung_sizes": res["rung_sizes"], "rung_budgets": res["rung_budgets"]}
@@ -487,9 +512,29 @@ def _run_fused_dispatch(args, workload, metrics, t0, ledger) -> int:
     if res["journal"] is not None:
         metrics.count_journaled(res["journal"]["written"])
         summary["journal"] = dict(res["journal"])
+    if args.objective_spec is not None:
+        _report_pareto(res, args.objective_spec, summary, metrics)
     metrics.summary(final=True, member_failures=int(sum(member_failures)))
     print(json.dumps(_finite_or_null(summary)))
     return 0
+
+
+def _report_pareto(res, objectives, summary, metrics) -> None:
+    """A multi-objective sweep's summary fields (``objectives``,
+    ``pareto``) and events: ``pareto_front``, and ``objective_degraded``
+    when nothing was feasible (the winner is the least violating member,
+    or none at all)."""
+    names = ",".join(objectives.names)
+    pareto = res["pareto"]
+    summary["objectives"] = res["objectives"]
+    summary["pareto"] = pareto
+    if pareto is None:  # a resume that restarted past the last boundary
+        return
+    metrics.log("pareto_front", front_size=pareto["front_size"],
+                hypervolume=pareto["hypervolume"], selection=pareto["selection"], objectives=names)
+    if pareto["selection"] != "feasible":
+        metrics.log("objective_degraded", selection=pareto["selection"],
+                    violation=pareto["violation"], objectives=names)
 
 
 def _expandable_segments(device) -> bool:
@@ -548,6 +593,24 @@ def main(argv=None) -> int:
     if args.wave_size and (args.gen_chunk > 1 or args.step_chunk > 0):
         parser.error("--wave-size schedules whole generations as resident waves; combining "
                      "it with --gen-chunk/--step-chunk launch splitting is ambiguous")
+    # --objectives: parsed and cross-checked here, as a usage error
+    args.objective_spec = None
+    if args.objectives:
+        if args.algorithm not in ("pbt", "asha"):
+            parser.error("--objectives runs multi-objective selection inside the fused boundary "
+                         "ops; it requires --fused --algorithm pbt|asha")
+        if args.wave_size:
+            parser.error("--objectives is not supported with --wave-size yet; run resident "
+                         "(--wave-size 0)")
+        if args.step_chunk > 0:
+            parser.error("--objectives is not supported with --step-chunk (the sub-segment "
+                         "boundary program is scalar); use --gen-chunk")
+        from mpi_opt_tpu_torch.objectives import ObjectiveSpec
+
+        try:
+            args.objective_spec = ObjectiveSpec.parse(args.objectives)
+        except ValueError as e:
+            parser.error(f"--objectives: {e}")
     # SIGTERM/SIGINT set a drain flag; the next launch boundary flushes
     # the snapshot and the run exits EX_TEMPFAIL. The heartbeat, like
     # the handlers, is dropped on the way out, and the span sink restored

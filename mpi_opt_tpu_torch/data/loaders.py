@@ -1,19 +1,20 @@
-"""Dataset registry of the port: the synthetic image sets and two UCI
+"""Dataset registry of the port: the synthetic image sets and three UCI
 tabular sets.
 
 The same generator and arguments as ``mpi_opt_tpu/data/loaders.py``, so
 the arrays are byte-equal to the JAX package's (NHWC float32 images,
-int32 labels). ``breast_cancer`` and ``wine`` are read from the UCI
-files the port ships in ``data/uci/`` (copied from scikit-learn's
-bundled data, BSD-3, see ``data/uci/LICENSE.txt``) and parsed, split and
-standardised as the JAX package's sklearn loader does, in numpy:
-scikit-learn itself is not needed. ``digits`` and ``diabetes`` are not
-ported yet.
+int32 labels). ``breast_cancer``, ``wine`` and ``digits`` are read from
+the UCI files the port ships in ``data/uci/`` (copied from
+scikit-learn's bundled data, BSD-3, see ``data/uci/LICENSE.txt``) and
+parsed, split and standardised as the JAX package's sklearn loader
+does, in numpy: scikit-learn itself is not needed. ``digits_image`` and
+``diabetes`` are not ported yet.
 """
 
 from __future__ import annotations
 
 import csv
+import gzip
 import math
 import os
 
@@ -23,18 +24,32 @@ from mpi_opt_tpu_torch.data.synthetic import make_image_classification
 
 _CACHE: dict = {}
 UCI_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "uci")
-UCI_FILES = {"breast_cancer": "breast_cancer.csv", "wine": "wine_data.csv"}
+UCI_FILES = {"breast_cancer": "breast_cancer.csv", "wine": "wine_data.csv",
+             "digits": "digits.csv.gz"}
+
+
+def _uci_path(name: str) -> str:
+    """The shipped file of ``name``; a missing file raises: nothing falls back."""
+    path = os.path.join(UCI_DIR, UCI_FILES[name])
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"the {name!r} data file {path} is missing from the package")
+    return path
+
+
+def read_digits():
+    """(data float64[1797, 64], target int64[1797]) of the shipped digits
+    table, parsed as scikit-learn's ``load_digits``: a gzipped CSV with
+    no header, the 64 pixel columns, then the class."""
+    with gzip.open(_uci_path("digits"), "rt") as f:
+        data = np.loadtxt(f, delimiter=",")
+    return data[:, :-1], data[:, -1].astype(np.int64)
 
 
 def read_uci_csv(name: str):
     """(data float64[n, f], target int64[n]) of a shipped UCI file, parsed
     as scikit-learn's ``load_csv_data``: a header ``n_samples,n_features,
-    class names...``, then one row of features and the class per line.
-    A missing file raises: nothing falls back."""
-    path = os.path.join(UCI_DIR, UCI_FILES[name])
-    if not os.path.exists(path):
-        raise FileNotFoundError(f"the {name!r} data file {path} is missing from the package")
-    with open(path, encoding="utf-8") as f:
+    class names...``, then one row of features and the class per line."""
+    with open(_uci_path(name), encoding="utf-8") as f:
         rows = csv.reader(f)
         head = next(rows)
         n, n_features = int(head[0]), int(head[1])
@@ -92,7 +107,7 @@ def _uci_tabular(name: str, seed: int = 0, val_frac: float = 0.25):
     """A UCI classification set as the JAX package's ``_sklearn_tabular``
     gives it: f32 features standardised over the whole set, int32
     labels, a stratified split."""
-    data, target = read_uci_csv(name)
+    data, target = read_digits() if name == "digits" else read_uci_csv(name)
     x = np.asarray(data, dtype=np.float32)
     x = (x - x.mean(0)) / (x.std(0) + 1e-8)
     y = target.astype(np.int32)
@@ -106,6 +121,7 @@ def _uci_tabular(name: str, seed: int = 0, val_frac: float = 0.25):
     }
 
 DATASETS = {
+    "digits": lambda seed=0: _uci_tabular("digits", seed),
     "wine": lambda seed=0: _uci_tabular("wine", seed),
     "breast_cancer": lambda seed=0: _uci_tabular("breast_cancer", seed),
     "fashion_mnist": lambda seed=0, n_train=16384, n_val=2048, **kw: make_image_classification(

@@ -31,8 +31,9 @@ Offsets make one ledger span a composite sweep: fused Hyperband runs
 one ``fused_sha`` a bracket, each journaling under its bracket's
 ``boundary_offset`` (global rung index), ``trial_offset`` (global record
 index) and ``member_offset`` (global trial identity), so the whole sweep
-reads as one contiguous boundary sequence. Multi-objective score
-vectors are not here yet.
+reads as one contiguous boundary sequence. A multi-objective sweep's
+records carry each member's raw objective vector as ``scores`` beside
+the scalarized ``score``; a scalar sweep's carry no such key.
 """
 
 from __future__ import annotations
@@ -99,7 +100,8 @@ class FusedJournal:
 
     # -- the per-boundary service point ------------------------------------
 
-    def record_boundary(self, b_local: int, members, units, scores, step: int) -> None:
+    def record_boundary(self, b_local: int, members, units, scores, step: int,
+                        scores_mo=None) -> None:
         """Journal (or verify) one boundary's member records.
 
         ``members`` are the boundary's member identities (local: the
@@ -110,14 +112,21 @@ class FusedJournal:
         (resume) verifies status/score against the journal instead —
         divergence raises ``LedgerError`` (the journal belongs to a
         different trajectory).
+
+        ``scores_mo`` (optional raw ``[n, m]`` objective matrix) rides
+        each record as its ``scores`` vector; ``scores`` stays the
+        authoritative scalarized value, so every scalar consumer reads a
+        multi-objective journal unchanged.
         """
         b = self.boundary_offset + int(b_local)
         members = [int(m) for m in np.asarray(members).tolist()]
         scores = np.asarray(scores, dtype=np.float64)
         units = np.asarray(units)
+        if scores_mo is not None:
+            scores_mo = np.asarray(scores_mo, dtype=np.float64)
         existing = self._by_boundary.get(b)
         if existing is not None:
-            self._verify(b, members, scores)
+            self._verify(b, members, scores, scores_mo)
             return
         # trial ids are the journal's record ordinals, derived from the
         # already-journaled boundaries of THIS view so a resume that
@@ -138,18 +147,21 @@ class FusedJournal:
                 ),
                 score=scores[i],
                 step=step,
+                scores=None if scores_mo is None else scores_mo[i],
             )
             grp[self.member_offset + m] = rec
         self._by_boundary[b] = grp
         self._sizes[b] = len(members)
         self.written += len(members)
 
-    def _verify(self, b: int, members, scores) -> None:
+    def _verify(self, b: int, members, scores, scores_mo=None) -> None:
         """The resume cross-check: a re-computed boundary must match its
         journal. Scores compare with a small tolerance (resumes are
         bit-identical on CPU, documented-equivalent where accelerator
         compiled-shape rounding differs); member sets and statuses
-        compare exactly."""
+        compare exactly. A re-computed objective vector verifies against
+        the journaled ``scores`` vector the same way (vectors are
+        journaled on ok records only)."""
         existing = self._by_boundary[b]
         if len(existing) != len(members):
             raise LedgerError(
@@ -166,7 +178,10 @@ class FusedJournal:
                     "journal — member sets diverge"
                 )
             s = float(scores[i])
-            status = "ok" if np.isfinite(s) else "failed"
+            finite = np.isfinite(s)
+            if scores_mo is not None:
+                finite = finite and bool(np.all(np.isfinite(scores_mo[i])))
+            status = "ok" if finite else "failed"
             if rec["status"] != status:
                 raise LedgerError(
                     f"boundary {b} member {mg}: journaled status "
@@ -182,6 +197,15 @@ class FusedJournal:
                     f"{rec['score']} but re-computed {s} — the ledger "
                     "diverges from this sweep's trajectory"
                 )
+            if status == "ok" and scores_mo is not None and rec.get("scores") is not None:
+                want = np.asarray([float(v) for v in rec["scores"]])
+                got = np.asarray(scores_mo[i], dtype=np.float64)
+                if want.shape != got.shape or not np.allclose(want, got, rtol=1e-5, atol=1e-6):
+                    raise LedgerError(
+                        f"boundary {b} member {mg}: journaled objective vector "
+                        f"{want.tolist()} but re-computed {got.tolist()} — the ledger "
+                        "diverges from this sweep's trajectory"
+                    )
         self.verified += len(members)
 
 

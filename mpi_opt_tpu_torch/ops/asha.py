@@ -1,14 +1,15 @@
 """ASHA's rung reduction (port of ``mpi_opt_tpu/ops/asha.py``).
 
 The synchronous variant: the whole rung cohort is one population axis,
-so a rung's cut is one stable descending rank on the device.
-``asha_cut_mo`` (the multi-objective cut) waits for ``objectives/``.
+so a rung's cut is one stable descending rank on the device;
+``asha_cut_mo`` ranks a multi-objective cohort by its Pareto score.
 """
 
 from __future__ import annotations
 
 import torch
 
+from mpi_opt_tpu_torch.objectives.pareto import pareto_score
 from mpi_opt_tpu_torch.ops.common import rank_descending
 
 
@@ -38,3 +39,18 @@ def asha_cut(scores: torch.Tensor, eta: int, valid: torch.Tensor | None = None):
     rank, order = rank_descending(scores, valid)
     k = torch.ceil(valid.sum() / eta).to(torch.int64)
     return (rank < k) & valid, order
+
+
+def asha_cut_mo(norm_scores: torch.Tensor, eta: int, valid: torch.Tensor | None = None,
+                norm_bounds=None):
+    """Multi-objective rung cut: promote by Pareto rank, not a scalar.
+
+    The cohort's maximize-form ``[n, m]`` matrix is ranked by
+    ``objectives.pareto.pareto_score`` (front, then crowding, infeasible
+    members below by violation) and ``asha_cut``'s top
+    ``ceil(n_valid/eta)`` rule applies to that effective score. Returns
+    (promote bool[n], order int64[n], eff f32[n]).
+    """
+    eff = pareto_score(norm_scores, valid=valid, norm_bounds=norm_bounds)
+    promote, order = asha_cut(eff, eta, valid)
+    return promote, order, eff

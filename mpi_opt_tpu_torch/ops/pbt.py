@@ -18,6 +18,7 @@ import dataclasses
 
 import torch
 
+from mpi_opt_tpu_torch.objectives.pareto import pareto_score
 from mpi_opt_tpu_torch.ops.common import rank_descending
 
 
@@ -68,3 +69,19 @@ def pbt_exploit_explore(generator, unit, scores, discrete_mask, cfg: PBTConfig =
     n, d = unit.shape
     draws = draw_exploit_explore(generator, n, d, cfg)
     return apply_exploit_explore(unit, scores, discrete_mask, cfg, draws)
+
+
+def pbt_exploit_explore_mo(generator, unit, norm_scores, discrete_mask,
+                           cfg: PBTConfig = PBTConfig(), norm_bounds=None):
+    """Multi-objective PBT decision: truncation exploit by Pareto rank.
+
+    ``norm_scores`` is the maximize-form ``[n, m]`` objective matrix,
+    ``norm_bounds`` its maximize-form bounds (or None). The population is
+    ranked by ``objectives.pareto.pareto_score`` (front, then crowding,
+    infeasible members below by violation), then the scalar decision
+    runs on that effective score with the same draws in the same order.
+    Returns (new_unit, src_idx, bottom, eff f32[n]).
+    """
+    eff = pareto_score(norm_scores, norm_bounds=norm_bounds)
+    new_unit, src_idx, bottom = pbt_exploit_explore(generator, unit, eff, discrete_mask, cfg)
+    return new_unit, src_idx, bottom, eff

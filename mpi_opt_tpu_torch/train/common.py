@@ -44,15 +44,73 @@ def workload_arrays(workload, member_chunk: int, dev):
     return workload._fused_cache[1:]
 
 
-def journal_boundary(journal, b_local: int, members, units, scores, step: int) -> None:
+def journal_boundary(journal, b_local: int, members, units, scores, step: int,
+                     scores_mo=None) -> None:
     """Journal (or, on a resume, verify) one boundary's member records
     before its snapshot, as a ``journal`` span; no-op without a
     journal. One span a boundary, not a record, so the trace grows with
-    boundaries, not members."""
+    boundaries, not members. ``scores_mo`` (a multi-objective sweep's
+    raw ``[n, m]`` matrix) rides each record as its ``scores`` vector;
+    ``scores`` stays the scalarized primary."""
     if journal is None:
         return
     with trace.span("journal", boundary=int(b_local), n=len(members)):
-        journal.record_boundary(b_local, members, units, scores, step=step)
+        journal.record_boundary(b_local, members, units, scores, step=step, scores_mo=scores_mo)
+
+
+#: the objective metrics the population eval path gives; the names of a
+#: fused multi-objective sweep's ObjectiveSpec come from this set
+POPULATION_METRICS = ("accuracy", "params", "latency")
+
+
+def eval_population_objectives(trainer, state, val_x, val_y, names) -> torch.Tensor:
+    """Raw objective matrix ``float32[P, m]``, one column per name, on
+    the population's device: nothing is read back to the host."""
+    cols = []
+    for name in names:
+        if name == "accuracy":
+            cols.append(trainer.eval_population(state, val_x, val_y))
+        elif name == "params":
+            cols.append(trainer.member_effective_params(state))
+        elif name == "latency":
+            cols.append(trainer.member_latency_proxy(state))
+        else:
+            raise ValueError(
+                f"unknown population objective {name!r}; supported: {POPULATION_METRICS}"
+            )
+    return torch.stack(cols, dim=-1)
+
+
+def check_objectives(workload, objectives) -> None:
+    """Refuse objective names the workload cannot evaluate (``ValueError``)."""
+    supported = tuple(workload.objective_metrics())
+    missing = [n for n in objectives.names if n not in supported]
+    if missing:
+        raise ValueError(
+            f"workload {getattr(workload, 'name', type(workload).__name__)!r} cannot evaluate "
+            f"objectives {missing}; supported: {supported}"
+        )
+
+
+def pareto_summary(final_mo, objectives, members=None):
+    """(winner row or None, the result's ``pareto`` block) of a final
+    raw objective matrix: the constraint-aware winner (``select_best``)
+    and the non-dominated front with its hypervolume. ``members`` maps
+    rows to member identities (a SHA rung's surviving trials)."""
+    from mpi_opt_tpu_torch.objectives import hypervolume, pareto_front_mask, select_best
+
+    sel = select_best(final_mo, objectives)
+    norm = objectives.normalize(final_mo)
+    mask = pareto_front_mask(norm)
+    rows = [int(i) for i in np.flatnonzero(mask)]
+    return sel["index"], {
+        "front_size": len(rows),
+        "front_members": rows if members is None else [int(members[i]) for i in rows],
+        "front_scores": [[float(v) for v in final_mo[i]] for i in rows],
+        "hypervolume": float(hypervolume(norm[mask])) if rows else 0.0,
+        "selection": sel["kind"],
+        "violation": sel["violation"],
+    }
 
 
 def segment_flops_hint(workload, population: int, steps: int):

@@ -20,8 +20,12 @@ the whole sweep as one contiguous boundary sequence.
 ``init_unit`` replaces a sweep's uniform initial cohort, and
 ``fused_hyperband``'s ``cohort_fn``/``observe_fn`` hooks let fused BOHB
 (``train/fused_bohb.py``) sample each bracket's cohort from its model
-and feed every rung back. Not here yet (the JAX package's ``fused_sha``
-has them): ``mesh`` and ``round_to``, ``warm_obs`` and ``objectives``.
+and feed every rung back. ``objectives`` makes a resident ``fused_sha``
+multi-objective: each rung evaluates the objective matrix on the
+device, the cut ranks by Pareto score (``ops.asha.asha_cut_mo``), the
+journal records each member's vector, and the winner is the last rung's
+best feasible survivor. Not here yet (the JAX package's ``fused_sha``
+has them): ``mesh``, ``round_to`` and ``warm_obs``.
 """
 
 from __future__ import annotations
@@ -34,12 +38,15 @@ import torch
 from mpi_opt_tpu_torch.device import resolve_device
 from mpi_opt_tpu_torch.ledger.fused import make_journal
 from mpi_opt_tpu_torch.obs import memory, trace
-from mpi_opt_tpu_torch.ops.asha import asha_cut, asha_rungs
+from mpi_opt_tpu_torch.ops.asha import asha_cut, asha_cut_mo, asha_rungs
 from mpi_opt_tpu_torch.train.common import (
+    check_objectives,
+    eval_population_objectives,
     finite_winner,
     journal_boundary,
     launch_boundary,
     momentum_dtype_str,
+    pareto_summary,
     segment_flops_hint,
     workload_arrays,
 )
@@ -53,15 +60,19 @@ _NOT_PORTED = {
     "mesh": None,
     "round_to": 1,
     "warm_obs": None,
-    "objectives": None,
 }
 
 
-def _cut_and_gather(trainer, state, unit, scores, eta: int, k: int):
+def _cut_and_gather(trainer, state, unit, scores, eta: int, k: int, norm_bounds=None):
     """One rung reduction: rank, keep the top ``k`` (the rung's known
-    survivor count), gather their states. Returns (survivor state,
-    survivor unit, keep indices, promote mask)."""
-    promote, order = asha_cut(scores, eta)
+    survivor count), gather their states. ``scores`` is the cohort's
+    scalar scores ``[n]``, or its maximize-form objective matrix ``[n,
+    m]``, ranked by Pareto score under ``norm_bounds`` (``asha_cut_mo``).
+    Returns (survivor state, survivor unit, keep indices, promote mask)."""
+    if scores.dim() == 2:
+        promote, order, _eff = asha_cut_mo(scores, eta, norm_bounds=norm_bounds)
+    else:
+        promote, order = asha_cut(scores, eta)
     keep = order[:k]
     return trainer.gather_members(state, keep), unit[keep], keep, promote
 
@@ -103,6 +114,7 @@ def fused_sha(  # sweeplint: barrier(rung host loop: gathers cohort scores for t
     trial_offset: int = 0,
     member_offset: int = 0,
     init_unit=None,
+    objectives=None,
     **not_ported,
 ):
     """Run a whole successive-halving sweep with on-device rung cuts.
@@ -122,13 +134,17 @@ def fused_sha(  # sweeplint: barrier(rung host loop: gathers cohort scores for t
     ``init_unit`` (float ``[n_trials, dim]`` in the unit cube) replaces
     the uniform initial cohort (fused BOHB's model draws); its SHA-1 is
     part of the snapshot's identity, so a resume under other initial
-    configurations is refused.
+    configurations is refused. ``objectives`` (an ``ObjectiveSpec``)
+    runs a resident multi-objective sweep (waves refuse it with
+    ``ValueError``, as in the JAX package); the spec is part of the
+    snapshot's identity.
 
     Returns the JAX package's result: best_score, best_params,
     best_trial, diverged, rung_budgets, rung_sizes, stop_rung,
     last_score, rung_history, member_failures, n_trials, journal,
-    objectives and pareto (None: not ported), and in wave mode
-    ``WaveRunner.result_extras()``.
+    objectives and pareto (the last rung's front, as ``fused_pbt``'s;
+    None on a scalar sweep or a resume past the last rung), and in wave
+    mode ``WaveRunner.result_extras()``.
     """
     for name, value in not_ported.items():
         if name not in _NOT_PORTED:
@@ -140,6 +156,17 @@ def fused_sha(  # sweeplint: barrier(rung host loop: gathers cohort scores for t
     trainer, space, train_x, train_y, val_x, val_y = workload_arrays(workload, member_chunk, dev)
     wave_size = resolve_wave_size(trainer, n_trials, wave_size=wave_size, oom_backoff=oom_backoff)
     waves = 0 < wave_size < n_trials
+    norm_bounds = None
+    if objectives is not None:
+        if waves:
+            raise ValueError(
+                "wave scheduling is not supported with multi-objective sweeps yet; "
+                "run resident (wave_size=0)"
+            )
+        check_objectives(workload, objectives)
+        if objectives.has_bounds:
+            # on the device once, not a copy a rung
+            norm_bounds = torch.as_tensor(objectives.norm_bounds(), device=dev)
     rungs = asha_rungs(min_budget, max_budget, eta)
     sizes = sha_cohort_sizes(n_trials, len(rungs), eta)
     if init_unit is not None:
@@ -161,7 +188,7 @@ def fused_sha(  # sweeplint: barrier(rung host loop: gathers cohort scores for t
     if checkpoint_dir is not None:
         from mpi_opt_tpu_torch.utils.checkpoint import SweepCheckpointer
 
-        snap = SweepCheckpointer(checkpoint_dir, {
+        ck_config = {
             "workload": getattr(workload, "name", type(workload).__name__),
             "n_trials": n_trials,
             "rungs": rungs,
@@ -177,7 +204,12 @@ def fused_sha(  # sweeplint: barrier(rung host loop: gathers cohort scores for t
             # the initial cohort defines the sweep
             "init_unit_digest": (None if init_unit is None
                                  else hashlib.sha1(init_unit.tobytes()).hexdigest()),
-        })
+        }
+        if objectives is not None:
+            # the selection rule shapes every cut; a scalar sweep writes
+            # no key, so its snapshots resume as before
+            ck_config["objectives"] = objectives.spec()
+        snap = SweepCheckpointer(checkpoint_dir, ck_config)
         restored = snap.restore_population_sweep()
     if restored is not None:
         host_state, unit, rng_state, np_scores, meta = restored
@@ -241,6 +273,7 @@ def fused_sha(  # sweeplint: barrier(rung host loop: gathers cohort scores for t
                             oom_backoff=oom_backoff, device=dev, requested=wave_size)
     rung_scores_dev: list = []
     rung_keep_dev: list = []
+    mo = np_mo = None  # a rung's raw objective matrix, on the device and the host
     try:
         for r in range(start_rung, len(rungs)):
             budget = rungs[r]
@@ -291,13 +324,21 @@ def fused_sha(  # sweeplint: barrier(rung host loop: gathers cohort scores for t
             else:
                 with trace.span("train", launch=boundary_offset + r + 1, rung=r + 1,
                                 members=sizes[r], steps=steps) as sp:
+                    if objectives is not None:
+                        sp["objectives"] = ",".join(objectives.names)
                     trainer.train_segment(state, hp, train_x, train_y, gen, steps)
-                    scores = trainer.eval_population(state, val_x, val_y)
+                    if objectives is None:
+                        scores = trainer.eval_population(state, val_x, val_y)
+                    else:
+                        mo = eval_population_objectives(trainer, state, val_x, val_y,
+                                                        objectives.names)
+                        scores = objectives.scalarize(mo)
                     if defer:
                         rung_scores_dev.append(scores)
                     else:
                         # the fetch is the rung's completion barrier
                         np_scores = scores.cpu().numpy()
+                        np_mo = None if mo is None else mo.cpu().numpy()
                         if f:
                             sp["flops"] = f
                         memory.note(sp, dev)
@@ -306,7 +347,8 @@ def fused_sha(  # sweeplint: barrier(rung host loop: gathers cohort scores for t
             if journal is not None:
                 # one record per pre-cut member at the rung's budget,
                 # before the rung's snapshot
-                journal_boundary(journal, r, alive, unit.cpu().numpy(), np_scores, step=budget)
+                journal_boundary(journal, r, alive, unit.cpu().numpy(), np_scores, step=budget,
+                                 scores_mo=np_mo)
             if r < len(rungs) - 1:
                 with boundary_span("rung_cut", rung=r + 1):
                     if waves:
@@ -315,8 +357,9 @@ def fused_sha(  # sweeplint: barrier(rung host loop: gathers cohort scores for t
                         alive = alive[perm]
                         np_scores = np_scores[perm]
                     else:
-                        state, unit, keep, _ = _cut_and_gather(trainer, state, unit, scores, eta,
-                                                               sizes[r + 1])
+                        ranked = scores if objectives is None else objectives.normalize(mo)
+                        state, unit, keep, _ = _cut_and_gather(trainer, state, unit, ranked, eta,
+                                                               sizes[r + 1], norm_bounds)
                         if defer:
                             rung_keep_dev.append(keep)
                         else:
@@ -368,8 +411,17 @@ def fused_sha(  # sweeplint: barrier(rung host loop: gathers cohort scores for t
             if start_rung + i < len(rungs) - 1:
                 alive = alive[np_keeps[i]]
         np_scores = np_rung_scores[-1]
+        if mo is not None:
+            np_mo = mo.cpu().numpy()  # the last rung's matrix
     np_unit = unit.cpu().numpy()
     best_row, diverged = finite_winner(np_scores)
+    pareto = None
+    if np_mo is not None:
+        # the last rung's best FEASIBLE survivor (the least violating
+        # one when none is), not the argmax of the primary
+        best_row, pareto = pareto_summary(np_mo, objectives, members=alive)
+        diverged = best_row is None
+        best_row = 0 if diverged else best_row
     return {
         "best_score": float("nan") if diverged else float(np_scores[best_row]),
         "best_params": None if diverged else space.materialize_row(np_unit[best_row]),
@@ -386,8 +438,8 @@ def fused_sha(  # sweeplint: barrier(rung host loop: gathers cohort scores for t
         ],
         "n_trials": n_trials,
         "journal": None if journal is None else {"written": journal.written, "verified": journal.verified},
-        "objectives": None,
-        "pareto": None,
+        "objectives": None if objectives is None else list(objectives.names),
+        "pareto": pareto,
         **({} if runner is None else runner.result_extras()),
     }
 

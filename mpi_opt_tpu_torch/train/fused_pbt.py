@@ -22,6 +22,13 @@ journal (``ledger``) written before each snapshot and verified on
 resume, a graceful drain at every launch boundary (and between waves),
 and typed device OOM, which wave mode absorbs by halving its wave cap
 (``oom_backoff``).
+
+``objectives`` (an ``ObjectiveSpec``) makes a resident sweep
+multi-objective: each generation evaluates the objective matrix on the
+device, the exploit ranks by Pareto score (``pbt_exploit_explore_mo``),
+the journal records each member's vector, and the winner is the best
+feasible member (``objectives.select_best``). As in the JAX package it
+runs resident only, without ``step_chunk``.
 """
 
 from __future__ import annotations
@@ -35,13 +42,16 @@ import torch
 from mpi_opt_tpu_torch.device import resolve_device
 from mpi_opt_tpu_torch.ledger.fused import make_journal
 from mpi_opt_tpu_torch.obs import memory, trace
-from mpi_opt_tpu_torch.ops.pbt import PBTConfig, pbt_exploit_explore
+from mpi_opt_tpu_torch.ops.pbt import PBTConfig, pbt_exploit_explore, pbt_exploit_explore_mo
 from mpi_opt_tpu_torch.train.common import (
+    check_objectives,
+    eval_population_objectives,
     finite_winner,
     hparams_fn,
     journal_boundary,
     launch_boundary,
     momentum_dtype_str,
+    pareto_summary,
     segment_flops_hint,
     workload_arrays,
 )
@@ -62,24 +72,41 @@ from mpi_opt_tpu_torch.utils import resources
 _NOT_PORTED = {
     "mesh": None,
     "warm_obs": None,
-    "objectives": None,
 }
 
 
-def finish_generation(trainer, state, unit, generator, val_x, val_y, disc, cfg: PBTConfig):
+def finish_generation(trainer, state, unit, generator, val_x, val_y, disc, cfg: PBTConfig,
+                      objectives=None, norm_bounds=None):
     """The generation boundary: eval the population, exploit/explore,
     gather the winners' states. Returns (state, new_unit, best, mean,
     n_fail, post-exploit scores, pre-exploit scores, the unit matrix
-    the generation trained with); the last two are what the ledger
-    journals. The post-exploit scores are the gathered pre-exploit
-    ones: weights are copied verbatim."""
-    scores = trainer.eval_population(state, val_x, val_y)
-    new_unit, src_idx, best, mean, n_fail, post = _wave_exploit(generator, unit, scores, disc, cfg)
-    return trainer.gather_members(state, src_idx), new_unit, best, mean, n_fail, post, scores, unit
+    the generation trained with, pre-exploit objective matrix,
+    post-exploit objective matrix); the pre-exploit values are what the
+    ledger journals. The post-exploit values are the gathered
+    pre-exploit ones: weights are copied verbatim.
+
+    With ``objectives`` the raw ``[P, m]`` matrix is evaluated, its
+    scalarized primary is the generation's score, the exploit ranks by
+    Pareto score under the maximize-form ``norm_bounds`` (a tensor on
+    the device, or None), and a member fails when any of its objectives
+    is non-finite; a scalar sweep's matrices are None."""
+    if objectives is None:
+        scores = trainer.eval_population(state, val_x, val_y)
+        new_unit, src_idx, best, mean, n_fail, post = _wave_exploit(generator, unit, scores, disc, cfg)
+        return (trainer.gather_members(state, src_idx), new_unit, best, mean, n_fail, post, scores,
+                unit, None, None)
+    mo = eval_population_objectives(trainer, state, val_x, val_y, objectives.names)
+    scores = objectives.scalarize(mo)
+    new_unit, src_idx, _, _ = pbt_exploit_explore_mo(generator, unit, objectives.normalize(mo), disc,
+                                                     cfg, norm_bounds=norm_bounds)
+    n_fail = (~torch.isfinite(mo).all(dim=-1)).sum()
+    return (trainer.gather_members(state, src_idx), new_unit, scores.max(), scores.mean(), n_fail,
+            scores[src_idx], scores, unit, mo, mo[src_idx])
 
 
 def _run_stepped_generation(trainer, state, unit, to_hparams, train_x, train_y, val_x, val_y,
-                            generator, disc, steps: int, step_chunk: int, cfg: PBTConfig):
+                            generator, disc, steps: int, step_chunk: int, cfg: PBTConfig,
+                            objectives=None, norm_bounds=None):
     """One generation: its training as ceil(steps/step_chunk) sub-launches
     (one when step_chunk is 0), each closed by a heartbeat when chunked,
     then the boundary. The generator is threaded through the
@@ -93,7 +120,8 @@ def _run_stepped_generation(trainer, state, unit, to_hparams, train_x, train_y, 
         trainer.train_segment(state, hp, train_x, train_y, generator, s)
         if step_chunk > 0:
             heartbeat.beat(stage=f"pbt train sub-launch {i + 1}/{len(sub_lens)}")
-    return finish_generation(trainer, state, unit, generator, val_x, val_y, disc, cfg)
+    return finish_generation(trainer, state, unit, generator, val_x, val_y, disc, cfg,
+                             objectives, norm_bounds)
 
 
 def fused_pbt(  # sweeplint: barrier(resident host loop: launch boundaries, exploit, journal, snapshot)
@@ -113,6 +141,7 @@ def fused_pbt(  # sweeplint: barrier(resident host loop: launch boundaries, expl
     oom_backoff: int = 2,
     wave_size=0,
     device=None,
+    objectives=None,
     **not_ported,
 ):
     """Run a whole PBT sweep of a population workload.
@@ -148,12 +177,21 @@ def fused_pbt(  # sweeplint: barrier(resident host loop: launch boundaries, expl
     times wave mode halves its cap on a device OOM and re-runs the
     generation; a resident sweep's device OOM raises ``DeviceOOM``.
 
+    ``objectives`` (an ``ObjectiveSpec`` over the workload's
+    ``objective_metrics()``) runs the multi-objective sweep; it refuses
+    ``step_chunk`` and ``wave_size`` (``ValueError``), as the JAX
+    package does, and is part of the snapshot config, so a scalar call
+    does not resume a multi-objective snapshot (nor the reverse).
+
     Returns the result dict of the JAX package's ``fused_pbt``:
     best_score, best_params, diverged, best_curve, mean_curve,
     member_failures, state, unit, launch_gens, launch_walls (the
     completed launches' walls, from the snapshot on a resume), journal
-    ({"written", "verified"} member records, None without a ledger);
-    in wave mode also ``WaveRunner.result_extras()``, and ``state`` is
+    ({"written", "verified"} member records, None without a ledger),
+    objectives (the names, or None) and pareto (the final population's
+    front: front_size, front_members, front_scores, hypervolume,
+    selection, violation; None on a scalar sweep, or on a resume that
+    restarted past the last launch); in wave mode also ``WaveRunner.result_extras()``, and ``state`` is
     on the host.
     """
     for name, value in not_ported.items():
@@ -168,6 +206,18 @@ def fused_pbt(  # sweeplint: barrier(resident host loop: launch boundaries, expl
             "step_chunk splits within generations; combining it with "
             f"gen_chunk={gen_chunk} (grouping whole generations) is ambiguous"
         )
+    if objectives is not None:
+        if step_chunk > 0:
+            raise ValueError(
+                "step_chunk is not supported with multi-objective sweeps "
+                "(the sub-segment boundary program is scalar); use gen_chunk"
+            )
+        if wave_size:
+            raise ValueError(
+                "wave scheduling is not supported with multi-objective sweeps yet; "
+                "run resident (wave_size=0)"
+            )
+        check_objectives(workload, objectives)
     dev = resolve_device(device)
 
     trainer, space, train_x, train_y, val_x, val_y = workload_arrays(workload, member_chunk, dev)
@@ -219,6 +269,10 @@ def fused_pbt(  # sweeplint: barrier(resident host loop: launch boundaries, expl
             # random stream
             "device": dev.type,
         }
+        if objectives is not None:
+            # the selection rule is part of the trajectory; a scalar
+            # sweep writes no key, so its snapshots resume as before
+            ck_config["objectives"] = objectives.spec()
         snap = SweepCheckpointer(checkpoint_dir, ck_config)
         restored = snap.restore_population_sweep()
     if restored is not None:
@@ -247,31 +301,40 @@ def fused_pbt(  # sweeplint: barrier(resident host loop: launch boundaries, expl
         state = trainer.init_population(gen, population)
 
     snapshot_every = max(1, snapshot_every)
+    # the maximize-form bounds on the device once, not a copy a generation
+    norm_bounds = (torch.as_tensor(objectives.norm_bounds(), device=dev)
+                   if objectives is not None and objectives.has_bounds else None)
+    final_mo = None  # the last launch's post-exploit objective matrix (host)
     # a generation's FLOPs for the trace's achieved TF/s (None untraced)
     flops_gen = segment_flops_hint(workload, population, steps_per_gen)
     try:
         for i in range(start_launch, n_launches):
             t0 = time.perf_counter()
-            best, mean, fails, pre_s, pre_u = [], [], [], [], []
+            best, mean, fails, pre_s, pre_u, pre_mo = [], [], [], [], [], []
             # a resident sweep has no wave to halve: a CUDA OOM leaves as
             # DeviceOOM, which the CLI exits 74 on. The launch's train span
             # ends after the curve fetch, its completion barrier
             with resources.oom_funnel(), trace.span("train", launch=i + 1, gens=launch_lens[i]) as sp:
+                if objectives is not None:
+                    sp["objectives"] = ",".join(objectives.names)
                 resources.launch_fault("launch")
                 for _ in range(launch_lens[i]):
-                    state, unit, b, m, f, scores, s_pre, u_pre = _run_stepped_generation(
+                    state, unit, b, m, f, scores, s_pre, u_pre, mo_pre, mo_post = _run_stepped_generation(
                         trainer, state, unit, to_hparams, train_x, train_y, val_x, val_y, gen, disc,
-                        steps_per_gen, step_chunk, cfg)
+                        steps_per_gen, step_chunk, cfg, objectives, norm_bounds)
                     best.append(b)
                     mean.append(m)
                     fails.append(f)
                     pre_s.append(s_pre)
                     pre_u.append(u_pre)
+                    pre_mo.append(mo_pre)
                 # the fetch is the launch's completion barrier
                 best_parts.append(torch.stack(best).cpu().numpy())
                 mean_parts.append(torch.stack(mean).cpu().numpy())
                 fail_parts.append(torch.stack(fails).cpu().numpy())
                 scores_np = scores.cpu().numpy()
+                if objectives is not None:
+                    final_mo = mo_post.cpu().numpy()
                 # after the barrier: a launch that raised reports its
                 # partial wall without FLOPs
                 if flops_gen:
@@ -284,10 +347,11 @@ def fused_pbt(  # sweeplint: barrier(resident host loop: launch boundaries, expl
                 # scores and units) BEFORE its snapshot, so the journal
                 # never lags it; a generation re-computed on resume
                 # verifies instead
-                for j, (s_j, u_j) in enumerate(zip(pre_s, pre_u)):
+                for j, (s_j, u_j, mo_j) in enumerate(zip(pre_s, pre_u, pre_mo)):
                     g = g0 + j
                     journal_boundary(journal, g, np.arange(population), u_j.cpu().numpy(),
-                                     s_j.cpu().numpy(), step=(g + 1) * steps_per_gen)
+                                     s_j.cpu().numpy(), step=(g + 1) * steps_per_gen,
+                                     scores_mo=None if mo_j is None else mo_j.cpu().numpy())
             is_last = i + 1 == n_launches
             due = (i + 1) % snapshot_every == 0
 
@@ -323,6 +387,13 @@ def fused_pbt(  # sweeplint: barrier(resident host loop: launch boundaries, expl
             snap.close()
 
     best_i, diverged = finite_winner(scores_np)
+    pareto = None
+    if final_mo is not None:
+        # the best FEASIBLE member under the objectives (the least
+        # violating one when none is), not the argmax of the primary
+        best_i, pareto = pareto_summary(final_mo, objectives)
+        diverged = best_i is None
+        best_i = 0 if diverged else best_i
     np_unit = unit.cpu().numpy()
     return {
         "best_score": float("nan") if diverged else float(scores_np[best_i]),
@@ -336,6 +407,8 @@ def fused_pbt(  # sweeplint: barrier(resident host loop: launch boundaries, expl
         "launch_gens": launch_lens,
         "launch_walls": [float(w) for w in launch_walls],
         "journal": None if journal is None else {"written": journal.written, "verified": journal.verified},
+        "objectives": None if objectives is None else list(objectives.names),
+        "pareto": pareto,
     }
 
 

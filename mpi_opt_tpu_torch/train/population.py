@@ -289,6 +289,34 @@ class PopulationTrainer:
                 correct[a:b] += ((pred[:b - a] == cy) & (cy >= 0)).sum(dim=1)
         return correct.float() / n_val
 
+    @staticmethod
+    @torch.no_grad()
+    def member_effective_params(state: PopState, threshold: float = 1e-3) -> torch.Tensor:
+        """Effective parameter count per member, float32[P]: the weights
+        with ``|w| > threshold``, over every parameter tensor (the
+        model-size objective of a multi-objective sweep). It moves with
+        each member's weight-decay trajectory, so accuracy against
+        params is a real trade-off. A member with any non-finite weight
+        gets NaN, which marks it diverged in every objective consumer.
+        Layout does not change a count, and ``state`` holds the real
+        members only: a launch's padded stand-ins never reach it."""
+        n = state.step.shape[0]
+        count = torch.zeros(n, dtype=torch.float32, device=state.step.device)
+        bad = torch.zeros(n, dtype=torch.bool, device=state.step.device)
+        for leaf in state.params.values():
+            flat = leaf.reshape(n, -1)
+            count += (flat.abs() > threshold).sum(dim=1, dtype=torch.float32)
+            bad |= ~torch.isfinite(flat).all(dim=1)
+        return torch.where(bad, torch.nan, count)
+
+    @staticmethod
+    def member_latency_proxy(state: PopState) -> torch.Tensor:
+        """Step-time latency proxy per member, float32[P], pseudo-ms:
+        ``2 * MACs / 1e6`` over the weights a structured-sparse kernel
+        could not skip (a coarser threshold than the params metric,
+        1e-2), computed on the device with no wall-clock measurement."""
+        return 2e-6 * PopulationTrainer.member_effective_params(state, threshold=1e-2)
+
     def member_flops(self, image_shape: tuple, eval_chunk: int = 1024) -> tuple[int, int]:
         """(FLOPs of one member's training step, of one member's eval of
         one ``eval_chunk``-image chunk) on ``image_shape`` images, counted

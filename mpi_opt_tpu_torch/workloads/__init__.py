@@ -16,6 +16,6 @@ def get_workload(name: str, **kwargs):
     return cls(**kwargs)
 
 
-from mpi_opt_tpu_torch.workloads import tabular, vision  # noqa: E402,F401  (registers)
+from mpi_opt_tpu_torch.workloads import digits, tabular, vision  # noqa: E402,F401  (registers)
 
 __all__ = ["register", "get_workload"]

@@ -87,6 +87,13 @@ class PopulationWorkload:
             momentum_dtype=getattr(torch, momentum_dtype) if momentum_dtype else None,
         )
 
+    def objective_metrics(self) -> tuple[str, ...]:
+        """The objective names a multi-objective sweep of this workload
+        may name (``train/common.py::POPULATION_METRICS``)."""
+        from mpi_opt_tpu_torch.train.common import POPULATION_METRICS
+
+        return POPULATION_METRICS
+
     def make_hparams(self, values: dict):
         from mpi_opt_tpu_torch.train.population import OptHParams
 

@@ -32,12 +32,16 @@ class TabularMLP(PopulationWorkload):
     augment = False
     default_n_train = None  # the UCI sets have fixed sizes
     default_n_val = None
+    hidden = 64
+    datasets = ("breast_cancer", "wine")  # the classification sets it takes
 
-    def __init__(self, dataset: str = "breast_cancer"):
+    def __init__(self, dataset: str | None = None):
         super().__init__()
-        if dataset not in ("breast_cancer", "wine"):
+        dataset = self.dataset if dataset is None else dataset
+        if dataset not in self.datasets:
             raise ValueError(
-                f"tabular_mlp supports classification sets breast_cancer/wine, got {dataset!r}"
+                f"{self.name} supports classification sets {'/'.join(self.datasets)}, "
+                f"got {dataset!r}"
             )
         self.dataset = dataset
 
@@ -53,7 +57,8 @@ class TabularMLP(PopulationWorkload):
 
     def _model(self, n_classes, population, device):
         n_in = math.prod(self.data()["train_x"].shape[1:])
-        return MLP(n_in, hidden=64, n_classes=n_classes, population=population, device=device)
+        return MLP(n_in, hidden=self.hidden, n_classes=n_classes, population=population,
+                   device=device)
 
     def default_space(self) -> SearchSpace:
         return SearchSpace(

@@ -14,7 +14,8 @@ from mpi_opt_tpu_torch import fused_pbt, get_workload
 from mpi_opt_tpu_torch.ops import group_norm as gn
 
 KEYS = {"best_score", "best_params", "diverged", "best_curve", "mean_curve",
-        "member_failures", "state", "unit", "launch_gens", "launch_walls", "journal"}
+        "member_failures", "state", "unit", "launch_gens", "launch_walls", "journal", "objectives",
+        "pareto"}
 RUN = dict(population=4, generations=2, steps_per_gen=2, seed=0, device="cpu")
 
 
@@ -34,6 +35,7 @@ def runs(workload):
 def test_result_keys_and_finite(runs):
     res, plain_calls, _, _ = runs
     assert set(res) == KEYS
+    assert res["objectives"] is None and res["pareto"] is None  # a scalar sweep
     assert math.isfinite(res["best_score"]) and not res["diverged"]
     assert res["best_curve"].shape == (2,) and np.isfinite(res["mean_curve"]).all()
     assert res["member_failures"] == [0, 0]
@@ -74,11 +76,26 @@ def test_default_device_raises_without_cuda(workload, monkeypatch):
 
 @pytest.mark.parametrize(
     "arg,value",
-    [("mesh", object()), ("warm_obs", [1]), ("objectives", object())],
+    [("mesh", object()), ("warm_obs", [1])],
 )
 def test_out_of_scope_arguments_raise(workload, arg, value):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         fused_pbt(workload, **RUN, **{arg: value})
+
+
+@pytest.mark.parametrize("arg,value,match", [
+    ("step_chunk", 1, "step_chunk is not supported with multi-objective"),
+    ("wave_size", 2, "wave scheduling is not supported with multi-objective"),
+])
+def test_objectives_keep_the_reference_refusals(workload, arg, value, match):
+    """``objectives`` is ported (``test_torch_fused_mo.py``); what the JAX
+    package refuses with it is refused here too, before any work."""
+    from mpi_opt_tpu_torch.objectives import ObjectiveSpec
+
+    run = dict(RUN, gen_chunk=0) if arg == "wave_size" else RUN
+    with pytest.raises(ValueError, match=match):
+        fused_pbt(workload, objectives=ObjectiveSpec.parse("accuracy,params:min"),
+                  **run, **{arg: value})
 
 
 @pytest.mark.parametrize("arg", ["step_chunk", "checkpoint_dir", "ledger", "oom_backoff", "wave_size"])

@@ -35,7 +35,8 @@ def test_no_jax_imports(path):
     "train/engine.py", "train/staging.py", "train/fused_asha.py", "ops/asha.py", "obs/memory.py",
     "obs/trace.py", "obs/report.py", "obs/bubbles.py", "algorithms/base.py", "algorithms/hyperband.py",
     "ops/tpe.py", "algorithms/bohb.py", "data/loaders.py", "workloads/tabular.py", "train/fused_tpe.py",
-    "train/fused_bohb.py",
+    "train/fused_bohb.py", "objectives/spec.py", "objectives/pareto.py", "objectives/__init__.py",
+    "workloads/digits.py",
 ])
 def test_wave_engine_modules_are_scanned(module):
     assert ROOT / "mpi_opt_tpu_torch" / module in FILES
