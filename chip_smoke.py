@@ -131,19 +131,36 @@ Phases, in order; any failure exits non-zero and prints no result:
    n=256 by CUDA events; (d) fused SHA on fashion_mlp at config 2's
    shape under ``accuracy:max,latency:min`` against the scalar sweep in
    turns: rungs [64, 22, 8, 3], every ok record a 2-vector, trials/s;
-15. the script's wall, the ``kernels`` line (JSON), then the device line
+15. the driver path (``--phases driver``, the 16th of ``PHASES``):
+   ``run_search`` over the ``gpu`` slot-pool backend at full width. (a)
+   config 2's driver half, ASHA on fashion_mlp (64 trials, 10 -> 270,
+   eta 3, a pool of 64): a warm-up search, ``reset``, the timed search,
+   ``reset``, the search again, all three with the same records bit for
+   bit; (b) config 3's driver half, PBT on cifar10_cnn, 32 members x 8
+   generations x 100 steps; (c) config 4's driver half, TPE on
+   tabular_mlp (256 trials, budget 30, a pool of 64) after a warm-up of
+   192 trials at seed 1; (d) PBT on cifar100_resnet18, 16 members x 2 x
+   10: both GN kernels launched, the plain versions never, and both held
+   against their plain versions at every shape the run launched them at
+   (recorded while it ran); (e) the CLI without ``--fused`` (ASHA on
+   fashion_mlp at config 2's budgets, a pool of 16) with a ledger and
+   snapshots, SIGTERMed once its first batch is journaled: exit 75, then
+   ``--resume`` exit 0 with the unkilled run's ledger records. Trials/s
+   (or member-generations/s) and the best of each;
+16. the script's wall, the ``kernels`` line (JSON), then the device line
    (JSON, last).
 
-Each path (4, 6, 8, 9, 10a, 10d, 11b, 12b, 13b, 14c) runs through the
-entry points a user calls, with the launch counts zeroed just before and
-read just after (in phase 9, its runs in this process; in 10a, each run;
-in 11b, 12b, 13b and 14c, read at each bracket or generation boundary
-too):
+Each path (4, 6, 8, 9, 10a, 10d, 11b, 12b, 13b, 14c, 15b, 15d) runs
+through the entry points a user calls, with the launch counts zeroed
+just before and read just after (in phase 9, its runs in this process;
+in 10a, each run; in 11b, 12b, 13b and 14c, read at each bracket or
+generation boundary too):
 where the model has GroupNorm both kernels must have run, the plain
 versions never; the best score must be finite and the curves in [0, 1].
 
 Run from the repo root: ``python3 chip_smoke.py``. Details also go to
-chiprun_out/chip_smoke.json, written after each phase. ``--phases
+chiprun_out/chip_smoke.json, written after each phase, with the seconds
+each record took (``record_s``, from the one before it). ``--phases
 tpe,bohb`` runs only the named phases after the build (a partial run
 prints no result line).
 
@@ -921,7 +938,7 @@ SHA_TRIALS, SHA_MIN, SHA_MAX, SHA_ETA, SHA_W = 64, 10, 270, 3, 16  # BENCH_ALL.j
 C5_P = 1024  # BASELINE.json config 5: PBT over 1024 ResNet-18 members
 # the phases after the build, in order (``--phases`` picks some)
 PHASES = ("kernels", "slice", "north_star", "mlp", "durability", "waves", "oom", "oom_chunk", "drain",
-          "sha", "config5", "hyperband", "tpe", "bohb", "mo")
+          "sha", "config5", "hyperband", "tpe", "bohb", "mo", "driver")
 
 # a launcher for the port's CLI: caps this process's CUDA allocator at a
 # fraction of the card (0: no cap), runs the CLI, and writes the
@@ -2066,6 +2083,252 @@ def mo_sha_phase(smi):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# the driver path (phase 15): config 3's driver half (PBT, population 32,
+# 8 x 100), the ResNet-18 slot pool's population and depth, and the CLI
+# drill's pool (a few batches of 16, so the SIGTERM lands mid-sweep)
+DRV_PBT_P, DRV_PBT_GENS, DRV_PBT_STEPS = 32, 8, 100
+DRV_RN_P, DRV_RN_GENS, DRV_RN_STEPS = 16, 2, 10
+DRV_CLI_P = 16
+
+
+def _driver_records(algo):
+    """(trial id, status, score, rung, history) of every trial, brackets
+    flattened: what two runs of one search must agree on, bit for bit."""
+    trials = ([t for b in algo.brackets for t in b.trials.values()] if hasattr(algo, "brackets")
+              else list(algo.trials.values()))
+    return [(t.trial_id, t.status.value, t.score, t.rung, [tuple(h) for h in t.history])
+            for t in trials]
+
+
+def _driver_search(make_algo, backend):
+    """Run ``run_search`` on a fresh algorithm; (result, algorithm, wall)
+    with the card synchronised on both sides of the wall."""
+    from mpi_opt_tpu_torch.driver import run_search
+
+    algo = make_algo()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_search(algo, backend)
+    torch.cuda.synchronize()
+    return res, algo, time.perf_counter() - t0
+
+
+def _search_fault(res, algo, n_trials: int, what: str) -> str | None:
+    best = res.best
+    if res.n_trials != n_trials or best is None or not (math.isfinite(best.score) and 0 <= best.score <= 1):
+        return f"{what}: {res.n_trials} trials, best {None if best is None else best.score}"
+    if not algo.finished():
+        return f"{what}: the search did not finish"
+    return None
+
+
+class _ShapeRecorder:
+    """Wraps the GN kernels' wrappers for the span of a ``with``: each
+    (input shape, groups, relu, dtype) they are called at is recorded."""
+
+    def __init__(self, gn):
+        self.gn, self.shapes = gn, set()
+
+    def __enter__(self):
+        gn, self.real = self.gn, (self.gn.gn_fwd, self.gn.gn_bwd)
+
+        def fwd(x, gamma, beta, groups, eps, relu):
+            self.shapes.add((tuple(x.shape), groups, bool(relu), x.dtype))
+            return self.real[0](x, gamma, beta, groups, eps, relu)
+
+        def bwd(x, dy, gamma, beta, mean, rstd, groups, relu):
+            self.shapes.add((tuple(x.shape), groups, bool(relu), x.dtype))
+            return self.real[1](x, dy, gamma, beta, mean, rstd, groups, relu)
+
+        gn.gn_fwd, gn.gn_bwd = fwd, bwd
+        return self
+
+    def __exit__(self, *exc):
+        self.gn.gn_fwd, self.gn.gn_bwd = self.real
+
+
+def _driver_cli(tmp, name, *extra):
+    """argv of the CLI's driver path (ASHA at config 2's budgets on
+    fashion_mlp, a pool of DRV_CLI_P) with a ledger and snapshots."""
+    return [sys.executable, "-m", "mpi_opt_tpu_torch", "--workload", "fashion_mlp", "--algorithm",
+            "asha", "--trials", str(SHA_TRIALS), "--min-budget", str(SHA_MIN), "--max-budget",
+            str(SHA_MAX), "--eta", str(SHA_ETA), "--population", str(DRV_CLI_P), "--seed", "0",
+            "--device", "cuda", "--ledger", os.path.join(tmp, name, "ledger.jsonl"),
+            "--checkpoint-dir", os.path.join(tmp, name, "ck"), *extra]
+
+
+def driver_phase(gn, get_workload, smi):
+    """The driver path (``run_search`` over the ``gpu`` slot-pool
+    backend), each at full width: (a) config 2's driver half, ASHA on
+    fashion_mlp (SHA_TRIALS trials, SHA_MIN -> SHA_MAX, eta SHA_ETA, a
+    pool of SHA_TRIALS): a warm-up search, ``reset``, the timed search,
+    ``reset``, the search again: all three bit-identical; (b) config 3's
+    driver half, PBT on cifar10_cnn, DRV_PBT_P members x DRV_PBT_GENS x
+    DRV_PBT_STEPS; (c) config 4's driver half, TPE on tabular_mlp
+    (C4_TRIALS trials, budget C4_BUDGET, a pool of C4_BATCH) after a
+    warm-up of 192 trials at seed 1, so the surrogate ran before the timed
+    search; (d) PBT on cifar100_resnet18, DRV_RN_P x DRV_RN_GENS x
+    DRV_RN_STEPS: both GN kernels launched, the plain versions never, and
+    both held against their plain versions at every shape the phase
+    launched them at; (e) the CLI without ``--fused`` with a ledger and
+    snapshots, SIGTERMed once its first batch is journaled: exit 75, then
+    ``--resume`` exit 0 with the unkilled run's records. Returns (record,
+    GN launches by path, max abs error of each kernel, problem)."""
+    import shutil
+    import tempfile
+
+    from mpi_opt_tpu_torch.algorithms import ASHA, PBT, TPE
+    from mpi_opt_tpu_torch.backends import get_backend
+    from mpi_opt_tpu_torch.utils.exitcodes import EX_TEMPFAIL
+
+    out = {"card": smi}
+    launches = {}
+    errs = {"gn_fwd": 0.0, "gn_bwd": 0.0}
+
+    # (a) config 2's driver half, three times on one backend
+    wl = get_workload("fashion_mlp")
+    wl.data()
+    be = get_backend("gpu", wl, population=SHA_TRIALS, seed=0)
+    make = lambda: ASHA(wl.default_space(), seed=0, max_trials=SHA_TRIALS, min_budget=SHA_MIN,
+                        max_budget=SHA_MAX, eta=SHA_ETA)
+    gn.reset_launches()
+    runs = []
+    for tag in ("warm_up", "timed", "again"):
+        if runs:
+            be.reset()
+        res, algo, wall = _driver_search(make, be)
+        bad = _search_fault(res, algo, SHA_TRIALS, f"driver asha {tag}")
+        if bad:
+            return out, launches, errs, bad
+        runs.append(_driver_records(algo))
+        out[f"asha_{tag}"] = {"wall_s": wall, "trials_per_s": SHA_TRIALS / wall, "evals": res.n_evals,
+                              "evals_per_s": res.n_evals / wall, "best_score": res.best.score,
+                              "best_trial": res.best.trial_id}
+        print(f"driver asha config 2 {tag} ({smi}): {json.dumps(out[f'asha_{tag}'])}")
+    launches["driver_fashion_mlp"] = dict(gn.LAUNCHES)
+    if runs[1] != runs[0] or runs[2] != runs[1]:
+        return out, launches, errs, "driver asha: a reset search did not reproduce the records"
+    if launches["driver_fashion_mlp"]["plain"]:
+        return out, launches, errs, f"driver asha called the plain GroupNorm: {launches}"
+    del be
+
+    # (b) config 3's driver half
+    wl = get_workload("cifar10_cnn")
+    wl.data()
+    be = get_backend("gpu", wl, population=DRV_PBT_P, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    gn.reset_launches()
+    res, algo, wall = _driver_search(lambda: PBT(wl.default_space(), seed=0, population=DRV_PBT_P,
+                                                 generations=DRV_PBT_GENS,
+                                                 steps_per_generation=DRV_PBT_STEPS), be)
+    launches["driver_smallcnn"] = dict(gn.LAUNCHES)
+    n = DRV_PBT_P * DRV_PBT_GENS
+    out["pbt_config3"] = {"population": DRV_PBT_P, "generations": DRV_PBT_GENS,
+                          "steps_per_generation": DRV_PBT_STEPS, "wall_s": wall,
+                          "member_generations_per_s": n / wall, "best_score": res.best.score,
+                          "launches": launches["driver_smallcnn"],
+                          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"driver pbt config 3 ({smi}): {json.dumps(out['pbt_config3'])}")
+    bad = _search_fault(res, algo, n, "driver pbt config 3")
+    lc = launches["driver_smallcnn"]
+    if bad or not (lc["gn_fwd"] > 0 and lc["gn_bwd"] > 0) or lc["plain"]:
+        return out, launches, errs, bad or f"driver pbt config 3: GN launches {lc}"
+    del be
+
+    # (c) config 4's driver half, after a warm-up search at seed 1
+    wl = get_workload("tabular_mlp")
+    wl.data()
+    be = get_backend("gpu", wl, population=C4_BATCH, seed=0)
+    space = wl.default_space()
+    _, _, warm_wall = _driver_search(lambda: TPE(space, seed=1, max_trials=192, budget=C4_BUDGET), be)
+    be.reset()
+    res, algo, wall = _driver_search(lambda: TPE(space, seed=0, max_trials=C4_TRIALS, budget=C4_BUDGET), be)
+    out["tpe_config4"] = {"warm_up_wall_s": warm_wall, "wall_s": wall, "trials_per_s": C4_TRIALS / wall,
+                          "best_score": res.best.score, "best_params": {
+                              k: v for k, v in res.best.params.items() if not k.startswith("__")}}
+    print(f"driver tpe config 4 ({smi}): {json.dumps(out['tpe_config4'])}")
+    bad = _search_fault(res, algo, C4_TRIALS, "driver tpe config 4")
+    if bad:
+        return out, launches, errs, bad
+    del be
+
+    # (d) the ResNet-18 slot pool, its GN launch shapes recorded
+    wl = get_workload("cifar100_resnet18")
+    wl.data()
+    be = get_backend("gpu", wl, population=DRV_RN_P, seed=0)
+    gn.reset_launches()
+    with _ShapeRecorder(gn) as rec:
+        res, algo, wall = _driver_search(lambda: PBT(wl.default_space(), seed=0, population=DRV_RN_P,
+                                                     generations=DRV_RN_GENS,
+                                                     steps_per_generation=DRV_RN_STEPS), be)
+    launches["driver_resnet18"] = dict(gn.LAUNCHES)
+    n = DRV_RN_P * DRV_RN_GENS
+    lr = launches["driver_resnet18"]
+    out["pbt_resnet18"] = {"population": DRV_RN_P, "generations": DRV_RN_GENS,
+                           "steps_per_generation": DRV_RN_STEPS, "wall_s": wall,
+                           "member_steps_per_s": n * DRV_RN_STEPS / wall, "best_score": res.best.score,
+                           "launches": lr, "launch_width": be.launch_width,
+                           "gn_shapes": sorted([list(s), g, r, str(d)] for s, g, r, d in rec.shapes)}
+    print(f"driver pbt resnet18 ({smi}): {json.dumps(out['pbt_resnet18'])}")
+    bad = _search_fault(res, algo, n, "driver pbt resnet18")
+    if bad or not (lr["gn_fwd"] > 0 and lr["gn_bwd"] > 0) or lr["plain"]:
+        return out, launches, errs, bad or f"driver pbt resnet18: GN launches {lr}"
+    del be
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    for shape, g, relu, dtype in sorted(rec.shapes, key=str):
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        c = shape[-1]
+        gamma = 1.0 + 0.5 * torch.randn(c, generator=gen, device="cuda")
+        beta = 0.1 * torch.randn(c, generator=gen, device="cuda")
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        e = check_shape(gn, x, dy, gamma, beta, g, relu, tag, None)
+        for k in errs:
+            errs[k] = max(errs[k], e[k])
+        del x, dy
+        torch.cuda.empty_cache()
+    out["pbt_resnet18"]["max_abs_err"] = dict(errs)
+    print(f"driver resnet18 GN shapes checked against the plain versions: {len(rec.shapes)} "
+          f"(max abs err {json.dumps(errs)})")
+
+    # (e) the CLI drill: unkilled, SIGTERMed after its first batch, resumed
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_driver_")
+    try:
+        rc, want = _run_to_end(_driver_cli(tmp, "unkilled"))
+        if rc != 0:
+            return out, launches, errs, f"driver cli: the unkilled run exited {rc}"
+        argv = _driver_cli(tmp, "killed")
+        ledger = os.path.join(tmp, "killed", "ledger.jsonl")
+
+        def first_batch():
+            try:
+                with open(ledger) as f:
+                    return sum(1 for _ in f) > DRV_CLI_P
+            except OSError:
+                return False
+
+        rc, stdout, _ = _interrupt(argv, first_batch, signal.SIGTERM, "driver cli")
+        last = json.loads(stdout.strip().splitlines()[-1])
+        if rc != EX_TEMPFAIL or not last.get("preempted"):
+            return out, launches, errs, f"driver cli: SIGTERM gave exit {rc}, {last}"
+        got = _resume(argv, "driver cli")
+        # a driver record's wall_s is the evaluation's own wall: not compared
+        strip = lambda recs: [{k: v for k, v in r.items() if k != "wall_s"} for r in recs]
+        same = strip(_records(ledger)) == strip(_records(os.path.join(tmp, "unkilled", "ledger.jsonl")))
+        out["cli"] = {"preempted_at": last["at"], "trials_done_before": last.get("trials_done"),
+                      "same_records": same, "best_score": got["best_score"],
+                      "unkilled_best_score": want["best_score"],
+                      "trials_per_s_unkilled": want["trials_per_sec_per_chip"]}
+        print(f"driver cli ({smi}): {json.dumps(out['cli'])}")
+        if not same or got["best_params"] != want["best_params"]:
+            return out, launches, errs, "driver cli: the resumed run's records differ from the unkilled run's"
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out, launches, errs, None
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline-cu", default=None,
@@ -2119,14 +2382,19 @@ def main() -> int:
 
     res_out = {"card": smi}  # every phase's record, for chiprun_out/chip_smoke.json
     launches = {}  # path -> kernel launches while it ran
+    # seconds from the previous record (the build, for the first) to each
+    # record: where the script's wall goes, record by record
+    record_s, since = {}, [T_START]
 
     def done(name, rec):
         res_out[name] = rec
+        now = time.perf_counter()
+        record_s[name], since[0] = now - since[0], now
         out = os.path.join(ROOT, "chiprun_out", "chip_smoke.json")
         os.makedirs(os.path.dirname(out), exist_ok=True)
         with open(out + ".tmp", "w") as f:
-            json.dump({**res_out, "wall_s": time.perf_counter() - T_START, "launches": launches}, f,
-                      indent=1)
+            json.dump({**res_out, "wall_s": now - T_START, "record_s": record_s,
+                       "launches": launches}, f, indent=1)
         os.replace(out + ".tmp", out)
 
     if "kernels" in phases:
@@ -2326,6 +2594,15 @@ def main() -> int:
         if bad:
             return fail(bad)
 
+    if "driver" in phases:
+        # 15. the driver path: configs 2, 3 and 4's driver halves, the
+        # ResNet-18 slot pool, the CLI drained and resumed
+        drv, drv_launches, drv_errs, bad = driver_phase(gn, get_workload, smi)
+        launches.update(drv_launches)
+        done("driver", drv)
+        if bad:
+            return fail(bad)
+
     print(f"chip_smoke wall: {time.perf_counter() - T_START} s")
     if phases != PHASES:
         print(f"chip_smoke: partial run ({','.join(phases)}): no result line")
@@ -2340,11 +2617,11 @@ def main() -> int:
                  "launches": sum(n[k] for n in launches.values()), "bound_by": "bytes"}
         for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
             entry[key] = sum(tot[path][k][key] for path in STEP_PATHS)
-        entry["max_abs_err"] = max(t[k]["max_abs_err"] for t in tot.values())
+        entry["max_abs_err"] = max(max(t[k]["max_abs_err"] for t in tot.values()), drv_errs[k])
         entry["bound_share"] = entry["bound_ms"] / entry["ms"]
         entry["by_path"] = {path: {**tot[path][k], "launches": launches[path][k]} for path in STEP_PATHS}
         for path in ("durability", "north_star_waves", "hyperband_smallcnn", "tpe_smallcnn", "bohb_smallcnn",
-                     "mo_smallcnn"):
+                     "mo_smallcnn", "driver_smallcnn", "driver_resnet18"):
             entry["by_path"][path] = {"launches": launches[path][k]}
         kernels.append(entry)
     done("kernels", kernels)

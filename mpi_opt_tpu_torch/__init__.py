@@ -2,7 +2,9 @@
 
 Fused PBT, fused successive halving and fused Hyperband over a
 population of networks, trained as one program on an NVIDIA GPU (or in
-waves through host memory when the population exceeds the card), with
+waves through host memory when the population exceeds the card), and
+the driver path (``driver.run_search`` over the host algorithms and the
+``gpu`` slot-pool backend), with
 span tracing (``obs/``), the JAX package's
 TPU kernels rewritten as CUDA kernels (``csrc/``), made
 crash-recoverable by verified snapshots and a member-granular ledger

@@ -1,7 +1,11 @@
-"""Command line of the port (port of the fused ``--algorithm
-pbt|asha|random|hyperband|tpe|bohb`` paths of ``mpi_opt_tpu/cli.py``,
-and of its ``trace`` subcommand).
+"""Command line of the port (port of ``mpi_opt_tpu/cli.py``: the driver
+path, the fused ``--algorithm pbt|asha|random|hyperband|tpe|bohb``
+paths, and the ``trace`` subcommand).
 
+    python -m mpi_opt_tpu_torch --workload fashion_mlp --algorithm asha \\
+        --trials 64 --min-budget 10 --max-budget 270 --eta 3 --population 64 \\
+        [--ledger L] [--checkpoint-dir C [--resume]] [--trial-retries N] \\
+        [--max-failure-rate F] [--device cpu]
     python -m mpi_opt_tpu_torch --workload cifar10_cnn --algorithm pbt --fused \\
         --population 32 --generations 4 --steps-per-generation 20 \\
         --checkpoint-dir ck --ledger sweep.jsonl [--resume] [--device cpu]
@@ -18,12 +22,16 @@ and of its ``trace`` subcommand).
         --objectives "accuracy:max,params:min"
     python -m mpi_opt_tpu_torch trace m.jsonl [--json]
 
-It runs on CUDA unless ``--device cpu`` is given. The summary is the JAX
-CLI's single JSON line (after the metrics events), and so are the exit
-codes: 0 done; 2 usage; 65 a data dead-end (no verified snapshot, or a
-ledger that diverges from or lags the sweep); 74 a device OOM or a
-full disk; 75 a graceful drain on SIGTERM/SIGINT, with the snapshot
-flushed: rerun with ``--resume``. A flag or subcommand of the JAX CLI
+Without ``--fused`` the sweep is the JAX CLI's driver path:
+``driver.run_search`` over a host algorithm and the ``gpu`` backend, the
+device-resident slot pool (``backends/gpu.py``; ``--population`` is its
+capacity). It runs on CUDA unless ``--device cpu`` is given. The summary
+is the JAX CLI's single JSON line (after the metrics events), and so
+are the exit codes: 0 done; 1 the driver's failure-rate breaker
+tripped; 2 usage; 65 a data dead-end (no verified snapshot, or a ledger
+that diverges from or lags the sweep); 74 a device OOM or a full disk;
+75 a graceful drain on SIGTERM/SIGINT, with the snapshot flushed: rerun
+with ``--resume``. A flag or subcommand of the JAX CLI
 that the port does not take yet is a usage error that says so; none is
 silently ignored.
 """
@@ -45,18 +53,17 @@ from mpi_opt_tpu_torch.utils.integrity import NoVerifiedSnapshotError
 from mpi_opt_tpu_torch.utils.metrics import stdout_logger
 from mpi_opt_tpu_torch.workloads import _REGISTRY, get_workload
 
-# the JAX CLI's algorithms, and those the port runs (fused)
+# the JAX CLI's algorithms; the port runs every one, fused and driver
 ALGORITHMS = ("asha", "bohb", "hyperband", "pbt", "random", "tpe")
-PORTED_ALGORITHMS = ("pbt", "asha", "random", "hyperband", "tpe", "bohb")
 # the JAX CLI's subcommands
 _SUBCOMMANDS = ("report", "fsck", "lint", "trace", "serve", "submit", "status", "cancel",
                 "drain", "corpus", "suggest-client")
 # the JAX CLI's flags that the port does not take yet: valued, then boolean
 _NOT_PORTED_FLAGS = (
-    "--backend", "--workers", "--warm-start", "--profile-dir",
+    "--workers", "--warm-start", "--profile-dir",
     "--profile-launches", "--coordinator", "--num-processes", "--process-id",
-    "--platform", "--local-devices", "--n-data", "--n-pop", "--trial-retries",
-    "--trial-timeout", "--max-failure-rate", "--chaos", "--coord-dir",
+    "--platform", "--local-devices", "--n-data", "--n-pop",
+    "--trial-timeout", "--chaos", "--coord-dir",
     "--coord-epoch", "--coord-timeout", "--rank-kill", "--suggest-serve",
     "--suggest-idle-timeout", "--http-port", "--http-queue", "--http-state-dir",
 )
@@ -67,8 +74,8 @@ class _NotPorted(argparse.Action):
     """A JAX CLI flag the port does not take yet: a usage error."""
 
     def __call__(self, parser, namespace, values, option_string=None):
-        parser.error(f"{option_string} is not ported yet (mpi_opt_tpu_torch runs "
-                     "--fused --algorithm pbt|asha|random|hyperband|tpe|bohb only)")
+        parser.error(f"{option_string} is not ported yet (mpi_opt_tpu_torch runs the driver "
+                     "path on the gpu backend and the --fused sweeps)")
 
 
 def _wire_integrity_observer(metrics):
@@ -127,8 +134,10 @@ def build_parser() -> argparse.ArgumentParser:
         description="hyperparameter optimization on an NVIDIA GPU (the PyTorch port)",
     )
     p.add_argument("--workload", required=True, choices=sorted(_REGISTRY))
-    p.add_argument("--algorithm", default="random", choices=ALGORITHMS,
-                   help="every algorithm is ported as a fused sweep")
+    p.add_argument("--algorithm", default="random", choices=ALGORITHMS)
+    p.add_argument("--backend", default="gpu",
+                   help="driver-path execution backend: gpu, the device-resident slot pool "
+                   "(the JAX CLI's cpu and tpu backends are not the port's)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--trials", type=int, default=16, help="total trials (random/tpe/asha)")
     p.add_argument("--budget", type=int, default=100, help="steps per trial (random/tpe)")
@@ -139,12 +148,20 @@ def build_parser() -> argparse.ArgumentParser:
                    "them with `python -m mpi_opt_tpu_torch trace FILE`. Off by default: an "
                    "untraced sweep does no tracing work")
     p.add_argument("--ledger", default=None, metavar="PATH",
-                   help="journal one record per population member at every generation "
-                   "(fsync'd per record, before the generation's snapshot); with --resume "
-                   "the re-trained generations are verified against it")
+                   help="journal every final trial result (driver path) or one record per "
+                   "population member at every generation (--fused), fsync'd per record; with "
+                   "--resume the driver replays it and a fused sweep verifies against it")
+    p.add_argument("--trial-retries", type=int, default=0,
+                   help="driver path: re-evaluate a failed trial up to this many times "
+                   "(jittered exponential backoff) before reporting it failed")
+    p.add_argument("--max-failure-rate", type=float, default=1.0,
+                   help="driver path: abort the sweep (exit 1) once more than this fraction of "
+                   "final trial results failed (after 20 evaluations); 1.0 disables")
     p.add_argument("--checkpoint-dir", default=None,
-                   help="verified launch-granular snapshots written here")
-    p.add_argument("--checkpoint-every", type=int, default=1, help="launches between snapshots")
+                   help="verified snapshots written here, at launch (fused) or batch (driver) "
+                   "granularity")
+    p.add_argument("--checkpoint-every", type=int, default=1,
+                   help="launches (fused) or batches (driver) between snapshots")
     p.add_argument("--resume", action="store_true",
                    help="resume from the newest verified snapshot in --checkpoint-dir "
                    "(starts fresh if it holds none)")
@@ -152,13 +169,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-budget", type=int, default=270)
     p.add_argument("--eta", type=int, default=3)
     p.add_argument("--population", type=int, default=32,
-                   help="PBT's population; TPE's batch (trials a generation)")
+                   help="PBT's population; fused TPE's batch (trials a generation); the "
+                   "driver path's slot-pool capacity (trials a batch)")
     p.add_argument("--generations", type=int, default=10)
     p.add_argument("--steps-per-generation", type=int, default=200)
     p.add_argument("--truncation", type=float, default=0.25)
     p.add_argument("--fused", action="store_true",
-                   help="run the whole sweep on the device (required: the driver path "
-                   "is not ported)")
+                   help="run the whole sweep as device programs, without the driver loop")
     p.add_argument("--member-chunk", type=int, default=0,
                    help="process members in chunks of this size (activation memory)")
     p.add_argument("--gen-chunk", type=int, default=0,
@@ -537,6 +554,169 @@ def _report_pareto(res, objectives, summary, metrics) -> None:
                     violation=pareto["violation"], objectives=names)
 
 
+def make_algorithm(args, space):
+    """The host algorithm the driver path runs, from the CLI's arguments."""
+    from mpi_opt_tpu_torch.algorithms import get_algorithm
+
+    cls = get_algorithm(args.algorithm)
+    if args.algorithm == "random":
+        return cls(space, seed=args.seed, max_trials=args.trials, budget=args.budget)
+    if args.algorithm == "tpe":
+        return cls(space, seed=args.seed, max_trials=args.trials, budget=args.budget,
+                   device=args.device)
+    if args.algorithm == "asha":
+        return cls(space, seed=args.seed, max_trials=args.trials, min_budget=args.min_budget,
+                   max_budget=args.max_budget, eta=args.eta)
+    if args.algorithm == "hyperband":
+        return cls(space, seed=args.seed, max_budget=args.max_budget, eta=args.eta)
+    if args.algorithm == "bohb":
+        return cls(space, seed=args.seed, max_budget=args.max_budget, eta=args.eta,
+                   device=args.device)
+    if args.algorithm == "pbt":
+        return cls(space, seed=args.seed, population=args.population,
+                   generations=args.generations, steps_per_generation=args.steps_per_generation,
+                   config=PBTConfig(truncation_frac=args.truncation))
+    raise AssertionError(args.algorithm)
+
+
+def run_driver(args, parser, workload) -> int:
+    """The driver path: ``driver.run_search`` over a host algorithm and
+    the ``gpu`` slot-pool backend, with the ledger's replay and cache,
+    verified batch snapshots, retries and the failure-rate breaker, the
+    JAX CLI's summary line and exit codes."""
+    from mpi_opt_tpu_torch.backends import get_backend
+    from mpi_opt_tpu_torch.driver import FailurePolicy, SweepAborted, run_search
+    from mpi_opt_tpu_torch.ledger import LedgerError
+    from mpi_opt_tpu_torch.workloads.base import PopulationWorkload
+
+    if not isinstance(workload, PopulationWorkload):
+        parser.error(f"the gpu backend needs a population workload, not {args.workload!r}")
+    if args.checkpoint_dir and not args.resume and _has_snapshot(args.checkpoint_dir):
+        parser.error(
+            f"--checkpoint-dir {args.checkpoint_dir!r} already holds a snapshot; "
+            "pass --resume to continue it, or point at a fresh directory"
+        )
+    space = workload.default_space()
+    algorithm = make_algorithm(args, space)
+    metrics = stdout_logger(path=args.metrics_file, n_chips=1)
+    _wire_integrity_observer(metrics)
+    _wire_resource_observer(metrics)
+    if args.trace:  # main restores the entry state on the way out
+        _trace.configure(metrics)
+    fields = dict(workload=args.workload, algorithm=args.algorithm, backend=args.backend)
+    with _trace.span("setup", backend=args.backend) as sp:
+        _trace.note_device(sp, args.device)
+        backend = get_backend(args.backend, workload, population=args.population,
+                              seed=args.seed, member_chunk=args.member_chunk, device=args.device)
+    checkpointer = ledger = None
+    try:
+        with resources.oom_funnel():
+            if args.checkpoint_dir:
+                from mpi_opt_tpu_torch.utils.checkpoint import SearchCheckpointer
+
+                checkpointer = SearchCheckpointer(args.checkpoint_dir, every=args.checkpoint_every)
+                if args.resume:
+                    try:
+                        step = checkpointer.restore_into(algorithm, backend)
+                    except ValueError as e:  # a fused sweep's directory
+                        parser.error(f"--checkpoint-dir: {e}")
+                    metrics.log("resume", step=step)
+            ledger = _open_driver_ledger(args, parser, space, backend, metrics)
+            policy = FailurePolicy(max_retries=args.trial_retries,
+                                   max_failure_rate=args.max_failure_rate, seed=args.seed)
+            result = run_search(algorithm, backend, metrics=metrics, checkpointer=checkpointer,
+                                policy=policy, ledger=ledger)
+    except resources.DeviceOOM as e:
+        return _resource_exit(e, metrics, "device_oom", **fields)
+    except resources.StorageFull as e:
+        return _resource_exit(e, metrics, "storage_full", **fields)
+    except (NoVerifiedSnapshotError, LedgerError) as e:
+        return _data_error_exit(e, metrics, **fields)
+    except SweepAborted as e:
+        # the breaker tripping is an operator outcome, not a crash
+        metrics.summary(final=True, aborted=True)
+        print(json.dumps({"aborted": str(e)}))
+        print(str(e), file=sys.stderr)
+        return 1
+    except SweepInterrupted as e:
+        # drained at a batch boundary: every completed trial is journaled
+        # and an off-cadence snapshot was forced
+        metrics.count_preempted()
+        metrics.summary(final=True)
+        print(json.dumps({"preempted": True, "signal": e.signal, "at": e.at,
+                          "trials_done": metrics.trials_done}))
+        print(f"graceful shutdown ({e.signal}) at {e.at}: checkpoint + ledger flushed; "
+              f"relaunch with --resume to continue (exit {EX_TEMPFAIL})", file=sys.stderr)
+        return EX_TEMPFAIL
+    finally:
+        backend.close()
+        if checkpointer is not None:
+            checkpointer.close()
+        if ledger is not None:
+            ledger.close()
+    best = result.best
+    summary = {
+        "workload": args.workload,
+        "algorithm": args.algorithm,
+        "backend": args.backend,
+        "n_trials": result.n_trials,
+        "wall_s": round(result.wall_s, 3),
+        "trials_per_sec_per_chip": round(result.trials_per_sec_per_chip, 4),
+        "trials_failed": metrics.trials_failed,
+        "trials_retried": metrics.trials_retried,
+        "trials_timeout": metrics.trials_timeout,
+        "cache_hits": metrics.cache_hits,
+        "replayed": metrics.replayed,
+        "best_score": None if best is None else round(best.score, 6),
+        "best_params": None if best is None
+        else {k: v for k, v in best.params.items() if not k.startswith("__")},
+    }
+    metrics.summary(final=True)
+    print(json.dumps(_finite_or_null(summary)))
+    return 0
+
+
+def _open_driver_ledger(args, parser, space, backend, metrics):
+    """Open the driver path's ledger (None without --ledger) and commit
+    the JAX CLI's driver header: the sweep's identity is everything that
+    shapes the suggestion stream the replay relies on. A stale journal
+    needs --resume; a journal of another sweep is refused."""
+    if not args.ledger:
+        return None
+    from mpi_opt_tpu_torch.ledger import LedgerError, SweepLedger
+
+    try:
+        ledger = SweepLedger(args.ledger, read_only=False)
+    except LedgerError as e:
+        parser.error(f"--ledger: {e}")
+    if ledger.records and not args.resume:
+        ledger.close()
+        parser.error(f"--ledger {args.ledger!r} already holds {len(ledger.records)} trial "
+                     "records; pass --resume to replay them, or point at a fresh path")
+    try:
+        ledger.ensure_header(
+            {
+                "algorithm": args.algorithm,
+                "workload": args.workload,
+                "backend": args.backend,
+                "seed": args.seed,
+                "space_hash": space.space_hash(),
+                "capacity": backend.capacity,
+                "trials": args.trials,
+                "budget": args.budget,
+                "chaos": None,
+                "warm_start": None,
+            },
+            space_spec=space.spec(),
+        )
+    except LedgerError as e:
+        ledger.close()
+        parser.error(f"--ledger: {e}")
+    if ledger.n_torn:
+        metrics.log("ledger_torn_tail_dropped", path=args.ledger)
+    return ledger
+
+
 def _expandable_segments(device) -> bool:
     """Let the CUDA caching allocator grow its segments in place
     (``expandable_segments``) unless ``PYTORCH_CUDA_ALLOC_CONF`` is set;
@@ -575,11 +755,16 @@ def main(argv=None) -> int:
         parser.error("--resume requires --checkpoint-dir or --ledger")
     if args.trace and not args.metrics_file:
         parser.error("--trace needs --metrics-file: the spans go to that stream")
-    if not args.fused:
-        parser.error("the driver path (no --fused) is not ported yet; pass --fused")
-    if args.algorithm not in PORTED_ALGORITHMS:
-        parser.error(f"--fused --algorithm {args.algorithm} is not ported yet; "
-                     "the port runs --algorithm pbt|asha|random|hyperband|tpe|bohb")
+    if args.backend == "cpu":
+        parser.error("--backend cpu is not ported yet; the port's driver path runs on "
+                     "--backend gpu (the default)")
+    if args.backend != "gpu":
+        parser.error(f"--backend {args.backend} is not a backend of the port: its device "
+                     "slot pool is --backend gpu (the default)")
+    if args.trial_retries < 0:
+        parser.error(f"--trial-retries must be >= 0, got {args.trial_retries}")
+    if not 0.0 < args.max_failure_rate <= 1.0:
+        parser.error(f"--max-failure-rate must be in (0, 1], got {args.max_failure_rate}")
     # --wave-size: an integer or 'auto', checked here as a usage error
     if args.wave_size != "auto":
         try:
@@ -590,13 +775,16 @@ def main(argv=None) -> int:
             parser.error(f"--wave-size must be >= 0, got {args.wave_size}")
     if args.oom_backoff < 0:
         parser.error(f"--oom-backoff must be >= 0, got {args.oom_backoff}")
+    if args.wave_size and not args.fused:
+        parser.error("--wave-size schedules a fused cohort through host-staged waves; it "
+                     "requires --fused")
     if args.wave_size and (args.gen_chunk > 1 or args.step_chunk > 0):
         parser.error("--wave-size schedules whole generations as resident waves; combining "
                      "it with --gen-chunk/--step-chunk launch splitting is ambiguous")
     # --objectives: parsed and cross-checked here, as a usage error
     args.objective_spec = None
     if args.objectives:
-        if args.algorithm not in ("pbt", "asha"):
+        if not args.fused or args.algorithm not in ("pbt", "asha"):
             parser.error("--objectives runs multi-objective selection inside the fused boundary "
                          "ops; it requires --fused --algorithm pbt|asha")
         if args.wave_size:
@@ -620,7 +808,8 @@ def main(argv=None) -> int:
         with _shutdown.ShutdownGuard():
             if args.heartbeat_file:
                 _heartbeat.configure(args.heartbeat_file)
-            return run_fused(args, parser, get_workload(args.workload))
+            run = run_fused if args.fused else run_driver
+            return run(args, parser, get_workload(args.workload))
     finally:
         _heartbeat.deconfigure()
         integrity.clear_observer()

@@ -1,10 +1,11 @@
 """Durable sweep ledger (port of ``mpi_opt_tpu/ledger/``): the
 append-only, fsync-per-record JSONL journal (``store``) and its
-boundary-granular member view for fused sweeps (``fused``). Both write
-the JAX package's schema byte for byte, so either package reads the
-other's ledgers. The exact-match cache and warm start are not ported
-yet."""
+boundary-granular member view for fused sweeps (``fused``), and the
+driver path's exact-match cache (``cache``). The journals write the JAX
+package's schema byte for byte, so either package reads the other's
+ledgers. Warm start and the corpus cache are not ported yet."""
 
+from mpi_opt_tpu_torch.ledger.cache import EvalCache
 from mpi_opt_tpu_torch.ledger.fused import FusedJournal, make_journal
 from mpi_opt_tpu_torch.ledger.store import (
     LEDGER_SCHEMA_VERSION,
@@ -16,6 +17,7 @@ from mpi_opt_tpu_torch.ledger.store import (
 )
 
 __all__ = [
+    "EvalCache",
     "FusedJournal",
     "LEDGER_SCHEMA_VERSION",
     "LedgerError",

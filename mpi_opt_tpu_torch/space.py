@@ -161,6 +161,11 @@ class SearchSpace:
             device=generator.device,
         )
 
+    def sample(self, generator: torch.Generator, n: int) -> dict[str, torch.Tensor]:
+        """n uniform points as typed value tensors (``from_unit`` of a
+        ``sample_unit`` draw)."""
+        return self.from_unit(self.sample_unit(generator, n))
+
     def from_unit(self, u) -> dict[str, torch.Tensor]:
         """Unit-cube ``[..., d]`` -> dict of typed value tensors, all in
         float32 (a float64 input is rounded to float32 FIRST, so a

@@ -16,7 +16,10 @@ apply.
 A wave of a larger population (``train/engine.py``) trains through
 ``train_segment_window`` and is initialised by ``init_population_into``;
 both make the draws of the whole population, so a wave's members get
-the numbers they would get resident.
+the numbers they would get resident. The driver path's slot pool
+(``backends/gpu.py``) trains a batch of mixed budgets in one chain
+through ``train_segment_masked`` and overwrites its fresh members with
+``select_members``.
 
 One launch width. cuDNN on the card and oneDNN on the CPU choose a
 grouped convolution's algorithm by its group count, so a member's
@@ -207,23 +210,37 @@ class PopulationTrainer:
             xp = apply_augment(bx, *(_rows(t, a, b, width) for t in aug))
         return fold_members(xp)
 
-    def _pop_update(self, state: PopState, hp: OptHParams, aug, bx, by) -> torch.Tensor:
+    def _pop_update(self, state: PopState, hp: OptHParams, aug, bx, by, active=None) -> torch.Tensor:
         """One step for the whole population on a shared batch; returns
         the members' losses [P]. Updates ``state`` IN PLACE: each member
         slice's params and momentum are rewritten as soon as its
-        gradient exists, so no second copy of the population is held."""
+        gradient exists, so no second copy of the population is held.
+
+        ``active`` (bool [P], optional) freezes the members it clears:
+        they compute the step like the others, but their update is the
+        identity (lr 0, momentum 1, no decay, gradient 0: ``m*1 + 0 +
+        0*p`` is m and ``p - 0*m`` is p, exactly, for finite state; a
+        non-finite member scores NaN and is evicted either way) and
+        their step count stays, so one launch trains a cohort of mixed
+        budgets."""
         losses = []
         for a, b, w in self._chunks(state.step.shape[0]):
             params = {k: _rows(v, a, b, w).detach().requires_grad_() for k, v in state.params.items()}
             loss = _member_loss(self.logits(params, self._inputs(bx, aug, a, b, w)), by)
             grads = torch.autograd.grad(loss.sum(), list(params.values()))
             lr, mu, wd = hp.lr[a:b], hp.momentum[a:b], hp.weight_decay[a:b]
+            frozen = None
+            if active is not None:
+                frozen = ~active[a:b]
+                lr, mu, wd = lr.masked_fill(frozen, 0.0), mu.masked_fill(frozen, 1.0), wd.masked_fill(frozen, 0.0)
             with torch.no_grad():
                 for k, g in zip(params, grads):
                     # the stand-ins' gradients are dropped here
                     g = g[:b - a]
                     p, m = state.params[k][a:b], state.momentum[k][a:b]
                     shape = (-1,) + (1,) * (p.dim() - 1)
+                    if frozen is not None:
+                        g.masked_fill_(frozen.view(shape), 0.0)
                     # m32 = mu*m + g + wd*p; p -= lr*m32 (f32, coupled
                     # decay); then m = m32 in its storage dtype. An f32
                     # m is its own .float(), so it updates in place
@@ -232,7 +249,7 @@ class PopulationTrainer:
                     if m32 is not m:
                         m.copy_(m32)
             losses.append(loss.detach()[:b - a])
-        state.step += 1
+        state.step += 1 if active is None else active.to(state.step.dtype)
         return torch.cat(losses)
 
     def train_segment(self, state: PopState, hp: OptHParams, train_x, train_y,
@@ -241,7 +258,7 @@ class PopulationTrainer:
         return self.train_segment_window(state, hp, train_x, train_y, generator, steps, 0)
 
     def train_segment_window(self, state: PopState, hp_full: OptHParams, train_x, train_y,
-                             generator: torch.Generator, steps: int, offset: int):
+                             generator: torch.Generator, steps: int, offset: int, rem=None):
         """``train_segment`` for a wave: ``state`` holds members
         [offset, offset+W) of the population that ``hp_full`` describes
         (``hp_full`` has a row for every member). Each step draws the
@@ -249,22 +266,41 @@ class PopulationTrainer:
         the resident segment does, and trains the wave's rows with the
         wave's rows of hp: from the same generator state, a wave's
         members see the draws they see resident, and the generator ends
-        where the resident segment leaves it. Returns (state, the
-        wave's mean losses [steps])."""
+        where the resident segment leaves it. ``rem`` (int [W], optional)
+        is ``train_segment_masked``'s. Returns (state, the wave's mean
+        losses [steps])."""
         w = state.step.shape[0]
         hp = hp_full.rows(offset, offset + w)
         losses = []
-        for _ in range(steps):
+        for t in range(steps):
             idx = draw_batch(generator, train_x.shape[0], self.batch_size)
             bx, by = train_x[idx], train_y[idx]
             aug = None
             if self.augment and bx.dim() == 4:
                 aug = draw_augment(generator, hp_full.flip_prob, hp_full.shift, self.batch_size)
                 aug = tuple(a[offset:offset + w] for a in aug)
-            losses.append(self._pop_update(state, hp, aug, bx, by).mean())
+            if rem is None:
+                losses.append(self._pop_update(state, hp, aug, bx, by).mean())
+            else:
+                active = t < rem
+                loss = self._pop_update(state, hp, aug, bx, by, active=active)
+                losses.append(torch.where(active, loss, 0.0).mean())
         # zero steps (an eval-only generation) is an empty curve, as the
         # JAX package's empty scan gives
         return state, torch.stack(losses) if losses else torch.zeros(0, device=train_x.device)
+
+    def train_segment_masked(self, state: PopState, hp: OptHParams, train_x, train_y,
+                             generator: torch.Generator, steps: int, rem):
+        """``train_segment`` with a budget a member: member m's update
+        applies only while the step index is < ``rem[m]`` (int [P] on the
+        population's device), so one launch trains a mixed-budget cohort
+        (an ASHA batch spanning rungs) to each member's own budget.
+        ``steps`` should be ``max(rem)``. Frozen members still compute
+        each step, but their update is the identity; their step count
+        does not advance. A step's loss is the mean over all members with the
+        frozen ones counted as 0, as in the JAX package. Returns (state,
+        losses [steps])."""
+        return self.train_segment_window(state, hp, train_x, train_y, generator, steps, 0, rem=rem)
 
     @torch.no_grad()
     def eval_population(self, state: PopState, val_x, val_y, eval_chunk: int = 1024):
@@ -351,6 +387,20 @@ class PopulationTrainer:
         vy = torch.zeros(eval_chunk, dtype=torch.long, device=meta)
         f_eval = count(lambda: one.eval_population(state, vx, vy, eval_chunk))
         return f_step, f_eval
+
+    @staticmethod
+    @torch.no_grad()
+    def select_members(fresh_mask: torch.Tensor, fresh: PopState, existing: PopState) -> PopState:
+        """Per-member choice between a fresh init (where ``fresh_mask``,
+        bool [P], is set) and existing state."""
+        def pick(a, b):
+            return torch.where(fresh_mask.view((-1,) + (1,) * (a.dim() - 1)), a, b)
+
+        def tree(fa, fb):
+            return {k: pick(fa[k], fb[k]) for k in fa}
+
+        return PopState(tree(fresh.params, existing.params), tree(fresh.momentum, existing.momentum),
+                        pick(fresh.step, existing.step))
 
     @staticmethod
     def gather_members(state: PopState, src_idx: torch.Tensor) -> PopState:

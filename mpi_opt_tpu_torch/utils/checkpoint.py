@@ -1,4 +1,5 @@
-"""Durable snapshots of a fused sweep (port of ``SweepCheckpointer`` in
+"""Durable snapshots of a fused sweep and of a driver-path search (port
+of ``SweepCheckpointer`` and ``SearchCheckpointer`` in
 ``mpi_opt_tpu/utils/checkpoint.py``).
 
 Orbax becomes the port's own step layout (``utils/integrity.py``): one
@@ -249,3 +250,77 @@ class SweepCheckpointer:
         st = sweep["state"]
         state = PopState(params=st["params"], momentum=st["momentum"], step=st["step"])
         return state, sweep["unit"], sweep["rng_state"], sweep["scores"].numpy(), meta
+
+
+class SearchCheckpointer:
+    """Durable snapshots of a driver-path search (port of
+    ``SearchCheckpointer`` in ``mpi_opt_tpu/utils/checkpoint.py``): the
+    algorithm's state and the backend's host state (JSON, in the step's
+    meta) and the backend's device pool (host tensors), every ``every``
+    completed batches, through ``SweepCheckpointer``'s verified steps,
+    retention and last-good walk-back. A directory of a fused sweep is
+    refused as a config mismatch.
+
+    ``step`` is the driver's batch count of this process; after
+    ``restore_into`` the restored snapshot's batch is added to it, so a
+    resumed search numbers its snapshots on from where it left off."""
+
+    CONFIG = {"kind": "search"}
+
+    def __init__(self, directory: str, every: int = 1, keep: int = 3):
+        if every < 1:
+            raise ValueError(f"checkpoint every must be >= 1, got {every}")
+        self.every = every
+        self._ck = SweepCheckpointer(directory, dict(self.CONFIG), keep=keep)
+        self.directory = self._ck.directory
+        self._base = 0  # the restored snapshot's batch
+
+    def maybe_save(self, step: int, algorithm, backend) -> bool:
+        """Save if ``step`` is on the cadence; returns whether it saved."""
+        if (self._base + step) % self.every:
+            return False
+        self.save(step, algorithm, backend)
+        return True
+
+    def save(self, step: int, algorithm, backend) -> None:
+        """Commit batch ``step``: the pool comes to the host by blocking
+        copies before the files are written."""
+        step = self._base + step
+        search = {"algorithm": algorithm.state_dict(), "backend": backend.host_state_dict()}
+        pool = backend.device_state()
+        sweep = {}
+        if pool is not None:
+            host = lambda d: {k: v.detach().to("cpu") for k, v in d.items()}
+            sweep["pool"] = {"params": host(pool.params), "momentum": host(pool.momentum),
+                             "step": pool.step.detach().to("cpu")}
+        self._ck.save(step, sweep, {"search": search, "batch": int(step)})
+
+    def latest_step(self) -> Optional[int]:
+        steps = self._ck.all_steps()
+        return steps[-1] if steps else None
+
+    def restore_into(self, algorithm, backend) -> Optional[int]:
+        """Load the newest verified snapshot into a fresh algorithm and
+        backend; returns its batch, or None when the directory holds no
+        snapshot. Corrupt steps are quarantined and the walk goes back
+        (``NoVerifiedSnapshotError`` when none verifies); the state is
+        applied only after the step verified."""
+        r = self._ck.restore()
+        if r is None:
+            return None
+        sweep, meta = r
+        algorithm.load_state_dict(meta["search"]["algorithm"])
+        backend.load_host_state_dict(meta["search"]["backend"])
+        if "pool" in sweep:
+            backend.load_device_state(sweep["pool"])
+        self._base = int(meta["batch"])
+        return self._base
+
+    def close(self) -> None:
+        self._ck.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

@@ -1,7 +1,7 @@
 """Sweep metrics (port of the pure-Python ``mpi_opt_tpu/utils/metrics.py``,
 copied so that the port imports nothing of the JAX package):
-``MetricsLogger`` (JSONL events and the counters the fused CLI path
-reads) and the wall-clock-to-target helpers ``wall_to_target``,
+``MetricsLogger`` (JSONL events and the counters the CLI's fused and
+driver paths read), ``null_logger``, and the wall-clock-to-target helpers ``wall_to_target``,
 ``wall_to_target_launchwise``, ``sweep_wall_to_target``."""
 
 from __future__ import annotations
@@ -24,8 +24,20 @@ class MetricsLogger:
         self.n_chips = max(1, n_chips)
         self.t_start = time.perf_counter()
         self.trials_done = 0
+        # the driver's failure counters: FINAL non-ok results after
+        # retries (disjoint by status), and retry ATTEMPTS
+        self.trials_failed = 0
+        self.trials_timeout = 0
+        self.trials_retried = 0
+        # evaluations the driver skipped: served from the exact-match
+        # cache or replayed from the journal on resume (disjoint from
+        # trials_done, so throughput never counts un-run work)
+        self.cache_hits = 0
+        self.replayed = 0
         # graceful-shutdown drains honoured (0 or 1 a run)
         self.preempted = 0
+        # evaluations reaped at a deadline (no port backend has one yet)
+        self.stalls_detected = 0
         # snapshot steps that failed verification on restore and were
         # quarantined before the walk-back
         self.snapshots_quarantined = 0
@@ -61,6 +73,27 @@ class MetricsLogger:
 
     def count_trials(self, n: int):
         self.trials_done += n
+
+    def count_failure(self, status: str = "failed"):
+        """One FINAL non-ok trial result (post-retry)."""
+        if status == "timeout":
+            self.trials_timeout += 1
+        else:
+            self.trials_failed += 1
+
+    def count_retries(self, n: int = 1):
+        self.trials_retried += n
+
+    def count_cache_hits(self, n: int = 1):
+        """Evaluations skipped by the exact-match ledger cache."""
+        self.cache_hits += n
+
+    def count_replayed(self, n: int = 1):
+        """FINAL results served from the journal on a resume."""
+        self.replayed += n
+
+    def count_stalls(self, n: int = 1):
+        self.stalls_detected += n
 
     def count_preempted(self, n: int = 1):
         self.preempted += n
@@ -98,7 +131,13 @@ class MetricsLogger:
         return self.log(
             "summary",
             trials=self.trials_done,
+            trials_failed=self.trials_failed,
+            trials_retried=self.trials_retried,
+            trials_timeout=self.trials_timeout,
+            cache_hits=self.cache_hits,
+            replayed=self.replayed,
             preempted=self.preempted,
+            stalls_detected=self.stalls_detected,
             snapshots_quarantined=self.snapshots_quarantined,
             staged_bytes=self.staged_bytes,
             stage_overlap_s=round(self.stage_overlap_s, 3),
@@ -115,6 +154,10 @@ class MetricsLogger:
         if self._file:
             self._file.close()
             self._file = None
+
+
+def null_logger() -> MetricsLogger:
+    return MetricsLogger()
 
 
 def stdout_logger(path: Optional[str] = None, n_chips: int = 1) -> MetricsLogger:

@@ -36,7 +36,9 @@ def test_no_jax_imports(path):
     "obs/trace.py", "obs/report.py", "obs/bubbles.py", "algorithms/base.py", "algorithms/hyperband.py",
     "ops/tpe.py", "algorithms/bohb.py", "data/loaders.py", "workloads/tabular.py", "train/fused_tpe.py",
     "train/fused_bohb.py", "objectives/spec.py", "objectives/pareto.py", "objectives/__init__.py",
-    "workloads/digits.py",
+    "workloads/digits.py", "algorithms/__init__.py", "algorithms/random_search.py",
+    "algorithms/asha.py", "algorithms/pbt.py", "algorithms/tpe.py", "backends/__init__.py",
+    "backends/base.py", "backends/gpu.py", "ledger/cache.py", "driver.py", "utils/checkpoint.py",
 ])
 def test_wave_engine_modules_are_scanned(module):
     assert ROOT / "mpi_opt_tpu_torch" / module in FILES
