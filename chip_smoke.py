@@ -135,8 +135,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``run_search`` over the ``gpu`` slot-pool backend at full width. (a)
    config 2's driver half, ASHA on fashion_mlp (64 trials, 10 -> 270,
    eta 3, a pool of 64): a warm-up search, ``reset``, the timed search,
-   ``reset``, the search again, all three with the same records bit for
-   bit; (b) config 3's driver half, PBT on cifar10_cnn, 32 members x 8
+   both with the same records bit for bit; (b) config 3's driver half, PBT on cifar10_cnn, 32 members x 8
    generations x 100 steps; (c) config 4's driver half, TPE on
    tabular_mlp (256 trials, budget 30, a pool of 64) after a warm-up of
    192 trials at seed 1; (d) PBT on cifar100_resnet18, 16 members x 2 x
@@ -147,10 +146,27 @@ Phases, in order; any failure exits non-zero and prints no result:
    snapshots, SIGTERMed once its first batch is journaled: exit 75, then
    ``--resume`` exit 0 with the unkilled run's ledger records. Trials/s
    (or member-generations/s) and the best of each;
-16. the script's wall, the ``kernels`` line (JSON), then the device line
+16. a sweep's ledger read back (``--phases warm``, the 17th of
+   ``PHASES``), through the CLI in this process: (a) fused TPE at config
+   4's shape, cold with a ledger, then warm-started from it: n_warm,
+   trials/s both ways, the warm ledger and history exactly its own 256
+   trials; (b) the driver path's TPE warm-started from (a)'s fused
+   ledger (its ``warm_start`` event counts that ledger's ok records),
+   then resumed from its snapshot: ``warm_start_skipped``; (c) fused PBT
+   over full-width cifar10_cnn, 32 members in one chunk, 3 x 20,
+   warm-started from a 2-generation cold run: member 0 starts at the
+   prior best, both GN kernels at every shape they ran at held against
+   their plain versions; (d) phase 9's durability config SIGKILLed (a
+   subprocess) once snapshot 2 is committed: ``fsck`` exits 0 with the
+   ledger cross-checked, a flipped byte in the newest step's
+   ``sweep.pt`` exits 1 naming it, ``--repair`` quarantines it and
+   ``--resume`` ends in the unkilled run's records; ``fsck --deep``
+   passes a clean directory; ``report --json`` and ``--validate`` pass
+   every ledger of the phase;
+17. the script's wall, the ``kernels`` line (JSON), then the device line
    (JSON, last).
 
-Each path (4, 6, 8, 9, 10a, 10d, 11b, 12b, 13b, 14c, 15b, 15d) runs
+Each path (4, 6, 8, 9, 10a, 10d, 11b, 12b, 13b, 14c, 15b, 15d, 16c) runs
 through the entry points a user calls, with the launch counts zeroed
 just before and read just after (in phase 9, its runs in this process;
 in 10a, each run; in 11b, 12b, 13b and 14c, read at each bracket or
@@ -938,7 +954,7 @@ SHA_TRIALS, SHA_MIN, SHA_MAX, SHA_ETA, SHA_W = 64, 10, 270, 3, 16  # BENCH_ALL.j
 C5_P = 1024  # BASELINE.json config 5: PBT over 1024 ResNet-18 members
 # the phases after the build, in order (``--phases`` picks some)
 PHASES = ("kernels", "slice", "north_star", "mlp", "durability", "waves", "oom", "oom_chunk", "drain",
-          "sha", "config5", "hyperband", "tpe", "bohb", "mo", "driver")
+          "sha", "config5", "hyperband", "tpe", "bohb", "mo", "driver", "warm")
 
 # a launcher for the port's CLI: caps this process's CUDA allocator at a
 # fraction of the card (0: no cap), runs the CLI, and writes the
@@ -2161,8 +2177,8 @@ def driver_phase(gn, get_workload, smi):
     """The driver path (``run_search`` over the ``gpu`` slot-pool
     backend), each at full width: (a) config 2's driver half, ASHA on
     fashion_mlp (SHA_TRIALS trials, SHA_MIN -> SHA_MAX, eta SHA_ETA, a
-    pool of SHA_TRIALS): a warm-up search, ``reset``, the timed search,
-    ``reset``, the search again: all three bit-identical; (b) config 3's
+    pool of SHA_TRIALS): a warm-up search, ``reset``, the timed search:
+    both bit-identical; (b) config 3's
     driver half, PBT on cifar10_cnn, DRV_PBT_P members x DRV_PBT_GENS x
     DRV_PBT_STEPS; (c) config 4's driver half, TPE on tabular_mlp
     (C4_TRIALS trials, budget C4_BUDGET, a pool of C4_BATCH) after a
@@ -2185,7 +2201,7 @@ def driver_phase(gn, get_workload, smi):
     launches = {}
     errs = {"gn_fwd": 0.0, "gn_bwd": 0.0}
 
-    # (a) config 2's driver half, three times on one backend
+    # (a) config 2's driver half, twice on one backend
     wl = get_workload("fashion_mlp")
     wl.data()
     be = get_backend("gpu", wl, population=SHA_TRIALS, seed=0)
@@ -2193,7 +2209,7 @@ def driver_phase(gn, get_workload, smi):
                         max_budget=SHA_MAX, eta=SHA_ETA)
     gn.reset_launches()
     runs = []
-    for tag in ("warm_up", "timed", "again"):
+    for tag in ("warm_up", "timed"):
         if runs:
             be.reset()
         res, algo, wall = _driver_search(make, be)
@@ -2206,7 +2222,7 @@ def driver_phase(gn, get_workload, smi):
                               "best_trial": res.best.trial_id}
         print(f"driver asha config 2 {tag} ({smi}): {json.dumps(out[f'asha_{tag}'])}")
     launches["driver_fashion_mlp"] = dict(gn.LAUNCHES)
-    if runs[1] != runs[0] or runs[2] != runs[1]:
+    if runs[1] != runs[0]:
         return out, launches, errs, "driver asha: a reset search did not reproduce the records"
     if launches["driver_fashion_mlp"]["plain"]:
         return out, launches, errs, f"driver asha called the plain GroupNorm: {launches}"
@@ -2324,6 +2340,238 @@ def driver_phase(gn, get_workload, smi):
         print(f"driver cli ({smi}): {json.dumps(out['cli'])}")
         if not same or got["best_params"] != want["best_params"]:
             return out, launches, errs, "driver cli: the resumed run's records differ from the unkilled run's"
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out, launches, errs, None
+
+
+# The warm-start, fsck and report path: (c)'s PBT at phase 9's
+# population and chunk, WARM_GENS generations after a WARM_COLD_GENS cold
+# run; (d)'s killed sweep DUR_GENS generations, as phase 9's
+WARM_P, WARM_CHUNK, WARM_COLD_GENS, WARM_GENS, WARM_STEPS = 32, 32, 2, 3, 20
+
+
+def _in_process(main, argv):
+    """(exit code, stdout lines that are JSON) of ``main(argv)`` run in
+    this process with its standard output captured: the CLI, ``report``
+    or ``fsck`` as a user calls it, without another process's start."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            rc = main(argv)
+        except SystemExit as e:
+            rc = e.code
+    return rc, [json.loads(x) for x in buf.getvalue().splitlines() if x.startswith("{")]
+
+
+def _flip_tensor_byte(path):
+    """Flip one byte in the middle of the largest tensor entry of a
+    step's ``sweep.pt`` (a zip archive); returns the entry's name."""
+    import struct
+    import zipfile
+
+    with zipfile.ZipFile(path) as z:
+        info = max((i for i in z.infolist() if "/data/" in i.filename), key=lambda i: i.file_size)
+    with open(path, "r+b") as f:
+        f.seek(info.header_offset + 26)
+        name_len, extra_len = struct.unpack("<HH", f.read(4))
+        f.seek(info.header_offset + 30 + name_len + extra_len + info.file_size // 2)
+        b = f.read(1)
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([b[0] ^ 0x01]))
+    return info.filename
+
+
+def warm_phase(gn, smi):
+    """A sweep's ledger read back, on the card through the CLI. (a) Fused
+    TPE at config 4's shape, cold with a ledger, then warm-started from
+    it: n_warm, trials/s both ways, the warm run's ledger and history
+    exactly its own C4_TRIALS trials, the library call on the same priors
+    at the CLI's best. (b) The driver path's TPE warm-started from (a)'s
+    fused ledger: its ``warm_start`` event counts that ledger's ok
+    records; resumed from its snapshot with ``--warm-start``, it logs
+    ``warm_start_skipped``. (c) Fused PBT over full-width cifar10_cnn
+    (WARM_P members, chunk WARM_CHUNK, WARM_STEPS steps a generation)
+    warm-started from a short cold run's ledger: member 0 starts at the
+    prior best, both GN kernels launch and the plain versions never, and
+    both are held against their plain versions at every shape the run
+    launched them at. (d) The durability config (DUR_P x DUR_GENS x
+    DUR_STEPS) SIGKILLed once snapshot 2 is committed: ``fsck`` exits 0
+    with the ledger cross-checked; a flipped byte in the newest step's
+    ``sweep.pt`` exits 1 naming it, ``--repair`` quarantines it, and
+    ``--resume`` ends in the unkilled run's records; ``fsck --deep``
+    passes the unkilled run's directory; ``report --json`` and
+    ``--validate`` pass every ledger of the phase. Returns (record, GN
+    launches of (c)'s warm run, max abs error of each kernel, problem)."""
+    import shutil
+
+    from mpi_opt_tpu_torch import cli, get_workload
+    from mpi_opt_tpu_torch.ledger.report import report_main
+    from mpi_opt_tpu_torch.ledger.warmstart import best_observation, load_observations
+    from mpi_opt_tpu_torch.train.fused_tpe import fused_tpe
+    from mpi_opt_tpu_torch.utils import integrity
+
+    tmp = os.path.join(ROOT, "build", "chip_smoke_warm")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    at = lambda *p: os.path.join(tmp, *p)
+    out = {"card": smi}
+    launches = {}
+    errs = {"gn_fwd": 0.0, "gn_bwd": 0.0}
+    cuda = ["--seed", "0", "--device", "cuda"]
+    try:
+        # (a) fused TPE cold, then warm from its ledger
+        tpe = ["--workload", "tabular_mlp", "--algorithm", "tpe", "--trials", str(C4_TRIALS),
+               "--population", str(C4_BATCH), "--budget", str(C4_BUDGET), *cuda]
+        rc, cold = _in_process(cli.main, [*tpe, "--fused", "--ledger", at("tpe_cold.jsonl")])
+        if rc != 0:
+            return out, launches, errs, f"warm (a): the cold TPE run exited {rc}"
+        rc, warm = _in_process(cli.main, [*tpe, "--fused", "--ledger", at("tpe_warm.jsonl"),
+                                          "--warm-start", at("tpe_cold.jsonl")])
+        if rc != 0:
+            return out, launches, errs, f"warm (a): the warm TPE run exited {rc}"
+        space = get_workload("tabular_mlp").default_space()
+        obs, skips = load_observations(at("tpe_cold.jsonl"), space)
+        n_warm = sum(math.isfinite(o.score) for o in obs)
+        res = fused_tpe(get_workload("tabular_mlp"), n_trials=C4_TRIALS, batch=C4_BATCH,
+                        budget=C4_BUDGET, seed=0, warm_obs=obs)
+        recs = _records(at("tpe_warm.jsonl"))
+        event = next(x for x in warm if x.get("event") == "warm_start")
+        out["tpe"] = {"n_warm": res["n_warm"], "observations": event["observations"],
+                      "skipped": event["skipped"],
+                      "cold": {k: cold[-1][k] for k in ("trials_per_sec_per_chip", "best_score")},
+                      "warm": {k: warm[-1][k] for k in ("trials_per_sec_per_chip", "best_score")},
+                      "library_warm_best": res["best_score"],
+                      "history_rows": int(res["obs_unit"].shape[0])}
+        print(f"warm (a) fused TPE config 4 ({smi}): {json.dumps(out['tpe'])}")
+        if res["n_warm"] != n_warm or n_warm != C4_TRIALS or res["obs_unit"].shape[0] != C4_TRIALS:
+            return out, launches, errs, f"warm (a): n_warm {res['n_warm']} of {n_warm} priors"
+        if [r["member"] for r in recs] != list(range(C4_TRIALS)):
+            return out, launches, errs, "warm (a): the warm ledger is not its own trials"
+        if round(res["best_score"], 6) != warm[-1]["best_score"]:
+            return out, launches, errs, "warm (a): the library's warm best differs from the CLI's"
+
+        # (b) the driver path from the fused ledger; resumed, no second ingest
+        drv = [*tpe, "--warm-start", at("tpe_cold.jsonl"), "--ledger", at("driver.jsonl"),
+               "--checkpoint-dir", at("driver_ck")]
+        rc, first = _in_process(cli.main, drv)
+        rc2, again = _in_process(cli.main, [*drv, "--resume"])
+        n_ok = sum(r["status"] == "ok" for r in _records(at("tpe_cold.jsonl")))
+        ev = [x for x in first if x.get("event") == "warm_start"]
+        skipped = [x for x in again if x.get("event", "").startswith("warm_start")]
+        out["driver"] = {"exit": rc, "observations": ev[0]["observations"] if ev else None,
+                         "ok_records": n_ok, "best_score": first[-1].get("best_score"),
+                         "trials_per_sec_per_chip": first[-1].get("trials_per_sec_per_chip"),
+                         "resume_exit": rc2, "resume_events": [x["event"] for x in skipped]}
+        print(f"warm (b) driver TPE from the fused ledger ({smi}): {json.dumps(out['driver'])}")
+        if rc != 0 or len(ev) != 1 or ev[0]["observations"] != n_ok:
+            return out, launches, errs, f"warm (b): exit {rc}, warm_start events {ev}"
+        if rc2 != 0 or [x["event"] for x in skipped] != ["warm_start_skipped"]:
+            return out, launches, errs, f"warm (b): the resume exited {rc2} with {skipped}"
+
+        # (c) fused PBT over the full-width SmallCNN, warm from a short cold run
+        pbt = ["--workload", "cifar10_cnn", "--algorithm", "pbt", "--fused", "--population",
+               str(WARM_P), "--member-chunk", str(WARM_CHUNK), "--steps-per-generation",
+               str(WARM_STEPS), "--gen-chunk", "1", "--device", "cuda"]
+        rc, _ = _in_process(cli.main, [*pbt, "--generations", str(WARM_COLD_GENS), "--seed", "0",
+                                       "--ledger", at("pbt_cold.jsonl")])
+        if rc != 0:
+            return out, launches, errs, f"warm (c): the cold PBT run exited {rc}"
+        gn.reset_launches()
+        with _ShapeRecorder(gn) as rec:
+            rc, lines = _in_process(cli.main, [*pbt, "--generations", str(WARM_GENS), "--seed", "1",
+                                               "--ledger", at("pbt_warm.jsonl"), "--warm-start",
+                                               at("pbt_cold.jsonl")])
+        launches["warm_smallcnn"] = dict(gn.LAUNCHES)
+        lw = launches["warm_smallcnn"]
+        cnn_space = get_workload("cifar10_cnn").default_space()
+        best = best_observation(load_observations(at("pbt_cold.jsonl"), cnn_space)[0])
+        member0 = next(r for r in _records(at("pbt_warm.jsonl"))
+                       if r["boundary"] == 0 and r["member"] == 0)
+        want = cnn_space.canonical_params(cnn_space.materialize_row(best.unit))
+        out["pbt"] = {"exit": rc, "launches": lw, "prior_best_score": best.score,
+                      "member0_starts_at_prior_best": member0["params"] == want,
+                      "member_generations_per_s": WARM_P * WARM_GENS / lines[-1]["wall_s"]
+                      if rc == 0 else None,
+                      "best_score": lines[-1].get("best_score") if lines else None}
+        print(f"warm (c) fused PBT cifar10_cnn P={WARM_P} ({smi}): {json.dumps(out['pbt'])}; "
+              f"gn_fwd {lw['gn_fwd']} launches, gn_bwd {lw['gn_bwd']}")
+        if rc != 0 or member0["params"] != want:
+            return out, launches, errs, f"warm (c): exit {rc}, member 0 {member0['params']} != {want}"
+        if not (lw["gn_fwd"] > 0 and lw["gn_bwd"] > 0) or lw["plain"]:
+            return out, launches, errs, f"warm (c): GN launches {lw}"
+        if not (lines[-1]["best_score"] is not None and 0 <= lines[-1]["best_score"] <= 1):
+            return out, launches, errs, f"warm (c): best {lines[-1]['best_score']}"
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(7)
+        for shape, g, relu, dtype in sorted(rec.shapes, key=str):
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            gamma = 1.0 + 0.5 * torch.randn(shape[-1], generator=gen, device="cuda")
+            beta = 0.1 * torch.randn(shape[-1], generator=gen, device="cuda")
+            e = check_shape(gn, x, dy, gamma, beta, g, relu,
+                            "bf16" if dtype == torch.bfloat16 else "f32", None)
+            for k in errs:
+                errs[k] = max(errs[k], e[k])
+        out["pbt"]["gn_shapes"] = sorted([list(s), g, r, str(d)] for s, g, r, d in rec.shapes)
+        out["pbt"]["max_abs_err"] = dict(errs)
+        print(f"warm (c) GN shapes checked against the plain versions: {len(rec.shapes)} "
+              f"(max abs err {json.dumps(errs)})")
+
+        # (d) fsck and report: the durability config killed, audited,
+        # corrupted, repaired and resumed
+        from mpi_opt_tpu_torch.utils.integrity import fsck_main
+
+        dur = lambda name: _cli(tmp, name)[3:]  # phase 9's CLI arguments, for this process
+        rc, whole = _in_process(cli.main, dur("unkilled"))
+        if rc != 0:
+            return out, launches, errs, f"warm (d): the unkilled run exited {rc}"
+        ck = at("killed", "ck")
+        rc, _, err = _interrupt(_cli(tmp, "killed"), _committed(ck, 2), signal.SIGKILL, "warm (d)")
+        if rc != -signal.SIGKILL:
+            return out, launches, errs, f"warm (d): the killed run exited {rc}:\n{err[-3000:]}"
+        ledger = at("killed", "ledger.jsonl")
+        fsck = {}
+        rc, (rep,) = _in_process(fsck_main, [ck, "--ledger", ledger, "--json"])
+        fsck["killed"] = {"exit": rc, "steps": [s["step"] for s in rep["steps"]],
+                          "ledger": rep["ledger"]}
+        if rc != 0 or not rep["ledger"]["cross_checked"] or rep["ledger"]["problems"]:
+            return out, launches, errs, f"warm (d): fsck of the killed sweep: {rc}, {rep}"
+        newest = integrity._committed_steps(ck)[-1]
+        entry = _flip_tensor_byte(os.path.join(ck, str(newest), integrity.SWEEP_FILE))
+        rc, (rep,) = _in_process(fsck_main, [ck, "--ledger", ledger, "--json"])
+        bad = [(s["step"], s["status"]) for s in rep["steps"] if s["status"] != "verified"]
+        fsck["flipped"] = {"step": newest, "entry": entry, "exit": rc, "bad": bad}
+        if rc != 1 or bad != [(newest, "corrupt")]:
+            return out, launches, errs, f"warm (d): fsck after the flip: {rc}, {bad}"
+        rc, (rep,) = _in_process(fsck_main, [ck, "--repair", "--json"])
+        fsck["repair"] = {"exit": rc, "quarantined": rep["quarantined"]}
+        if rep["quarantined"] != [f"{newest}.corrupt"]:
+            return out, launches, errs, f"warm (d): fsck --repair quarantined {rep['quarantined']}"
+        rc, resumed = _in_process(cli.main, [*dur("killed"), "--resume"])
+        same = _records(ledger) == _records(at("unkilled", "ledger.jsonl"))
+        fsck["resume"] = {"exit": rc, "same_records": same,
+                          "best_score": resumed[-1].get("best_score") if resumed else None,
+                          "unkilled_best_score": whole[-1]["best_score"]}
+        if rc != 0 or not same:
+            return out, launches, errs, f"warm (d): --resume exited {rc}, same records {same}"
+        rc, (rep,) = _in_process(fsck_main, [at("unkilled", "ck"), "--deep", "--json"])
+        fsck["deep_unkilled"] = {"exit": rc, "steps": [s["status"] for s in rep["steps"]]}
+        if rc != 0:
+            return out, launches, errs, f"warm (d): fsck --deep of a clean directory: {rep}"
+        ledgers = sorted(os.path.join(r, f) for r, _, fs in os.walk(tmp) for f in fs
+                         if f.endswith(".jsonl"))
+        rc, (rep,) = _in_process(report_main, [*ledgers, "--json"])
+        rc_v, (val,) = _in_process(report_main, ["--validate", "--json", *ledgers])
+        fsck["report"] = {"ledgers": len(rep["ledgers"]), "exit": rc, "validate_exit": rc_v,
+                          "best": rep["best"]["score"]}
+        out["fsck"] = fsck
+        print(f"warm (d) fsck and report ({smi}): {json.dumps(fsck)}")
+        if rc != 0 or rc_v != 0 or len(rep["ledgers"]) != len(ledgers) or not val["valid"]:
+            return out, launches, errs, f"warm (d): report {rc}, --validate {rc_v}: {val}"
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out, launches, errs, None
@@ -2603,12 +2851,21 @@ def main() -> int:
         if bad:
             return fail(bad)
 
+    if "warm" in phases:
+        # 16. a sweep's ledger read back: warm start on the fused and the
+        # driver path, fsck and report
+        warm, warm_launches, warm_errs, bad = warm_phase(gn, smi)
+        launches.update(warm_launches)
+        done("warm", warm)
+        if bad:
+            return fail(bad)
+
     print(f"chip_smoke wall: {time.perf_counter() - T_START} s")
     if phases != PHASES:
         print(f"chip_smoke: partial run ({','.join(phases)}): no result line")
         return 0
 
-    # 15. the kernels line (a population step of each path, summed; launches
+    # 17. the kernels line (a population step of each path, summed; launches
     # summed over every path), then the device line
     src = "mpi_opt_tpu_torch/csrc/group_norm.cu"
     kernels = []
@@ -2617,11 +2874,12 @@ def main() -> int:
                  "launches": sum(n[k] for n in launches.values()), "bound_by": "bytes"}
         for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
             entry[key] = sum(tot[path][k][key] for path in STEP_PATHS)
-        entry["max_abs_err"] = max(max(t[k]["max_abs_err"] for t in tot.values()), drv_errs[k])
+        entry["max_abs_err"] = max(max(t[k]["max_abs_err"] for t in tot.values()), drv_errs[k],
+                                   warm_errs[k])
         entry["bound_share"] = entry["bound_ms"] / entry["ms"]
         entry["by_path"] = {path: {**tot[path][k], "launches": launches[path][k]} for path in STEP_PATHS}
         for path in ("durability", "north_star_waves", "hyperband_smallcnn", "tpe_smallcnn", "bohb_smallcnn",
-                     "mo_smallcnn", "driver_smallcnn", "driver_resnet18"):
+                     "mo_smallcnn", "driver_smallcnn", "driver_resnet18", "warm_smallcnn"):
             entry["by_path"][path] = {"launches": launches[path][k]}
         kernels.append(entry)
     done("kernels", kernels)

@@ -1,6 +1,7 @@
 """Command line of the port (port of ``mpi_opt_tpu/cli.py``: the driver
 path, the fused ``--algorithm pbt|asha|random|hyperband|tpe|bohb``
-paths, and the ``trace`` subcommand).
+paths, ``--warm-start`` on both, and the ``trace``, ``report`` and
+``fsck`` subcommands).
 
     python -m mpi_opt_tpu_torch --workload fashion_mlp --algorithm asha \\
         --trials 64 --min-budget 10 --max-budget 270 --eta 3 --population 64 \\
@@ -20,7 +21,11 @@ paths, and the ``trace`` subcommand).
     python -m mpi_opt_tpu_torch --workload digits_mlp --algorithm pbt --fused \
         --population 8 --generations 3 --steps-per-generation 40 \
         --objectives "accuracy:max,params:min"
+    python -m mpi_opt_tpu_torch --workload tabular_mlp --algorithm tpe --fused \
+        --trials 256 --population 64 --budget 30 --warm-start prior.jsonl
     python -m mpi_opt_tpu_torch trace m.jsonl [--json]
+    python -m mpi_opt_tpu_torch report sweep.jsonl [--json] [--validate]
+    python -m mpi_opt_tpu_torch fsck ck [--ledger sweep.jsonl] [--repair] [--deep] [--json]
 
 Without ``--fused`` the sweep is the JAX CLI's driver path:
 ``driver.run_search`` over a host algorithm and the ``gpu`` backend, the
@@ -55,12 +60,12 @@ from mpi_opt_tpu_torch.workloads import _REGISTRY, get_workload
 
 # the JAX CLI's algorithms; the port runs every one, fused and driver
 ALGORITHMS = ("asha", "bohb", "hyperband", "pbt", "random", "tpe")
-# the JAX CLI's subcommands
-_SUBCOMMANDS = ("report", "fsck", "lint", "trace", "serve", "submit", "status", "cancel",
-                "drain", "corpus", "suggest-client")
+# the JAX CLI's subcommands that the port does not run yet
+_SUBCOMMANDS = ("lint", "serve", "submit", "status", "cancel", "drain", "corpus",
+                "suggest-client")
 # the JAX CLI's flags that the port does not take yet: valued, then boolean
 _NOT_PORTED_FLAGS = (
-    "--workers", "--warm-start", "--profile-dir",
+    "--workers", "--profile-dir",
     "--profile-launches", "--coordinator", "--num-processes", "--process-id",
     "--platform", "--local-devices", "--n-data", "--n-pop",
     "--trial-timeout", "--chaos", "--coord-dir",
@@ -157,6 +162,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-failure-rate", type=float, default=1.0,
                    help="driver path: abort the sweep (exit 1) once more than this fraction of "
                    "final trial results failed (after 20 evaluations); 1.0 disables")
+    p.add_argument("--warm-start", default=None, metavar="PATH",
+                   help="feed a PRIOR sweep's ledger into this sweep as observations before "
+                   "the search starts (TPE/BOHB build surrogate priors, fused TPE pre-fills "
+                   "its on-device ring; random/asha/hyperband/pbt seed one member with the "
+                   "prior best). Cross-mode: a fused ledger warm-starts a driver sweep and "
+                   "the reverse; the only gate is the space hash. The JAX CLI's auto:DIR "
+                   "corpus resolution is not ported yet")
     p.add_argument("--checkpoint-dir", default=None,
                    help="verified snapshots written here, at launch (fused) or batch (driver) "
                    "granularity")
@@ -276,6 +288,45 @@ def _has_snapshot(directory) -> bool:
     return False
 
 
+def _resolve_warm_start(args, space, parser):
+    """``--warm-start`` resolution, shared by both paths: returns
+    ``(warm_obs, warm_info)``, the observations to ingest and the event
+    payload (``sources`` naming the ledger, ``skips`` counting the
+    records that could not become observations). A bad path, a space
+    hash mismatch, this run's own ledger or an ``auto`` spec is
+    ``parser.error`` (exit 2), before any ledger header commits."""
+    import os
+
+    from mpi_opt_tpu_torch.ledger import LedgerError
+    from mpi_opt_tpu_torch.ledger.warmstart import load_observations
+
+    spec = args.warm_start
+    if spec == "auto" or spec.startswith("auto:"):
+        parser.error("--warm-start auto:DIR resolves through the sweep corpus, which is not "
+                     "ported yet; name one prior ledger instead")
+    # realpath: './sweep.jsonl' against 'sweep.jsonl' (or a symlink) still
+    # feeds this run's own journal back into it
+    if args.ledger and os.path.realpath(spec) == os.path.realpath(args.ledger):
+        parser.error("--warm-start must name a PRIOR sweep's ledger, not this run's --ledger "
+                     "(resuming this sweep is --ledger --resume)")
+    try:
+        obs, skips = load_observations(spec, space)
+    except (LedgerError, OSError) as e:
+        parser.error(f"--warm-start: {e}")
+    return obs, {
+        "sources": [{"path": spec, "match": "exact", "records": len(obs)}],
+        "skips": skips or None,
+    }
+
+
+def _log_warm_start(metrics, args, warm_info, observations: int) -> None:
+    """The ``warm_start`` event: ``observations`` is what informed the
+    search (the algorithm's own count on the driver path), ``sources``
+    the ledger, ``skipped`` the per-record losses."""
+    metrics.log("warm_start", path=args.warm_start, observations=observations,
+                sources=(warm_info or {}).get("sources"), skipped=(warm_info or {}).get("skips"))
+
+
 def run_fused(args, parser, workload) -> int:
     """--fused: the whole sweep on the device (``train.fused_pbt``, or
     ``train.fused_asha.fused_sha`` for asha and random), resident or in
@@ -307,12 +358,18 @@ def run_fused(args, parser, workload) -> int:
     if args.trace:  # main restores the entry state on the way out
         _trace.configure(metrics)
     space = workload.default_space()
+    # the prior ledger validates BEFORE this run's own header commits: a
+    # typo'd --warm-start must not enter a fresh ledger's identity
+    warm_obs = None
+    if args.warm_start:
+        warm_obs, warm_info = _resolve_warm_start(args, space, parser)
+        _log_warm_start(metrics, args, warm_info, len(warm_obs))
     ledger = _open_fused_ledger(args, parser, space, metrics)
     t0 = time.perf_counter()
     fields = dict(workload=args.workload, algorithm=args.algorithm, backend="fused")
     try:
         with resources.oom_funnel():
-            return _run_fused_dispatch(args, workload, metrics, t0, ledger)
+            return _run_fused_dispatch(args, workload, metrics, t0, ledger, warm_obs)
     except resources.DeviceOOM as e:
         return _resource_exit(e, metrics, "device_oom", **fields)
     except resources.StorageFull as e:
@@ -362,7 +419,7 @@ def _open_fused_ledger(args, parser, space, metrics):
         "backend": "fused",
         "seed": args.seed,
         "space_hash": space.space_hash(),
-        "warm_start": None,
+        "warm_start": args.warm_start,
     }
     if args.objective_spec is not None:
         # the objectives shape the selection trajectory: a resume under
@@ -417,7 +474,7 @@ def _wave_extras(res: dict) -> dict:
     )
 
 
-def _run_fused_dispatch(args, workload, metrics, t0, ledger) -> int:
+def _run_fused_dispatch(args, workload, metrics, t0, ledger, warm_obs) -> int:
     """Run the sweep, then print the JAX CLI's fused summary line."""
     import time
 
@@ -441,6 +498,7 @@ def _run_fused_dispatch(args, workload, metrics, t0, ledger) -> int:
             ledger=ledger,
             device=args.device,
             objectives=args.objective_spec,
+            warm_obs=warm_obs,
         ), args.retries, metrics)
         n_trials = args.population * args.generations
         extra = {"best_curve": [round(float(v), 4) for v in res["best_curve"]]}
@@ -459,6 +517,7 @@ def _run_fused_dispatch(args, workload, metrics, t0, ledger) -> int:
             checkpoint_dir=args.checkpoint_dir,
             ledger=ledger,
             device=args.device,
+            warm_obs=warm_obs,
         ), args.retries, metrics)
         n_trials = res["n_trials"]
         extra = {"best_curve": [round(float(v), 4) for v in res["best_curve"]]}
@@ -478,6 +537,7 @@ def _run_fused_dispatch(args, workload, metrics, t0, ledger) -> int:
             checkpoint_dir=args.checkpoint_dir,
             ledger=ledger,
             device=args.device,
+            warm_obs=warm_obs,
         ), args.retries, metrics)
         n_trials = res["n_trials"]
         extra = {"brackets": res["brackets"]}
@@ -502,6 +562,7 @@ def _run_fused_dispatch(args, workload, metrics, t0, ledger) -> int:
             checkpoint_dir=args.checkpoint_dir,
             ledger=ledger,
             device=args.device,
+            warm_obs=warm_obs,
             **mo,
         ), args.retries, metrics)
         n_trials = res["n_trials"]
@@ -599,6 +660,10 @@ def run_driver(args, parser, workload) -> int:
     space = workload.default_space()
     algorithm = make_algorithm(args, space)
     metrics = stdout_logger(path=args.metrics_file, n_chips=1)
+    # the prior ledger validates before this run's own header commits
+    warm_obs = warm_info = None
+    if args.warm_start:
+        warm_obs, warm_info = _resolve_warm_start(args, space, parser)
     _wire_integrity_observer(metrics)
     _wire_resource_observer(metrics)
     if args.trace:  # main restores the entry state on the way out
@@ -608,7 +673,7 @@ def run_driver(args, parser, workload) -> int:
         _trace.note_device(sp, args.device)
         backend = get_backend(args.backend, workload, population=args.population,
                               seed=args.seed, member_chunk=args.member_chunk, device=args.device)
-    checkpointer = ledger = None
+    checkpointer = ledger = step = None
     try:
         with resources.oom_funnel():
             if args.checkpoint_dir:
@@ -622,6 +687,16 @@ def run_driver(args, parser, workload) -> int:
                         parser.error(f"--checkpoint-dir: {e}")
                     metrics.log("resume", step=step)
             ledger = _open_driver_ledger(args, parser, space, backend, metrics)
+            if warm_obs is not None:
+                if step is not None:
+                    # the priors were ingested before that snapshot and live
+                    # in the restored state: ingesting them again would
+                    # count them twice and re-queue consumed seed points
+                    metrics.log("warm_start_skipped",
+                                reason="checkpoint restored (priors already in state)", step=step)
+                else:
+                    _log_warm_start(metrics, args, warm_info,
+                                    algorithm.ingest_observations(warm_obs))
             policy = FailurePolicy(max_retries=args.trial_retries,
                                    max_failure_rate=args.max_failure_rate, seed=args.seed)
             result = run_search(algorithm, backend, metrics=metrics, checkpointer=checkpointer,
@@ -705,7 +780,7 @@ def _open_driver_ledger(args, parser, space, backend, metrics):
                 "trials": args.trials,
                 "budget": args.budget,
                 "chaos": None,
-                "warm_start": None,
+                "warm_start": args.warm_start,
             },
             space_spec=space.spec(),
         )
@@ -747,6 +822,16 @@ def main(argv=None) -> int:
         from mpi_opt_tpu_torch.obs.report import trace_main
 
         return trace_main(argv[1:])
+    # `report` renders/validates ledgers, `fsck` audits (and repairs) a
+    # sweep's snapshot directory; neither touches the device
+    if argv and argv[0] == "report":
+        from mpi_opt_tpu_torch.ledger.report import report_main
+
+        return report_main(argv[1:])
+    if argv and argv[0] == "fsck":
+        from mpi_opt_tpu_torch.utils.integrity import fsck_main
+
+        return fsck_main(argv[1:])
     parser = build_parser()
     if argv and argv[0] in _SUBCOMMANDS:
         parser.error(f"the {argv[0]!r} subcommand is not ported yet")

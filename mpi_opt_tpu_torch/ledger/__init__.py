@@ -1,9 +1,11 @@
 """Durable sweep ledger (port of ``mpi_opt_tpu/ledger/``): the
 append-only, fsync-per-record JSONL journal (``store``) and its
 boundary-granular member view for fused sweeps (``fused``), and the
-driver path's exact-match cache (``cache``). The journals write the JAX
-package's schema byte for byte, so either package reads the other's
-ledgers. Warm start and the corpus cache are not ported yet."""
+driver path's exact-match cache (``cache``); ``warmstart`` feeds a
+prior sweep's ledger into a new search as observations, and ``report``
+renders ledgers for operators. The journals write the JAX package's
+schema byte for byte, so either package reads the other's ledgers. The
+corpus cache is not ported yet."""
 
 from mpi_opt_tpu_torch.ledger.cache import EvalCache
 from mpi_opt_tpu_torch.ledger.fused import FusedJournal, make_journal
@@ -15,6 +17,7 @@ from mpi_opt_tpu_torch.ledger.store import (
     scan_boundaries,
     validate_ledger,
 )
+from mpi_opt_tpu_torch.ledger.warmstart import warm_start
 
 __all__ = [
     "EvalCache",
@@ -26,4 +29,5 @@ __all__ = [
     "read_ledger",
     "scan_boundaries",
     "validate_ledger",
+    "warm_start",
 ]

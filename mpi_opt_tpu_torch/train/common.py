@@ -18,6 +18,22 @@ def finite_winner(scores, ok=None):
     return best_i, diverged
 
 
+def seed_warm_row(unit: torch.Tensor, warm_obs) -> torch.Tensor:
+    """The sampler-family warm start of the fused sweeps: row 0 of a
+    freshly sampled unit matrix becomes the best fully finite prior
+    point (``ledger.warmstart.best_observation``); the matrix comes
+    back unchanged without a usable prior. It consumes no draw, so the
+    other rows are the cold sweep's."""
+    if not warm_obs:
+        return unit
+    from mpi_opt_tpu_torch.ledger.warmstart import best_observation
+
+    bo = best_observation(warm_obs)
+    if bo is not None:
+        unit[0] = torch.as_tensor(np.asarray(bo.unit, dtype=np.float32), device=unit.device)
+    return unit
+
+
 def workload_arrays(workload, member_chunk: int, dev):
     """(trainer, space, train_x, train_y, val_x, val_y) of a population
     workload, the data on ``dev`` (labels as int64), cached on the

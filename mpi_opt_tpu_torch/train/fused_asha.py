@@ -24,8 +24,9 @@ and feed every rung back. ``objectives`` makes a resident ``fused_sha``
 multi-objective: each rung evaluates the objective matrix on the
 device, the cut ranks by Pareto score (``ops.asha.asha_cut_mo``), the
 journal records each member's vector, and the winner is the last rung's
-best feasible survivor. Not here yet (the JAX package's ``fused_sha``
-has them): ``mesh``, ``round_to`` and ``warm_obs``.
+best feasible survivor. ``warm_obs`` (prior-ledger observations)
+starts one cohort row at the prior best. Not here yet (the JAX
+package's ``fused_sha`` has them): ``mesh`` and ``round_to``.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ from mpi_opt_tpu_torch.train.common import (
     launch_boundary,
     momentum_dtype_str,
     pareto_summary,
+    seed_warm_row,
     segment_flops_hint,
     workload_arrays,
 )
@@ -59,7 +61,6 @@ from mpi_opt_tpu_torch.train.population import PopState
 _NOT_PORTED = {
     "mesh": None,
     "round_to": 1,
-    "warm_obs": None,
 }
 
 
@@ -115,6 +116,7 @@ def fused_sha(  # sweeplint: barrier(rung host loop: gathers cohort scores for t
     member_offset: int = 0,
     init_unit=None,
     objectives=None,
+    warm_obs=None,
     **not_ported,
 ):
     """Run a whole successive-halving sweep with on-device rung cuts.
@@ -137,7 +139,11 @@ def fused_sha(  # sweeplint: barrier(rung host loop: gathers cohort scores for t
     configurations is refused. ``objectives`` (an ``ObjectiveSpec``)
     runs a resident multi-objective sweep (waves refuse it with
     ``ValueError``, as in the JAX package); the spec is part of the
-    snapshot's identity.
+    snapshot's identity. ``warm_obs`` (prior-ledger observations,
+    cross-mode) starts row 0 of the uniform initial cohort at the best
+    fully finite prior point when no snapshot was restored (the
+    sampler-family warm start of driver ASHA); ``init_unit`` takes
+    precedence.
 
     Returns the JAX package's result: best_score, best_params,
     best_trial, diverged, rung_budgets, rung_sizes, stop_rung,
@@ -242,7 +248,7 @@ def fused_sha(  # sweeplint: barrier(rung host loop: gathers cohort scores for t
         if init_unit is not None:
             unit = torch.from_numpy(init_unit).to(dev)
         else:
-            unit = space.sample_unit(gen, n_trials)
+            unit = seed_warm_row(space.sample_unit(gen, n_trials), warm_obs)
         if waves:
             from mpi_opt_tpu_torch.train.staging import population_pool
 
@@ -381,7 +387,10 @@ def fused_sha(  # sweeplint: barrier(rung host loop: gathers cohort scores for t
                                           pool_back["step"].index_select(0, sel))
                 meta_extra = {
                     "rungs_done": r + 1,
-                    "boundaries_done": r + 1,
+                    # the ledger cross-check's unit (fsck, the resume
+                    # gate): the GLOBAL boundary count this snapshot
+                    # has complete
+                    "boundaries_done": boundary_offset + r + 1,
                     "alive": alive.tolist(),
                     "stop_rung": stop_rung.tolist(),
                     "last_score": [float(v) for v in last_score],
@@ -449,7 +458,6 @@ def fused_sha(  # sweeplint: barrier(rung host loop: gathers cohort scores for t
 _HB_NOT_PORTED = {
     "mesh": None,
     "round_to": 1,
-    "warm_obs": None,
 }
 
 
@@ -499,6 +507,7 @@ def fused_hyperband(
     device=None,
     cohort_fn=None,
     observe_fn=None,
+    warm_obs=None,
     **not_ported,
 ):
     """Hyperband with every bracket a fused SHA sweep (port of the JAX
@@ -522,7 +531,10 @@ def fused_hyperband(
     cohort, res)`` are fused BOHB's model hooks: sample bracket b's
     initial cohort (``init_unit``; persisted by ``_bracket_cohort``
     under ``checkpoint_dir``), feed its results back. Plain Hyperband is
-    the hookless case of the same loop.
+    the hookless case of the same loop. ``warm_obs`` reaches every
+    bracket's ``fused_sha`` (row 0 of each uniform cohort starts at the
+    prior best) only without ``cohort_fn``: a model-drawn cohort is
+    BOHB's, which files the priors into its model instead.
 
     Returns the JAX package's result: best_score and best_params (the
     best finite bracket's, ``best_finite``), the per-bracket summaries
@@ -578,6 +590,7 @@ def fused_hyperband(
             trial_offset=trial_off,
             member_offset=member_off,
             init_unit=cohort,
+            warm_obs=warm_obs if cohort_fn is None else None,
         )
         boundary_off += len(res["rung_budgets"])
         trial_off += sum(res["rung_sizes"])

@@ -18,8 +18,10 @@ subdirectories), and each bracket's sampled cohort is persisted
 (``cohort_b.npz``) and reused on resume, so a resume never depends on
 the model drawing the same bits again.
 
-Not here yet (the JAX package's ``fused_bohb`` has them): ``mesh``,
-``round_to`` and ``warm_obs``.
+``warm_obs`` (a prior sweep's observations) files into the same
+``ObsStore`` before the first bracket, so the model can qualify before
+any bracket ran. Not here yet (the JAX package's ``fused_bohb`` has
+them): ``mesh`` and ``round_to``.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from mpi_opt_tpu_torch.train.fused_asha import fused_hyperband
 
 # arguments of the JAX package's fused_bohb that the port does not take
 # yet, with their defaults: a non-default value raises
-_NOT_PORTED = {"mesh": None, "round_to": 1, "warm_obs": None}
+_NOT_PORTED = {"mesh": None, "round_to": 1}
 
 
 def bracket_generator(seed: int, b: int, device) -> torch.Generator:
@@ -62,6 +64,7 @@ def fused_bohb(  # sweeplint: barrier(bracket host loop: files rung observations
     wave_size=0,
     oom_backoff: int = 2,
     device=None,
+    warm_obs=None,
     **not_ported,
 ):
     """Returns ``fused_hyperband``'s result, each bracket's summary with
@@ -70,7 +73,9 @@ def fused_bohb(  # sweeplint: barrier(bracket host loop: files rung observations
     ``wave_size``/``oom_backoff`` pass through to every bracket's
     ``fused_sha``; ``ledger`` journals every rung through the brackets'
     offsets; ``checkpoint_dir`` snapshots every rung and persists every
-    cohort."""
+    cohort. ``warm_obs`` (prior-ledger observations, cross-mode): each
+    finite prior is filed into the per-budget ``ObsStore`` at its budget
+    before the first bracket (the driver BOHB's warm start)."""
     for name, value in not_ported.items():
         if name not in _NOT_PORTED:
             raise TypeError(f"fused_bohb() got an unexpected keyword argument {name!r}")
@@ -82,6 +87,9 @@ def fused_bohb(  # sweeplint: barrier(bracket host loop: files rung observations
     if n_min is None:
         n_min = default_n_min(space.dim)
     obs = ObsStore(space.dim, buffer_size, n_min)
+    for o in warm_obs or ():
+        if np.isfinite(float(o.score)):
+            obs.add(int(o.budget), np.asarray(o.unit), float(o.score))
 
     def cohort_fn(b: int, n: int):  # sweeplint: barrier(per-bracket re-suggest: the TPE acquisition completes on host by design)
         """(initial unit matrix, model-drawn count) for bracket b: the
@@ -124,4 +132,7 @@ def fused_bohb(  # sweeplint: barrier(bracket host loop: files rung observations
         device=device,
         cohort_fn=cohort_fn,
         observe_fn=observe_fn,
+        # the priors are in the ObsStore already: passing them down would
+        # also seed the brackets' cohorts and count them twice
+        warm_obs=None,
     )

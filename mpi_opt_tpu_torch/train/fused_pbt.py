@@ -52,6 +52,7 @@ from mpi_opt_tpu_torch.train.common import (
     launch_boundary,
     momentum_dtype_str,
     pareto_summary,
+    seed_warm_row,
     segment_flops_hint,
     workload_arrays,
 )
@@ -71,7 +72,6 @@ from mpi_opt_tpu_torch.utils import resources
 # yet, with their defaults: a non-default value raises
 _NOT_PORTED = {
     "mesh": None,
-    "warm_obs": None,
 }
 
 
@@ -142,6 +142,7 @@ def fused_pbt(  # sweeplint: barrier(resident host loop: launch boundaries, expl
     wave_size=0,
     device=None,
     objectives=None,
+    warm_obs=None,
     **not_ported,
 ):
     """Run a whole PBT sweep of a population workload.
@@ -182,6 +183,11 @@ def fused_pbt(  # sweeplint: barrier(resident host loop: launch boundaries, expl
     ``step_chunk`` and ``wave_size`` (``ValueError``), as the JAX
     package does, and is part of the snapshot config, so a scalar call
     does not resume a multi-objective snapshot (nor the reverse).
+
+    ``warm_obs`` (prior-ledger ``Observation``s, cross-mode) seeds the
+    initial population's row 0 with the best fully finite prior point
+    (``ledger.warmstart.best_observation``) when no snapshot was
+    restored: the sampler-family warm start of driver random/ASHA.
 
     Returns the result dict of the JAX package's ``fused_pbt``:
     best_score, best_params, diverged, best_curve, mean_curve,
@@ -233,7 +239,7 @@ def fused_pbt(  # sweeplint: barrier(resident host loop: launch boundaries, expl
             return _fused_pbt_waves(
                 workload, trainer, space, (train_x, train_y, val_x, val_y), population,
                 generations, steps_per_gen, seed, cfg, member_chunk, wave_size,
-                checkpoint_dir, snapshot_every, snapshot_last, ledger, oom_backoff, dev)
+                checkpoint_dir, snapshot_every, snapshot_last, ledger, oom_backoff, dev, warm_obs)
     disc = space.discrete_mask()
     to_hparams = hparams_fn(space, workload)
 
@@ -297,7 +303,7 @@ def fused_pbt(  # sweeplint: barrier(resident host loop: launch boundaries, expl
         journal.require_prefix(sum(launch_lens[:start_launch]))
     if restored is None:
         gen.manual_seed(seed)
-        unit = space.sample_unit(gen, population)
+        unit = seed_warm_row(space.sample_unit(gen, population), warm_obs)
         state = trainer.init_population(gen, population)
 
     snapshot_every = max(1, snapshot_every)
@@ -426,7 +432,7 @@ def _wave_exploit(generator, unit, scores, disc, cfg: PBTConfig):
 def _fused_pbt_waves(  # sweeplint: barrier(wave host loop: stages pools, gathers scores, exploits at generation boundaries)
     workload, trainer, space, data, population: int, generations: int, steps_per_gen: int,
     seed: int, cfg: PBTConfig, member_chunk: int, wave_size: int, checkpoint_dir,
-    snapshot_every: int, snapshot_last: bool, ledger, oom_backoff: int, dev,
+    snapshot_every: int, snapshot_last: bool, ledger, oom_backoff: int, dev, warm_obs=None,
 ):
     """Fused PBT over a population held in host pools, ``ceil(P/W)``
     waves a generation (``engine.WaveRunner``), with the exploit over the
@@ -518,7 +524,7 @@ def _fused_pbt_waves(  # sweeplint: barrier(wave host loop: stages pools, gather
     with trace.span("setup", op="pools", members=population):
         if restored is None:
             gen.manual_seed(seed)
-            unit = space.sample_unit(gen, population)
+            unit = seed_warm_row(space.sample_unit(gen, population), warm_obs)
             perm = np.arange(population)
             pool_front = population_pool(trainer, population)
             trainer.init_population_into(gen, pool_front["params"])

@@ -2,7 +2,10 @@
 suggest, train and report on the device.
 
 The ring buffer of observations (``obs_unit [M, d]``, ``obs_scores [M]``,
-``valid [M]``, M = n_trials) is device state. Each generation draws a
+``valid [M]``, M = n_trials + n_warm) is device state; its first
+``n_warm`` rows hold a prior sweep's finite observations (``warm_obs``),
+which the acquisition reads and the best pick, the curve and the
+returned history leave out. Each generation draws a
 batch of suggestions from it (``ops.tpe.tpe_suggest``, the diversified
 batched top-k), initialises that many FRESH members, trains them for the
 trial budget, evaluates them, and writes (units, scores) back into the
@@ -21,8 +24,7 @@ and the ring update once every wave's scores landed. An OOM re-run
 replays the generation from the drawn suggestions and the pool, so
 waves equal the resident sweep on the CPU.
 
-Not here yet (the JAX package's ``fused_tpe`` has them): ``mesh`` and
-``warm_obs``.
+Not here yet (the JAX package's ``fused_tpe`` has it): ``mesh``.
 """
 
 from __future__ import annotations
@@ -50,7 +52,7 @@ from mpi_opt_tpu_torch.train.engine import run_wave as _run_wave
 
 # arguments of the JAX package's fused_tpe that the port does not take
 # yet, with their defaults: a non-default value raises
-_NOT_PORTED = {"mesh": None, "warm_obs": None}
+_NOT_PORTED = {"mesh": None}
 
 
 def _tpe_ring_update(obs_unit, obs_scores, valid, sugg, scores, write_pos: int) -> None:
@@ -86,9 +88,10 @@ def tpe_generation(trainer, obs_unit, obs_scores, valid, to_hparams, train_x, tr
     return scores, sugg
 
 
-def _running_best(obs_scores, valid):
-    """The best finite valid score in the ring (a device scalar)."""
-    return torch.where(valid & torch.isfinite(obs_scores), obs_scores, -torch.inf).max()
+def _running_best(obs_scores, valid, live):
+    """The best finite valid score of this sweep's rows (``live``: the
+    warm prefix excluded) in the ring (a device scalar)."""
+    return torch.where(valid & torch.isfinite(obs_scores) & live, obs_scores, -torch.inf).max()
 
 
 def fused_tpe(  # sweeplint: barrier(batch host loop: fetches obs ring for snapshot/journal at batch boundaries)
@@ -104,6 +107,7 @@ def fused_tpe(  # sweeplint: barrier(batch host loop: fetches obs ring for snaps
     checkpoint_dir: str | None = None,
     ledger=None,
     device=None,
+    warm_obs=None,
     **not_ported,
 ):
     """Run an ``n_trials`` TPE sweep as ceil(n_trials/batch) fused
@@ -123,11 +127,19 @@ def fused_tpe(  # sweeplint: barrier(batch host loop: fetches obs ring for snaps
     Without a snapshot or a journal, a resident sweep fetches its curve
     once, after the last generation.
 
+    ``warm_obs`` (prior-ledger observations, cross-mode) pre-fills the
+    ring: its ``n_warm`` finite-scored observations take rows ``[0,
+    n_warm)``, valid, and the sweep's trials are written after them.
+    Warm rows are facts, not trials: they are barred from the best pick
+    and the curve and sliced off the returned history, and ``n_warm`` is
+    part of the snapshot's identity (it shifts every write position), so
+    a resume under another prior set raises ``ValueError``.
+
     Returns the JAX package's result: best_score, best_params, diverged,
     best_curve (the running best after each generation),
-    member_failures (diverged suggestions a generation), obs_unit,
-    obs_scores, n_trials, n_warm (0), journal, and in wave mode
-    ``WaveRunner.result_extras()``."""
+    member_failures (diverged suggestions a generation), obs_unit and
+    obs_scores (this sweep's ``n_trials`` rows), n_trials, n_warm,
+    journal, and in wave mode ``WaveRunner.result_extras()``."""
     for name, value in not_ported.items():
         if name not in _NOT_PORTED:
             raise TypeError(f"fused_tpe() got an unexpected keyword argument {name!r}")
@@ -144,7 +156,11 @@ def fused_tpe(  # sweeplint: barrier(batch host loop: fetches obs ring for snaps
     # the residency question is about the largest generation cohort
     wave_size = resolve_wave_size(trainer, max(sizes), wave_size=wave_size, oom_backoff=oom_backoff)
     waves = 0 < wave_size < max(sizes)
-    M = n_trials
+    # finite-scored priors only: a diverged prior point carries no
+    # evidence the model should build on (the driver's ingest rule)
+    warm = [o for o in (warm_obs or []) if np.isfinite(float(o.score))]
+    n_warm = len(warm)
+    M = n_trials + n_warm  # the sweep's trials after the priors
     to_hparams = hparams_fn(space, workload)
 
     gen = torch.Generator(device=dev)
@@ -152,6 +168,12 @@ def fused_tpe(  # sweeplint: barrier(batch host loop: fetches obs ring for snaps
     obs_unit = torch.zeros((M, d), dtype=torch.float32, device=dev)
     obs_scores = torch.zeros((M,), dtype=torch.float32, device=dev)
     valid = torch.zeros((M,), dtype=torch.bool, device=dev)
+    if n_warm:
+        obs_unit[:n_warm] = torch.from_numpy(
+            np.stack([np.asarray(o.unit, np.float32) for o in warm])).to(dev)
+        obs_scores[:n_warm] = torch.tensor([float(o.score) for o in warm],
+                                           dtype=torch.float32, device=dev)
+        valid[:n_warm] = True
     start_gen = 0
     run_wave_size = wave_size
     best_curve: list = []
@@ -171,7 +193,9 @@ def fused_tpe(  # sweeplint: barrier(batch host loop: fetches obs ring for snaps
             # continues under the same cfg
             "cfg": dataclasses.asdict(cfg),
             "momentum_dtype": momentum_dtype_str(),
-            "n_warm": 0,
+            # the warm prefix shifts every write position: a resume
+            # under another prior set refuses
+            "n_warm": n_warm,
             # the requested (resolved) cap; the OOM-settled one is meta
             "wave_size": wave_size if waves else 0,
             "device": dev.type,
@@ -188,7 +212,7 @@ def fused_tpe(  # sweeplint: barrier(batch host loop: fetches obs ring for snaps
             member_fail = [int(v) for v in meta["member_fail"]]
             if waves:
                 run_wave_size = int(meta.get("wave_size_run", wave_size))
-    done = sum(sizes[:start_gen])  # the ring's write position
+    done = n_warm + sum(sizes[:start_gen])  # the ring's write position
     journal = make_journal(ledger, space)
     if journal is not None:
         journal.require_prefix(start_gen)
@@ -206,6 +230,9 @@ def fused_tpe(  # sweeplint: barrier(batch host loop: fetches obs ring for snaps
         # staged back into it)
         with trace.span("setup", op="pools", members=max(sizes)):
             pool = population_pool(trainer, max(sizes))
+    # warm rows are facts, not trials of this sweep: barred from the
+    # running-best curve and the winner pick
+    live = torch.arange(M, device=dev) >= n_warm
     curve_dev: list = []
     fail_dev: list = []
     try:
@@ -243,7 +270,7 @@ def fused_tpe(  # sweeplint: barrier(batch host loop: fetches obs ring for snaps
                 del wave_scores
                 with boundary_span("observe", generation=g + 1):
                     _tpe_ring_update(obs_unit, obs_scores, valid, sugg, scores, done)
-                best_curve.append(float(_running_best(obs_scores, valid)))
+                best_curve.append(float(_running_best(obs_scores, valid, live)))
                 member_fail.append(int((~torch.isfinite(scores)).sum()))
             else:
                 # the curve fetch is the generation's completion barrier;
@@ -254,7 +281,7 @@ def fused_tpe(  # sweeplint: barrier(batch host loop: fetches obs ring for snaps
                     scores, sugg = tpe_generation(
                         trainer, obs_unit, obs_scores, valid, to_hparams, train_x, train_y,
                         val_x, val_y, gen, done, n_g, budget, cfg)
-                    running = _running_best(obs_scores, valid)
+                    running = _running_best(obs_scores, valid, live)
                     n_fail = (~torch.isfinite(scores)).sum()
                     if defer:
                         curve_dev.append(running)
@@ -265,7 +292,7 @@ def fused_tpe(  # sweeplint: barrier(batch host loop: fetches obs ring for snaps
                         if f:
                             sp["flops"] = f
                         memory.note(sp, dev)
-            first = done
+            first = done - n_warm  # the members are the sweep's trial indices
             done += n_g
             if journal is not None:
                 # one record per suggestion (members are the sweep's
@@ -299,9 +326,11 @@ def fused_tpe(  # sweeplint: barrier(batch host loop: fetches obs ring for snaps
         fetched = torch.stack(curve_dev + [v.float() for v in fail_dev]).cpu().tolist()
         best_curve.extend(fetched[:len(curve_dev)])
         member_fail.extend(int(v) for v in fetched[len(curve_dev):])
-    np_unit = obs_unit.cpu().numpy()
-    np_scores = obs_scores.cpu().numpy()
-    best_i, diverged = finite_winner(np_scores, ok=valid.cpu().numpy())
+    # the warm rows are sliced off: callers get exactly this sweep's
+    # n_trials observations, warm-started or not
+    np_unit = obs_unit.cpu().numpy()[n_warm:]
+    np_scores = obs_scores.cpu().numpy()[n_warm:]
+    best_i, diverged = finite_winner(np_scores, ok=valid.cpu().numpy()[n_warm:])
     return {
         "best_score": float("nan") if diverged else float(np_scores[best_i]),
         "best_params": None if diverged else space.materialize_row(np_unit[best_i]),
@@ -311,7 +340,7 @@ def fused_tpe(  # sweeplint: barrier(batch host loop: fetches obs ring for snaps
         "obs_unit": np_unit,
         "obs_scores": np_scores,
         "n_trials": n_trials,
-        "n_warm": 0,
+        "n_warm": n_warm,
         "journal": None if journal is None else {"written": journal.written,
                                                  "verified": journal.verified},
         **({} if runner is None else runner.result_extras()),

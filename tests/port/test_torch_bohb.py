@@ -240,7 +240,7 @@ def test_sha_snapshot_refuses_another_init_unit(tmp_path):
         fused_asha.fused_sha(wl, init_unit=unit[:3], **{**kw, "checkpoint_dir": None})
 
 
-@pytest.mark.parametrize("arg,value", [("mesh", object()), ("warm_obs", [object()]), ("round_to", 2)])
+@pytest.mark.parametrize("arg,value", [("mesh", object()), ("round_to", 2)])
 def test_not_ported_arguments_raise(arg, value):
     with pytest.raises(NotImplementedError, match=f"fused_bohb\\({arg}="):
         fused_bohb(_workload(), device="cpu", **{arg: value})

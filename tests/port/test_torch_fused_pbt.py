@@ -76,7 +76,7 @@ def test_default_device_raises_without_cuda(workload, monkeypatch):
 
 @pytest.mark.parametrize(
     "arg,value",
-    [("mesh", object()), ("warm_obs", [1])],
+    [("mesh", object())],
 )
 def test_out_of_scope_arguments_raise(workload, arg, value):
     with pytest.raises(NotImplementedError, match="not ported yet"):

@@ -13,8 +13,8 @@ packages' random streams differ), so the comparison is structural.
 The port alone: waves (with and without a member chunk) equal resident;
 a crash and resume equals the unkilled run, records included; a
 snapshot refuses another ``cfg`` and the other mode; the CLI runs
-``--algorithm tpe`` with the JAX CLI's ledger header; ``mesh`` and
-``warm_obs`` are not ported.
+``--algorithm tpe`` with the JAX CLI's ledger header; ``mesh`` is not
+ported (warm start: ``test_torch_warmstart.py``).
 """
 
 import json
@@ -213,7 +213,7 @@ def test_resume_refuses_another_sweep(tmp_path, change, match):
         _run(wl, checkpoint_dir=ck, n_trials=4, batch=4, **change)
 
 
-@pytest.mark.parametrize("arg", ["mesh", "warm_obs"])
+@pytest.mark.parametrize("arg", ["mesh"])
 def test_not_ported_arguments_raise(arg):
     with pytest.raises(NotImplementedError, match=f"fused_tpe\\({arg}="):
         fused_tpe(get_workload("tabular_mlp"), n_trials=4, device="cpu", **{arg: object()})
