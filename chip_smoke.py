@@ -124,7 +124,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``least_violation`` with an ``objective_degraded`` event;
    ``--wave-size``/``--step-chunk`` with ``--objectives`` exit 2; (c)
    the north star's width and population (cifar10_cnn, 256 members,
-   chunk 32, 2 x 20) scalar and multi-objective in turns: both GN
+   chunk 32, 2 x 10) scalar and multi-objective in turns: both GN
    kernels in every generation at the scalar run's counts and the plain
    versions never, the rates side by side, then ``pareto_score`` (m=2,
    3), ``member_effective_params``, the MO exploit and the MO eval at
@@ -163,10 +163,32 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``--resume`` ends in the unkilled run's records; ``fsck --deep``
    passes a clean directory; ``report --json`` and ``--validate`` pass
    every ledger of the phase;
-17. the script's wall, the ``kernels`` line (JSON), then the device line
+17. the CPU path (``--phases cpu``, the 18th of ``PHASES``): (a)
+   BASELINE.json config 1 at full size (random search over ``digits``,
+   16 trials at budget 100, one worker, a warm trial first): trials/s
+   and the best; (b) the CLI's chaos drill (``--backend cpu --workload
+   digits``, 32 trials, 4 workers, ``--trial-timeout 2``, exc/nan/hang/
+   crash): each trial's status what ``fault_for`` predicts, the counts,
+   the clean sweep's best over the unfaulted trials; (c) the preempt
+   drill on ``quadratic`` in-parent: exit 75, ``--resume`` until exit 0,
+   the chaos-free run's records; a hang reaped on the isolated stateful
+   path and counted as a stall; (d) ``PopulationWorkload.evaluate`` of
+   one full-width cifar10_cnn and cifar100_resnet18 member on the card
+   (both GN kernels at population 1) against the same call on the CPU
+   given the card's draws (the update, trained minus initial weights,
+   within PT_UPDATE_RTOL by relative norm; the card's run with its
+   learning rate halved must fall outside), then ``--backend cpu
+   --workload fashion_mlp`` through a pool of 2. Every pool worker
+   reports at its start that it sees no CUDA device;
+18. processes: none of the phases' may be left running (the script is
+   its descendants' subreaper, so an orphan counts too); the fork
+   server the CPU backend's pools share is stopped and waited for, and
+   the port stops multiprocessing's resource tracker at exit. Whatever
+   was left is killed, and the run fails;
+19. the script's wall, the ``kernels`` line (JSON), then the device line
    (JSON, last).
 
-Each path (4, 6, 8, 9, 10a, 10d, 11b, 12b, 13b, 14c, 15b, 15d, 16c) runs
+Each path (4, 6, 8, 9, 10a, 10d, 11b, 12b, 13b, 14c, 15b, 15d, 16c, 17d) runs
 through the entry points a user calls, with the launch counts zeroed
 just before and read just after (in phase 9, its runs in this process;
 in 10a, each run; in 11b, 12b, 13b and 14c, read at each bracket or
@@ -190,6 +212,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
@@ -252,6 +275,82 @@ TOL = {  # (atol, rtol) per output, kernel against plain on the same inputs
 def fail(msg: str) -> int:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     return 1
+
+
+def _become_subreaper() -> None:
+    """Have orphaned descendants (a worker whose fork server died)
+    reparented to this process, where ``stop_processes`` finds them."""
+    ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0)  # PR_SET_CHILD_SUBREAPER
+
+
+def _descendants() -> dict[int, str]:
+    """This process's live descendants, pid -> command line, from /proc."""
+    children, cmds = {}, {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmds[int(d)] = f.read().replace(b"\0", b" ").decode(errors="replace")[:160]
+        except OSError:
+            continue
+        state, ppid = stat[stat.rindex(")") + 2:].split()[:2]
+        if state != "Z":
+            children.setdefault(int(ppid), []).append(int(d))
+    out, todo = {}, [os.getpid()]
+    while todo:
+        for pid in children.get(todo.pop(), ()):
+            out[pid] = cmds[pid]
+            todo.append(pid)
+    return out
+
+
+def _kill(pids) -> None:
+    """SIGTERM, then SIGKILL, each of ``pids`` that lives on, and reap
+    those that are this process's children."""
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        live = set(pids) & set(_descendants())
+        for pid in live:
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, sig)
+        deadline = time.monotonic() + 3.0
+        while live and time.monotonic() < deadline:
+            time.sleep(0.05)
+            live &= set(_descendants())
+    for pid in pids:
+        with contextlib.suppress(ChildProcessError):
+            os.waitpid(pid, os.WNOHANG)
+
+
+def stop_processes() -> dict[int, str]:
+    """Stop every process the phases left running and return them: any
+    but the fork server and resource tracker that multiprocessing keeps
+    for the CPU backend's workers. The fork server is stopped here and
+    waited for (``stop_fork_server``) once every backend is closed; the
+    port stops the resource tracker when this process exits. A pool left
+    open is terminated first, since it would respawn a killed worker and
+    a live worker keeps the fork server up."""
+    import gc
+    import warnings
+    from multiprocessing import forkserver, pool, resource_tracker
+
+    server, tracker = forkserver._forkserver._forkserver_pid, resource_tracker._resource_tracker._pid
+    left = {pid: cmd for pid, cmd in _descendants().items() if pid not in (server, tracker)}
+    if left:
+        with warnings.catch_warnings():  # isinstance wakes deprecated torch attributes
+            warnings.simplefilter("ignore")
+            pools = [obj for obj in gc.get_objects() if isinstance(obj, pool.Pool)]
+        for p in pools:
+            p.terminate()
+        _kill(left)
+    cpu = sys.modules.get("mpi_opt_tpu_torch.backends.cpu")
+    if cpu is not None:
+        cpu.stop_fork_server()
+    rest = {pid: cmd for pid, cmd in _descendants().items() if pid != tracker}
+    _kill(rest)
+    return {**left, **rest}
 
 
 def time_ms(fn, flush, iters: int = 20, warmup: int = 3) -> float:
@@ -954,7 +1053,7 @@ SHA_TRIALS, SHA_MIN, SHA_MAX, SHA_ETA, SHA_W = 64, 10, 270, 3, 16  # BENCH_ALL.j
 C5_P = 1024  # BASELINE.json config 5: PBT over 1024 ResNet-18 members
 # the phases after the build, in order (``--phases`` picks some)
 PHASES = ("kernels", "slice", "north_star", "mlp", "durability", "waves", "oom", "oom_chunk", "drain",
-          "sha", "config5", "hyperband", "tpe", "bohb", "mo", "driver", "warm")
+          "sha", "config5", "hyperband", "tpe", "bohb", "mo", "driver", "warm", "cpu")
 
 # a launcher for the port's CLI: caps this process's CUDA allocator at a
 # fraction of the card (0: no cap), runs the CLI, and writes the
@@ -1758,6 +1857,10 @@ def tpe_cli_phase(smi):
 # size, nothing cut; the CLI drill runs config 8's members and steps for
 # more generations, so a kill after generation 1 lands mid-run
 MO_SPEC = "accuracy:max,params:min"
+# (c)'s depth: half of NS_STEPS, which leaves room in the run's time
+# limit for the CPU path's phase (the MO-over-scalar ratio is taken in
+# turns at one depth either way)
+MO_NS_STEPS = 10
 C8_P, C8_GENS, C8_STEPS = 8, 3, 40
 MO_CLI_GENS = 12
 MO_SHA_SPEC = "accuracy:max,latency:min"
@@ -1949,7 +2052,7 @@ def mo_cli_phase(smi):
 
 def mo_north_star_phase(gn, get_workload, smi):
     """(c) The north star's width and population: full-width cifar10_cnn,
-    CNN_P members, member chunk CNN_CHUNK, NS_GENS x NS_STEPS, one
+    CNN_P members, member chunk CNN_CHUNK, NS_GENS x MO_NS_STEPS, one
     generation a launch, scalar and under ``accuracy:max,params:min`` in
     turns (scalar, MO, MO, scalar). Both GN kernels must launch in every
     generation at the scalar run's counts and the plain versions never;
@@ -1971,7 +2074,7 @@ def mo_north_star_phase(gn, get_workload, smi):
     # set-up (the data on the card, the trainer) before the runs in turns
     trainer, space, _, _, val_x, val_y = workload_arrays(wl, CNN_CHUNK, torch.device("cuda"))
     out = {"card": smi, "population": CNN_P, "member_chunk": CNN_CHUNK, "generations": NS_GENS,
-           "steps_per_gen": NS_STEPS, "objectives": MO_SPEC, "runs": []}
+           "steps_per_gen": MO_NS_STEPS, "objectives": MO_SPEC, "runs": []}
     launches = {"gn_fwd": 0, "gn_bwd": 0, "plain": 0}
     by_gen, digests, mo_res = {}, [], None
     for tag in ("scalar", "mo", "mo", "scalar"):
@@ -1981,7 +2084,7 @@ def mo_north_star_phase(gn, get_workload, smi):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         try:
-            res = fused_pbt(wl, population=CNN_P, generations=NS_GENS, steps_per_gen=NS_STEPS, seed=0,
+            res = fused_pbt(wl, population=CNN_P, generations=NS_GENS, steps_per_gen=MO_NS_STEPS, seed=0,
                             member_chunk=CNN_CHUNK, gen_chunk=1, objectives=spec if tag == "mo" else None)
             torch.cuda.synchronize()
         finally:
@@ -2577,6 +2680,369 @@ def warm_phase(gn, smi):
     return out, launches, errs, None
 
 
+# The CPU path (phase 18): BASELINE.json config 1, the chaos drills, the
+# per-trial path on the card
+C1_TRIALS, C1_BUDGET = 16, 100  # BASELINE.json config 1, as bench_all.py runs it
+CHAOS_TRIALS, CHAOS_WORKERS, CHAOS_TIMEOUT = 32, 4, 2
+CHAOS_SPEC = "exc=0.1,nan=0.1,hang=0.05,crash=0.05,seed=7"
+PREEMPT_SPEC, PREEMPT_TRIALS, PREEMPT_RUNS = "preempt=0.2,seed=3", 16, 10
+# the per-trial path: one full-width member, a few steps, a cut validation set
+PT_STEPS, PT_TRAIN, PT_VAL, PT_SEED = 2, 512, 128, 5
+PT_PARAMS = {"lr": 0.05, "momentum": 0.9, "weight_decay": 1e-4, "flip_prob": 0.25, "shift": 2.0}
+# card against CPU: the update (trained minus initial weights) by its
+# relative norm, and the accuracy. bf16 activations on two compute
+# stacks: on an H100 the SmallCNN reads 0.0096 and ResNet-18 0.080, and
+# the fault planted on the card, its learning rate halved, 0.60 and 0.57;
+# the limit sits between them, ~2.5x from each
+PT_UPDATE_RTOL, PT_ACC_TOL = 0.2, 0.04
+
+
+def _trial_records(path):
+    """A driver ledger's trial records: id, params, status, score, step."""
+    keep = ("trial_id", "params", "status", "score", "step")
+    return [{k: r[k] for k in keep} for r in _records(path)]
+
+
+class _WorkerWatch:
+    """Wraps ``CPUBackend.evaluate`` for the span of a ``with``: after a
+    call, every worker's start-up report (``CPUBackend.worker_report``:
+    what the worker knew of CUDA once it had hidden the card) is kept. A
+    worker that starts with no visible device can hold no CUDA context
+    later: the CUDA driver fixes its device list when it first
+    initialises."""
+
+    def __init__(self):
+        self.reports = {}
+
+    def __enter__(self):
+        from mpi_opt_tpu_torch.backends import cpu
+
+        self.cls, self.real = cpu.CPUBackend, cpu.CPUBackend.evaluate
+
+        def evaluate(backend, trials):
+            out = self.real(backend, trials)
+            self.reports.update(backend.worker_report())
+            return out
+
+        self.cls.evaluate = evaluate
+        return self
+
+    def fault(self, what: str) -> str | None:
+        if not self.reports:
+            return f"{what}: no pool worker was seen"
+        clean = {"CUDA_VISIBLE_DEVICES": "", "cuda_initialized": False, "device_count": 0}
+        bad = {p: r for p, r in self.reports.items() if r != clean}
+        return f"{what}: a cpu worker did not report a hidden card: {bad}" if bad else None
+
+    def __exit__(self, *exc):
+        self.cls.evaluate = self.real
+
+
+def _update_rel(init, got, want) -> float:
+    """How far one training update is from another, relative to it:
+    ``||(got - init) - (want - init)|| / ||want - init||`` over all the
+    weights at once (float64)."""
+    num = sum(float((got[k].double() - want[k].double()).square().sum()) for k in want)
+    den = sum(float((want[k].double() - init[k].double()).square().sum()) for k in want)
+    return math.sqrt(num / den)
+
+
+class _DrawTape:
+    """Records the per-trial path's draws on the card (the member's
+    initial weights, each step's batch and augmentation) and its trained
+    state; then replays them on the CPU, so the two runs differ only in
+    where they compute."""
+
+    def __init__(self):
+        self.init = self.state = None
+        self.batches, self.augs = [], []
+
+    @contextlib.contextmanager
+    def _patched(self, init, batch, augment, evaluate=None):
+        from mpi_opt_tpu_torch.train import population as tpop
+
+        real = (tpop.PopulationTrainer.init_population, tpop.draw_batch, tpop.draw_augment,
+                tpop.PopulationTrainer.eval_population)
+        tpop.PopulationTrainer.init_population = lambda trainer, g, n: init(real[0], trainer, g, n)
+        tpop.draw_batch = lambda g, n, b: batch(real[1], g, n, b)
+        tpop.draw_augment = lambda g, f, s, b: augment(real[2], g, f, s, b)
+        if evaluate is not None:
+            tpop.PopulationTrainer.eval_population = (
+                lambda trainer, state, *a, **k: evaluate(real[3], trainer, state, *a, **k))
+        try:
+            yield
+        finally:
+            (tpop.PopulationTrainer.init_population, tpop.draw_batch, tpop.draw_augment,
+             tpop.PopulationTrainer.eval_population) = real
+
+    def record(self):
+        def init(real, trainer, g, n):
+            st = real(trainer, g, n)
+            self.init = {k: v.detach().cpu().clone() for k, v in st.params.items()}
+            return st
+
+        def batch(real, g, n, b):
+            idx = real(g, n, b)
+            self.batches.append(idx.cpu())
+            return idx
+
+        def augment(real, g, f, s, b):
+            aug = real(g, f, s, b)
+            self.augs.append(tuple(a.cpu() for a in aug))
+            return aug
+
+        def evaluate(real, trainer, state, *a, **k):
+            self.state = {n: v.detach().float().cpu() for n, v in state.params.items()}
+            return real(trainer, state, *a, **k)
+
+        return self._patched(init, batch, augment, evaluate)
+
+    def replay(self, device):
+        from mpi_opt_tpu_torch.train import population as tpop
+
+        batches = [b.to(device) for b in self.batches]
+        augs = [tuple(a.to(device) for a in aug) for aug in self.augs]
+        out = {}
+
+        def init(real, trainer, g, n):
+            p = {k: v.to(trainer.device, copy=True) for k, v in self.init.items()}
+            return tpop.PopState(p, {k: torch.zeros_like(v) for k, v in p.items()},
+                                 torch.zeros(n, dtype=torch.int32, device=trainer.device))
+
+        def evaluate(real, trainer, state, *a, **k):
+            out["state"] = {n: v.detach().float().cpu() for n, v in state.params.items()}
+            return real(trainer, state, *a, **k)
+
+        self.replayed = out
+        return self._patched(init, lambda real, g, n, b: batches.pop(0),
+                             lambda real, g, f, s, b: augs.pop(0), evaluate)
+
+
+def cpu_phase(gn, smi):
+    """The CPU path on the card's host. (a) BASELINE.json config 1 at full
+    size, as ``bench_all.py`` runs it: random search over ``digits``, 16
+    trials at budget 100, one worker (inline, in this process), after one
+    warm trial outside the window: trials/s and the best. (b) The CLI's
+    chaos drill, ``--backend cpu --workload digits`` (stateless, so the
+    pool of CHAOS_WORKERS reaps hangs and crashes; quadratic is stateful
+    and would evaluate in the CLI's own process, where a crash fault
+    kills the CLI and a hang is never reaped) with CHAOS_SPEC and a
+    ledger: exit 0, each trial's status what ``fault_for`` predicts from
+    the ledger's params (exc/nan failed, hang/crash timeout), the
+    summary's counts those, every clean trial's record the clean sweep's,
+    and the best the clean sweep's best over the unfaulted trials (the
+    clean sweep: the same trials scored in this process, since random
+    search does not adapt). (c)
+    The preempt drill on the in-parent stateful path (``quadratic``,
+    PREEMPT_SPEC): exit 75, then ``--resume`` until exit 0, each drained
+    run journaling more; the final ledger holds the chaos-free sweep's
+    records; then ``--isolate-stateful --trial-timeout 2 --chaos
+    hang=1.0`` reaps the hang as ``timeout`` and ``stalls_detected``
+    counts it. (d) The per-trial path on the card: ``evaluate`` of one
+    full-width cifar10_cnn and cifar100_resnet18 member (PT_STEPS steps),
+    with both GN kernels launched (at population 1: G groups) and the
+    plain versions never, and held against the same call on the CPU
+    given the card's draws; then the CLI's ``--backend cpu --workload
+    fashion_mlp --trials 4 --workers 2`` exits 0. In (b) and (d) no pool
+    worker holds a CUDA context: each reports at its start that it sees
+    no device and has not initialised CUDA. Returns (record, GN launches of (d), max abs error of each
+    kernel, problem)."""
+    import shutil
+
+    from mpi_opt_tpu_torch import cli
+    from mpi_opt_tpu_torch.algorithms import RandomSearch
+    from mpi_opt_tpu_torch.backends.cpu import CPUBackend
+    from mpi_opt_tpu_torch.driver import run_search
+    from mpi_opt_tpu_torch.workloads import get_workload
+    from mpi_opt_tpu_torch.workloads.chaos import parse_chaos_spec
+
+    tmp = os.path.join(ROOT, "build", "chip_smoke_cpu")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    at = lambda *p: os.path.join(tmp, *p)
+    out = {"card": smi}
+    launches = {}
+    errs = {"gn_fwd": 0.0, "gn_bwd": 0.0}
+    t_phase = time.perf_counter()
+    try:
+        # (a) config 1 at full size
+        wl = get_workload("digits")
+        space = wl.default_space()
+        backend = CPUBackend(wl, n_workers=1, seed=0)
+        try:
+            run_search(RandomSearch(space, seed=1, max_trials=1, budget=C1_BUDGET), backend)
+            res = run_search(RandomSearch(space, seed=0, max_trials=C1_TRIALS, budget=C1_BUDGET),
+                             backend)
+            workers = backend.worker_pids
+        finally:
+            backend.close()
+        out["config1"] = {"n_trials": res.n_trials, "n_failed": res.n_failed,
+                          "trials_per_s": res.trials_per_sec_per_chip, "wall_s": res.wall_s,
+                          "best_score": res.best.score if res.best else None,
+                          "pool_workers": len(workers)}
+        print(f"cpu (a) config 1, digits random search 16 x 100, 1 worker ({smi}): "
+              f"{json.dumps(out['config1'])}")
+        if res.n_trials != C1_TRIALS or res.n_failed or not 0.9 <= out["config1"]["best_score"] <= 1:
+            return out, launches, errs, f"cpu (a): config 1 {out['config1']}"
+
+        # (b) the CLI's chaos drill through the pool
+        t0 = time.perf_counter()
+        base = ["--backend", "cpu", "--workload", "digits", "--algorithm", "random", "--trials",
+                str(CHAOS_TRIALS), "--workers", str(CHAOS_WORKERS), "--trial-timeout",
+                str(CHAOS_TIMEOUT), "--seed", "0"]
+        with _WorkerWatch() as watch:
+            rc, lines = _in_process(cli.main, [*base, "--chaos", CHAOS_SPEC, "--ledger",
+                                               at("chaos.jsonl")])
+        wall = time.perf_counter() - t0
+        chaos_wl = get_workload("chaos", inner="digits", **parse_chaos_spec(CHAOS_SPEC))
+        recs = _trial_records(at("chaos.jsonl"))
+        faults = {r["trial_id"]: chaos_wl.fault_for(r["params"]) for r in recs}
+        # the clean sweep: random search does not adapt, so it evaluates
+        # the same trials; scored here, in this process
+        clean_recs = [{**r, "status": "ok", "score": wl.evaluate(r["params"], C1_BUDGET, 0)}
+                      for r in recs]
+        # the statuses the JAX package's CLI and CPUBackend give these
+        # faults (tests/port/test_torch_chaos.py holds the port to them)
+        want = {None: "ok", "exc": "failed", "nan": "failed", "hang": "timeout", "crash": "timeout"}
+        kinds = sorted(str(f) for f in faults.values())
+        survivors = [r for r in clean_recs if faults[r["trial_id"]] is None]
+        best = max(survivors, key=lambda r: r["score"])
+        clean_best = max(clean_recs, key=lambda r: r["score"])
+        summary = lines[-1] if lines else {}
+        out["chaos"] = {
+            "exit": rc, "wall_s": wall, "faults": {k: kinds.count(k) for k in set(kinds)},
+            "trials_failed": summary.get("trials_failed"),
+            "trials_timeout": summary.get("trials_timeout"),
+            "best_score": summary.get("best_score"), "clean_best_score": clean_best["score"],
+            "clean_best_unfaulted_score": best["score"],
+            "clean_best_faulted": faults[clean_best["trial_id"]] is not None,
+            "workers": watch.reports}
+        print(f"cpu (b) chaos drill, digits, {CHAOS_SPEC}, {CHAOS_WORKERS} workers ({smi}): "
+              f"{json.dumps({k: v for k, v in out['chaos'].items() if k != 'workers'})}")
+        if rc != 0:
+            return out, launches, errs, f"cpu (b): the chaos drill exited {rc}"
+        bad = [r["trial_id"] for r in recs if r["status"] != want[faults[r["trial_id"]]]]
+        n_failed = sum(f in ("exc", "nan") for f in faults.values())
+        n_timeout = sum(f in ("hang", "crash") for f in faults.values())
+        if bad or len(recs) != CHAOS_TRIALS:
+            return out, launches, errs, f"cpu (b): trials {bad} not as fault_for predicts"
+        if (summary["trials_failed"], summary["trials_timeout"]) != (n_failed, n_timeout):
+            return out, launches, errs, (f"cpu (b): summary counts {summary} against predicted "
+                                         f"{n_failed} failed, {n_timeout} timeout")
+        if [r for r in recs if r["status"] == "ok"] != survivors:
+            return out, launches, errs, "cpu (b): a clean trial's record differs from the clean sweep's"
+        if summary["best_score"] != round(best["score"], 6) or summary["best_params"] != best["params"]:
+            return out, launches, errs, f"cpu (b): best {summary['best_score']} against {best}"
+        bad = watch.fault("cpu (b)")
+        if bad:
+            return out, launches, errs, bad
+
+        # (c) the preempt drill on the in-parent stateful path, then a hang
+        # reaped on the isolated one
+        t0 = time.perf_counter()
+        base = ["--backend", "cpu", "--workload", "quadratic", "--trials", str(PREEMPT_TRIALS),
+                "--workers", "4", "--seed", "0"]
+        rc, _ = _in_process(cli.main, [*base, "--ledger", at("quad_clean.jsonl")])
+        argv = [*base, "--chaos", PREEMPT_SPEC, "--ledger", at("quad_chaos.jsonl")]
+        rcs, sizes = [], []
+        for _ in range(PREEMPT_RUNS):
+            r, _ = _in_process(cli.main, argv + (["--resume"] if rcs else []))
+            rcs.append(r)
+            sizes.append(len(_trial_records(at("quad_chaos.jsonl"))))
+            if r != 75:
+                break
+        same = _trial_records(at("quad_chaos.jsonl")) == _trial_records(at("quad_clean.jsonl"))
+        rc_h, hung = _in_process(cli.main, ["--backend", "cpu", "--workload", "quadratic",
+                                            "--trials", "1", "--workers", "1", "--isolate-stateful",
+                                            "--trial-timeout", str(CHAOS_TIMEOUT), "--chaos",
+                                            "hang=1.0"])
+        ev = next((x for x in hung if x.get("event") == "summary"), {})
+        out["preempt"] = {"clean_exit": rc, "exits": rcs, "records": sizes, "same_records": same,
+                          "hang_exit": rc_h, "hang_timeouts": hung[-1].get("trials_timeout")
+                          if hung else None, "stalls_detected": ev.get("stalls_detected"),
+                          "wall_s": time.perf_counter() - t0}
+        print(f"cpu (c) preempt drill, quadratic, {PREEMPT_SPEC} ({smi}): {json.dumps(out['preempt'])}")
+        progress = sizes and sizes[0] > 0 and all(sizes[i] > sizes[i - 1] for i in range(1, len(sizes) - 1))
+        if rc != 0 or rcs[0] != 75 or rcs[-1] != 0 or set(rcs[:-1]) != {75} or not progress:
+            return out, launches, errs, f"cpu (c): exits {rcs}, records {sizes}"
+        if not same:
+            return out, launches, errs, "cpu (c): the resumed ledger differs from the chaos-free run's"
+        if rc_h != 0 or out["preempt"]["hang_timeouts"] != 1 or ev.get("stalls_detected") != 1:
+            return out, launches, errs, f"cpu (c): the isolated hang: exit {rc_h}, {hung[-2:]}"
+
+        # (d) the per-trial path on the card, held against the CPU
+        out["per_trial"] = {}
+        for name in ("cifar10_cnn", "cifar100_resnet18"):
+            card = get_workload(name, n_train=PT_TRAIN, n_val=PT_VAL)
+            card.data()  # host data is set-up
+            tape = _DrawTape()
+            gn.reset_launches()
+            t0 = time.perf_counter()
+            with _ShapeRecorder(gn) as rec, tape.record():
+                acc = card.evaluate(PT_PARAMS, PT_STEPS, PT_SEED)
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            lw = launches[f"pertrial_{name}"] = dict(gn.LAUNCHES)
+            host = get_workload(name, n_train=PT_TRAIN, n_val=PT_VAL)
+            host.set_eval_device("cpu")
+            t0 = time.perf_counter()
+            with tape.replay("cpu"):
+                acc_cpu = host.evaluate(PT_PARAMS, PT_STEPS, PT_SEED)
+            cpu_s = time.perf_counter() - t0
+            want = tape.replayed["state"]
+            # the planted fault: the card's run again on the same draws,
+            # its learning rate halved; the check must refuse it
+            with tape.replay("cuda"):
+                card.evaluate({**PT_PARAMS, "lr": PT_PARAMS["lr"] / 2}, PT_STEPS, PT_SEED)
+            rel, rel_fault = (_update_rel(tape.init, got, want)
+                              for got in (tape.state, tape.replayed["state"]))
+            diff = max(float((tape.state[k] - want[k]).abs().max()) for k in want)
+            groups = sorted({(shape[-1], g) for shape, g, _, _ in rec.shapes})
+            out["per_trial"][name] = {"accuracy": acc, "cpu_accuracy": acc_cpu,
+                                      "update_rel_err": rel, "update_rel_err_lr_halved": rel_fault,
+                                      "max_param_diff": diff, "card_s": card_s, "cpu_s": cpu_s,
+                                      "launches": lw, "gn_shapes": sorted(
+                                          [list(s), g, r, str(d)] for s, g, r, d in rec.shapes)}
+            print(f"cpu (d) per-trial {name}, 1 member x {PT_STEPS} steps ({smi}): accuracy {acc} "
+                  f"(CPU {acc_cpu}), update relative error {rel} (lr halved: {rel_fault}), max "
+                  f"|param diff| {diff}, card {card_s:.3f} s, CPU {cpu_s:.3f} s; gn_fwd "
+                  f"{lw['gn_fwd']} launches, gn_bwd {lw['gn_bwd']}, (channels, groups) {groups}")
+            if not (lw["gn_fwd"] > 0 and lw["gn_bwd"] > 0) or lw["plain"]:
+                return out, launches, errs, f"cpu (d): GN launches {lw} on {name}"
+            if (abs(acc - acc_cpu) > PT_ACC_TOL or not rel <= PT_UPDATE_RTOL < rel_fault
+                    or not 0 <= acc <= 1):
+                return out, launches, errs, f"cpu (d): {name} card against CPU: {out['per_trial'][name]}"
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(7)
+            for shape, g, relu, dtype in sorted(rec.shapes, key=str):
+                x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                gamma = 1.0 + 0.5 * torch.randn(shape[-1], generator=gen, device="cuda")
+                beta = 0.1 * torch.randn(shape[-1], generator=gen, device="cuda")
+                e = check_shape(gn, x, dy, gamma, beta, g, relu,
+                                "bf16" if dtype == torch.bfloat16 else "f32", None)
+                for k in errs:
+                    errs[k] = max(errs[k], e[k])
+        out["per_trial_max_abs_err"] = dict(errs)
+        with _WorkerWatch() as watch:
+            rc, lines = _in_process(cli.main, ["--backend", "cpu", "--workload", "fashion_mlp",
+                                               "--trials", "4", "--workers", "2", "--seed", "0"])
+        out["fashion_mlp"] = {"exit": rc, "best_score": lines[-1].get("best_score") if lines else None,
+                              "trials_per_sec": lines[-1].get("trials_per_sec_per_chip")
+                              if lines else None, "workers": watch.reports}
+        print(f"cpu (d) --backend cpu fashion_mlp, 4 trials, 2 workers ({smi}): exit {rc}, best "
+              f"{out['fashion_mlp']['best_score']}; workers {json.dumps(watch.reports)}")
+        if rc != 0 or not 0 <= (out["fashion_mlp"]["best_score"] or -1) <= 1:
+            return out, launches, errs, f"cpu (d): fashion_mlp exit {rc}, {lines[-1:]}"
+        bad = watch.fault("cpu (d)")
+        if bad:
+            return out, launches, errs, bad
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        out["wall_s"] = time.perf_counter() - t_phase
+    return out, launches, errs, None
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline-cu", default=None,
@@ -2860,12 +3326,25 @@ def main() -> int:
         if bad:
             return fail(bad)
 
+    if "cpu" in phases:
+        # 17. the CPU path: config 1, the chaos and preempt drills, the
+        # per-trial path on the card
+        cpu_out, cpu_launches, cpu_errs, bad = cpu_phase(gn, smi)
+        launches.update(cpu_launches)
+        done("cpu", cpu_out)
+        if bad:
+            return fail(bad)
+
+    # 18. no process left running
+    left = stop_processes()
+    if left:
+        return fail(f"processes left running after the phases (killed now): {left}")
     print(f"chip_smoke wall: {time.perf_counter() - T_START} s")
     if phases != PHASES:
         print(f"chip_smoke: partial run ({','.join(phases)}): no result line")
         return 0
 
-    # 17. the kernels line (a population step of each path, summed; launches
+    # 19. the kernels line (a population step of each path, summed; launches
     # summed over every path), then the device line
     src = "mpi_opt_tpu_torch/csrc/group_norm.cu"
     kernels = []
@@ -2875,11 +3354,12 @@ def main() -> int:
         for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
             entry[key] = sum(tot[path][k][key] for path in STEP_PATHS)
         entry["max_abs_err"] = max(max(t[k]["max_abs_err"] for t in tot.values()), drv_errs[k],
-                                   warm_errs[k])
+                                   warm_errs[k], cpu_errs[k])
         entry["bound_share"] = entry["bound_ms"] / entry["ms"]
         entry["by_path"] = {path: {**tot[path][k], "launches": launches[path][k]} for path in STEP_PATHS}
         for path in ("durability", "north_star_waves", "hyperband_smallcnn", "tpe_smallcnn", "bohb_smallcnn",
-                     "mo_smallcnn", "driver_smallcnn", "driver_resnet18", "warm_smallcnn"):
+                     "mo_smallcnn", "driver_smallcnn", "driver_resnet18", "warm_smallcnn",
+                     "pertrial_cifar10_cnn", "pertrial_cifar100_resnet18"):
             entry["by_path"][path] = {"launches": launches[path][k]}
         kernels.append(entry)
     done("kernels", kernels)
@@ -2891,4 +3371,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    _become_subreaper()
+    try:
+        rc = main()
+    finally:
+        stop_processes()
+    sys.exit(rc)

@@ -1,9 +1,8 @@
 """Backend registry of the port, the ``backend=`` plugin hook: ``gpu``,
-the device-resident slot pool (``backends/gpu.py``). The JAX package's
-``cpu`` backend (a process pool over per-trial workloads) is not ported
-yet."""
+the device-resident slot pool (``backends/gpu.py``), and ``cpu``, a
+process pool over per-trial workloads on the host (``backends/cpu.py``)."""
 
-from mpi_opt_tpu_torch.backends import gpu  # noqa: F401  (registers)
+from mpi_opt_tpu_torch.backends import cpu, gpu  # noqa: F401  (registers)
 from mpi_opt_tpu_torch.backends.base import (
     Backend,
     available_backends,

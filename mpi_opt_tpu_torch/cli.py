@@ -1,7 +1,7 @@
 """Command line of the port (port of ``mpi_opt_tpu/cli.py``: the driver
-path, the fused ``--algorithm pbt|asha|random|hyperband|tpe|bohb``
-paths, ``--warm-start`` on both, and the ``trace``, ``report`` and
-``fsck`` subcommands).
+path on the gpu and cpu backends, the fused ``--algorithm
+pbt|asha|random|hyperband|tpe|bohb`` paths, ``--warm-start`` on both, and
+the ``trace``, ``report`` and ``fsck`` subcommands).
 
     python -m mpi_opt_tpu_torch --workload fashion_mlp --algorithm asha \\
         --trials 64 --min-budget 10 --max-budget 270 --eta 3 --population 64 \\
@@ -30,10 +30,20 @@ paths, ``--warm-start`` on both, and the ``trace``, ``report`` and
 Without ``--fused`` the sweep is the JAX CLI's driver path:
 ``driver.run_search`` over a host algorithm and the ``gpu`` backend, the
 device-resident slot pool (``backends/gpu.py``; ``--population`` is its
-capacity). It runs on CUDA unless ``--device cpu`` is given. The summary
-is the JAX CLI's single JSON line (after the metrics events), and so
-are the exit codes: 0 done; 1 the driver's failure-rate breaker
-tripped; 2 usage; 65 a data dead-end (no verified snapshot, or a ledger
+capacity). It runs on CUDA unless ``--device cpu`` is given.
+``--backend cpu`` (the JAX CLI's default) evaluates one trial a process
+on the host instead (``backends/cpu.py``: ``--workers``,
+``--trial-timeout``, ``--isolate-stateful``), and takes the per-trial
+workloads (``quadratic``, ``digits``) and the seeded ``--chaos`` drills:
+
+    python -m mpi_opt_tpu_torch --backend cpu --workload digits --algorithm random \\
+        --trials 16 --budget 100 --workers 1
+    python -m mpi_opt_tpu_torch --backend cpu --workload quadratic --trials 32 \\
+        --workers 4 --trial-timeout 2 --chaos exc=0.1,nan=0.1,hang=0.05,seed=7
+
+The summary is the JAX CLI's single JSON line (after the metrics
+events), and so are the exit codes: 0 done; 1 the driver's failure-rate
+breaker tripped; 2 usage; 65 a data dead-end (no verified snapshot, or a ledger
 that diverges from or lags the sweep); 74 a device OOM or a full disk;
 75 a graceful drain on SIGTERM/SIGINT, with the snapshot flushed: rerun
 with ``--resume``. A flag or subcommand of the JAX CLI
@@ -65,14 +75,13 @@ _SUBCOMMANDS = ("lint", "serve", "submit", "status", "cancel", "drain", "corpus"
                 "suggest-client")
 # the JAX CLI's flags that the port does not take yet: valued, then boolean
 _NOT_PORTED_FLAGS = (
-    "--workers", "--profile-dir",
+    "--profile-dir",
     "--profile-launches", "--coordinator", "--num-processes", "--process-id",
-    "--platform", "--local-devices", "--n-data", "--n-pop",
-    "--trial-timeout", "--chaos", "--coord-dir",
+    "--platform", "--local-devices", "--n-data", "--n-pop", "--coord-dir",
     "--coord-epoch", "--coord-timeout", "--rank-kill", "--suggest-serve",
     "--suggest-idle-timeout", "--http-port", "--http-queue", "--http-state-dir",
 )
-_NOT_PORTED_SWITCHES = ("--multihost", "--no-mesh", "--isolate-stateful")
+_NOT_PORTED_SWITCHES = ("--multihost", "--no-mesh")
 
 
 class _NotPorted(argparse.Action):
@@ -80,7 +89,7 @@ class _NotPorted(argparse.Action):
 
     def __call__(self, parser, namespace, values, option_string=None):
         parser.error(f"{option_string} is not ported yet (mpi_opt_tpu_torch runs the driver "
-                     "path on the gpu backend and the --fused sweeps)")
+                     "path on the gpu and cpu backends and the --fused sweeps)")
 
 
 def _wire_integrity_observer(metrics):
@@ -142,10 +151,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--algorithm", default="random", choices=ALGORITHMS)
     p.add_argument("--backend", default="gpu",
                    help="driver-path execution backend: gpu, the device-resident slot pool "
-                   "(the JAX CLI's cpu and tpu backends are not the port's)")
+                   "(the default: the port runs on the card unless asked otherwise), or cpu, "
+                   "a process pool that evaluates one trial a process on the host (the JAX "
+                   "CLI's default; its tpu backend is the port's gpu)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--trials", type=int, default=16, help="total trials (random/tpe/asha)")
     p.add_argument("--budget", type=int, default=100, help="steps per trial (random/tpe)")
+    p.add_argument("--workers", type=int, default=0, help="cpu backend: processes (0=auto)")
     p.add_argument("--metrics-file", default=None, help="JSONL metrics output path")
     p.add_argument("--trace", action="store_true",
                    help="emit span records (setup/train/staging/boundary/journal/save "
@@ -159,6 +171,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--trial-retries", type=int, default=0,
                    help="driver path: re-evaluate a failed trial up to this many times "
                    "(jittered exponential backoff) before reporting it failed")
+    p.add_argument("--trial-timeout", type=float, default=None, metavar="SECONDS",
+                   help="cpu backend: per-trial evaluation deadline; a trial still running "
+                   "past it is reaped as a 'timeout' result and its worker pool recycled "
+                   "(unset = wait forever)")
+    p.add_argument("--chaos", default=None, metavar="SPEC",
+                   help="fault-injection drill (driver path, cpu backend): wrap the workload "
+                   "in seeded chaos, e.g. 'exc=0.1,nan=0.05,hang=0.02,slow=0.1,seed=7' "
+                   "(probabilities per fault; preempt= drills the graceful-shutdown protocol; "
+                   "hang_s=/slow_s= tune durations). Faults are a deterministic function of "
+                   "(seed, trial params)")
+    p.add_argument("--isolate-stateful", action="store_true",
+                   help="cpu backend: evaluate stateful workloads (PBT inheritance, ASHA warm "
+                   "resume) in a dedicated worker process holding the state store, instead of "
+                   "in-parent, so --trial-timeout holds there (a hung trial is reaped as "
+                   "status=timeout and the worker respawned; its state store resets)")
     p.add_argument("--max-failure-rate", type=float, default=1.0,
                    help="driver path: abort the sweep (exit 1) once more than this fraction of "
                    "final trial results failed (after 20 evaluations); 1.0 disables")
@@ -221,8 +248,8 @@ def build_parser() -> argparse.ArgumentParser:
                    "least violating one when none is. The ledger journals each member's "
                    "objective vector beside the scalarized primary score")
     p.add_argument("--device", default=None, choices=("cuda", "cpu"),
-                   help="where the sweep runs (default cuda; the port never falls "
-                   "back to the CPU on its own)")
+                   help="where the sweep runs (default cuda, or cpu under --backend cpu; "
+                   "the port never falls back to the CPU on its own)")
     for flag in _NOT_PORTED_FLAGS:
         p.add_argument(flag, nargs="?", action=_NotPorted, help=argparse.SUPPRESS)
     for flag in _NOT_PORTED_SWITCHES:
@@ -650,7 +677,7 @@ def run_driver(args, parser, workload) -> int:
     from mpi_opt_tpu_torch.ledger import LedgerError
     from mpi_opt_tpu_torch.workloads.base import PopulationWorkload
 
-    if not isinstance(workload, PopulationWorkload):
+    if args.backend == "gpu" and not isinstance(workload, PopulationWorkload):
         parser.error(f"the gpu backend needs a population workload, not {args.workload!r}")
     if args.checkpoint_dir and not args.resume and _has_snapshot(args.checkpoint_dir):
         parser.error(
@@ -669,10 +696,20 @@ def run_driver(args, parser, workload) -> int:
     if args.trace:  # main restores the entry state on the way out
         _trace.configure(metrics)
     fields = dict(workload=args.workload, algorithm=args.algorithm, backend=args.backend)
+    if args.backend == "cpu":
+        backend_kwargs = {"n_workers": args.workers, "seed": args.seed,
+                          "trial_timeout": args.trial_timeout,
+                          "isolate_stateful": args.isolate_stateful}
+        if args.chaos_kwargs is not None:
+            # the workers rebuild the workload from (name, kwargs): without
+            # these they would build a fault-free wrapper
+            backend_kwargs["workload_kwargs"] = args.chaos_kwargs
+    else:
+        backend_kwargs = {"population": args.population, "seed": args.seed,
+                          "member_chunk": args.member_chunk, "device": args.device}
     with _trace.span("setup", backend=args.backend) as sp:
         _trace.note_device(sp, args.device)
-        backend = get_backend(args.backend, workload, population=args.population,
-                              seed=args.seed, member_chunk=args.member_chunk, device=args.device)
+        backend = get_backend(args.backend, workload, **backend_kwargs)
     checkpointer = ledger = step = None
     try:
         with resources.oom_funnel():
@@ -779,7 +816,7 @@ def _open_driver_ledger(args, parser, space, backend, metrics):
                 "capacity": backend.capacity,
                 "trials": args.trials,
                 "budget": args.budget,
-                "chaos": None,
+                "chaos": args.chaos,
                 "warm_start": args.warm_start,
             },
             space_spec=space.spec(),
@@ -815,6 +852,26 @@ def _expandable_segments(device) -> bool:
     return True
 
 
+def _make_workload(args, parser):
+    """The sweep's workload; under ``--chaos`` wrapped in the seeded
+    fault injector, whose kwargs ride ``args.chaos_kwargs`` to the cpu
+    backend's workers."""
+    args.chaos_kwargs = None
+    if args.chaos is None:
+        return get_workload(args.workload)
+    if args.fused or args.backend != "cpu":
+        parser.error("--chaos exercises the host driver's trial-level failure policy through "
+                     "the cpu backend; fused/gpu sweeps have no per-trial injection point "
+                     "(their divergence masking is always on)")
+    from mpi_opt_tpu_torch.workloads.chaos import parse_chaos_spec
+
+    try:
+        args.chaos_kwargs = {"inner": args.workload, **parse_chaos_spec(args.chaos)}
+        return get_workload("chaos", **args.chaos_kwargs)
+    except ValueError as e:
+        parser.error(f"--chaos: {e}")
+
+
 def main(argv=None) -> int:
     if argv is None:
         argv = sys.argv[1:]
@@ -840,12 +897,18 @@ def main(argv=None) -> int:
         parser.error("--resume requires --checkpoint-dir or --ledger")
     if args.trace and not args.metrics_file:
         parser.error("--trace needs --metrics-file: the spans go to that stream")
-    if args.backend == "cpu":
-        parser.error("--backend cpu is not ported yet; the port's driver path runs on "
-                     "--backend gpu (the default)")
-    if args.backend != "gpu":
+    if args.backend not in ("gpu", "cpu"):
         parser.error(f"--backend {args.backend} is not a backend of the port: its device "
-                     "slot pool is --backend gpu (the default)")
+                     "slot pool is --backend gpu (the default), its host pool --backend cpu")
+    if args.backend == "cpu" and args.device is None:
+        args.device = "cpu"  # --backend cpu asks for the CPU
+    if args.workers < 0:
+        parser.error(f"--workers must be >= 0, got {args.workers}")
+    if args.trial_timeout is not None and args.trial_timeout <= 0:
+        parser.error(f"--trial-timeout must be > 0, got {args.trial_timeout}")
+    if args.isolate_stateful and (args.fused or args.backend != "cpu"):
+        parser.error("--isolate-stateful moves the cpu backend's in-parent stateful path into a "
+                     "worker process; fused/gpu sweeps have no such path")
     if args.trial_retries < 0:
         parser.error(f"--trial-retries must be >= 0, got {args.trial_retries}")
     if not 0.0 < args.max_failure_rate <= 1.0:
@@ -894,7 +957,7 @@ def main(argv=None) -> int:
             if args.heartbeat_file:
                 _heartbeat.configure(args.heartbeat_file)
             run = run_fused if args.fused else run_driver
-            return run(args, parser, get_workload(args.workload))
+            return run(args, parser, _make_workload(args, parser))
     finally:
         _heartbeat.deconfigure()
         integrity.clear_observer()

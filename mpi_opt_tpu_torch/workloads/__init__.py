@@ -16,6 +16,12 @@ def get_workload(name: str, **kwargs):
     return cls(**kwargs)
 
 
-from mpi_opt_tpu_torch.workloads import digits, tabular, vision  # noqa: E402,F401  (registers)
+from mpi_opt_tpu_torch.workloads import (  # noqa: E402,F401  (registers)
+    chaos,
+    digits,
+    synthetic,
+    tabular,
+    vision,
+)
 
 __all__ = ["register", "get_workload"]

@@ -1,0 +1,367 @@
+"""Seeded fault injection (port of ``mpi_opt_tpu/workloads/chaos.py``):
+wrap any workload in configured chaos, and strike the durable layers.
+
+``ChaosWorkload`` injects the production failure shapes at configured
+probabilities, to exercise the trial-level failure layer (the trial's
+status, the CPU backend's per-job reaping, ``driver.FailurePolicy``):
+
+- ``exc``: the evaluation raises (``ChaosInjectedError``);
+- ``nan``: training "succeeds" but the score is NaN (diverged loss);
+- ``hang``: the evaluation blocks, reaped by the CPU backend's
+  per-trial timeout;
+- ``crash``: the worker process dies hard (``os._exit``): its result
+  never arrives, so it too is reaped by the timeout and the pool is
+  recycled;
+- ``slow``: the evaluation takes extra wall time (a straggler);
+- ``preempt``: SIGTERM to the evaluating process itself. Where the
+  evaluation runs in the driver process (the inline and in-parent
+  stateful paths), the installed ``ShutdownGuard`` turns it into a
+  graceful drain: the trial completes, the sweep flushes and exits 75.
+  In a pool or isolated worker the signal kills that worker, a
+  crash-shaped outcome.
+
+Determinism: whether a trial is faulted is a pure function of
+``(chaos seed, params)`` through SHA-256 over ``repr`` of the cleaned
+params, bit-equal to the JAX package's draw for the same values (the
+port's sampled params have the same Python types). A faulted trial is
+faulted on every retry, and clean trials score exactly what the inner
+workload scores.
+
+Registry shape: ``get_workload("chaos", inner="quadratic", exc=0.2)``.
+The CPU backend's workers rebuild workloads from ``(name, kwargs)``, so
+the CLI passes one kwargs dict to both the wrapper and the backend.
+
+The direct-call injectors strike the durable state: ``inject_torn_save``
+and ``inject_corrupt_save`` mangle a committed snapshot step (what
+``fsck`` must catch), ``inject_enospc`` installs a seeded ENOSPC
+schedule on the snapshot-save and ledger-fsync seam, and ``inject_oom``
+a device OOM at a chosen guarded launch (``utils/resources.py``).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import signal
+import threading
+import time
+
+from mpi_opt_tpu_torch.space import SearchSpace
+from mpi_opt_tpu_torch.workloads import get_workload, register
+from mpi_opt_tpu_torch.workloads.base import Workload
+
+
+class ChaosInjectedError(RuntimeError):
+    """The exception ``exc`` faults raise, distinct from organic failures."""
+
+
+def parse_chaos_spec(spec: str) -> dict:
+    """``"exc=0.1,nan=0.05,hang=0.02,slow=0.1,seed=7"`` -> kwargs for
+    ``ChaosWorkload``. Unknown keys are refused: a typoed fault name that
+    injects nothing would fake a green drill."""
+    out: dict = {}
+    numeric = {
+        "exc": float, "nan": float, "hang": float, "crash": float,
+        "slow": float, "preempt": float, "hang_s": float, "slow_s": float,
+        "seed": int,
+    }
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if "=" not in part:
+            raise ValueError(
+                f"chaos spec entry {part!r} is not key=value (known keys: {sorted(numeric)})"
+            )
+        k, v = part.split("=", 1)
+        k = k.strip().replace("-", "_")
+        if k not in numeric:
+            raise ValueError(f"unknown chaos key {k!r} (known: {sorted(numeric)})")
+        out[k] = numeric[k](v)
+    for p in ("exc", "nan", "hang", "crash", "slow", "preempt"):
+        if not 0.0 <= out.get(p, 0.0) <= 1.0:
+            raise ValueError(f"chaos probability {p}={out[p]} outside [0, 1]")
+    return out
+
+
+# -- snapshot-corruption injectors -----------------------------------------
+
+
+def _committed_step_dirs(checkpoint_dir: str) -> list:
+    """(step, path) of every committed step under ``checkpoint_dir``
+    (Hyperband nests a root a bracket), enumerated as ``fsck`` does."""
+    from mpi_opt_tpu_torch.utils.integrity import _committed_steps, find_checkpoint_roots
+
+    out = []
+    for root in find_checkpoint_roots(checkpoint_dir):
+        out.extend((s, os.path.join(root, str(s))) for s in _committed_steps(root))
+    return sorted(out)
+
+
+def _corruption_target(step_dir: str) -> str:
+    """The file a fault strikes: the largest regular file in the step
+    (ties broken by path), the tensor payload in a real snapshot."""
+    candidates = []
+    for root, _dirs, files in os.walk(step_dir):
+        for f in files:
+            p = os.path.join(root, f)
+            candidates.append((os.path.getsize(p), p))
+    if not candidates:
+        raise ValueError(f"no files to corrupt under {step_dir}")
+    return sorted(candidates)[-1][1]
+
+
+def _resolve_step_dir(checkpoint_dir: str, step) -> str:
+    steps = _committed_step_dirs(checkpoint_dir)
+    if not steps:
+        raise ValueError(f"no committed snapshot steps under {checkpoint_dir}")
+    if step is None:
+        return steps[-1][1]
+    for s, path in steps:
+        if s == int(step):
+            return path
+    raise ValueError(f"step {step} not found under {checkpoint_dir}")
+
+
+def inject_torn_save(checkpoint_dir: str, seed: int = 0, step=None) -> str:
+    """Truncate a file inside the latest (or given) committed step, the
+    shape a SIGKILL mid-save leaves; the cut is a seeded draw over the
+    file's interior. Returns the mangled path."""
+    path = _corruption_target(_resolve_step_dir(checkpoint_dir, step))
+    size = os.path.getsize(path)
+    h = hashlib.sha256(f"torn:{seed}".encode()).digest()
+    cut = 1 + int.from_bytes(h[:8], "big") % max(size - 1, 1)
+    with open(path, "r+b") as f:
+        f.truncate(cut)
+    return path
+
+
+def inject_corrupt_save(checkpoint_dir: str, seed: int = 0, step=None) -> str:
+    """Flip one seeded bit inside the latest (or given) committed step,
+    the silent bit-rot only content digests catch. Returns the path."""
+    path = _corruption_target(_resolve_step_dir(checkpoint_dir, step))
+    size = os.path.getsize(path)
+    h = hashlib.sha256(f"corrupt:{seed}".encode()).digest()
+    off = int.from_bytes(h[:8], "big") % size
+    bit = h[8] % 8
+    with open(path, "r+b") as f:
+        f.seek(off)
+        byte = f.read(1)
+        f.seek(off)
+        f.write(bytes([byte[0] ^ (1 << bit)]))
+    return path
+
+
+# -- resource-exhaustion injectors -----------------------------------------
+
+
+def _schedule(kind: str, n: int, seed: int, window: int | None) -> frozenset:
+    """Which op ordinals (0-based) fault: the first ``n`` without a
+    window, else ``n`` distinct ordinals of ``range(window)`` drawn by
+    SHA-256, as the JAX package's spool schedule draws them."""
+    if n <= 0:
+        return frozenset()
+    if window is None or window <= n:
+        return frozenset(range(n))
+    picked: set = set()
+    i = 0
+    while len(picked) < n:
+        h = hashlib.sha256(f"spool:{kind}:{seed}:{i}".encode()).digest()
+        picked.add(int.from_bytes(h[:8], "big") % window)
+        i += 1
+    return frozenset(picked)
+
+
+class DiskFullInjector:
+    """The schedule ``inject_enospc`` installs on ``utils.resources``'
+    disk-fault seam: counts every op a kind (``snapshot_save``,
+    ``ledger_fsync``) and raises a classified ``StorageFull`` on the
+    scheduled ordinals; ``fail_from`` fails every op from that ordinal
+    on (the disk stays full). Thread-safe."""
+
+    def __init__(self, fail: int = 0, seed: int = 0, ops_window: int | None = None,
+                 fail_from: int | None = None, op: str | None = None):
+        self._lock = threading.Lock()
+        self._counts: dict = {}
+        self._op = op  # None: every seam kind
+        self._fail_from = fail_from
+        self._fail = _schedule("disk", fail, seed, ops_window)
+        self.faults_fired = 0
+
+    def __call__(self, op: str, path: str) -> None:
+        if self._op is not None and op != self._op:
+            return
+        with self._lock:
+            ordinal = self._counts.get(op, 0)
+            self._counts[op] = ordinal + 1
+            fire = ordinal in self._fail or (self._fail_from is not None and ordinal >= self._fail_from)
+            if fire:
+                self.faults_fired += 1
+        if fire:
+            from mpi_opt_tpu_torch.utils.resources import storage_full_error
+
+            raise storage_full_error(path, op=f"chaos-injected {op} (op {ordinal})")
+
+
+def inject_enospc(fail: int = 0, seed: int = 0, ops_window: int | None = None,
+                  fail_from: int | None = None, op: str | None = None):
+    """Install a seeded ENOSPC schedule on the snapshot-save and
+    ledger-fsync seam; returns ``(injector, uninstall)``."""
+    from mpi_opt_tpu_torch.utils import resources
+
+    injector = DiskFullInjector(fail=fail, seed=seed, ops_window=ops_window,
+                                fail_from=fail_from, op=op)
+    resources.set_disk_fault_injector(injector)
+
+    def uninstall() -> None:
+        resources.set_disk_fault_injector(None)
+
+    return injector, uninstall
+
+
+class OOMInjector:
+    """The schedule ``inject_oom`` installs on ``utils.resources``'
+    launch seam: every guarded launch (a resident launch, one wave)
+    ticks one ordinal, and the scheduled ordinals (1-based: "OOM at wave
+    k") raise a synthetic CUDA out-of-memory error through the real
+    classification path."""
+
+    def __init__(self, at_launch: int = 1, n: int = 1, kind: str | None = None):
+        if at_launch < 1:
+            raise ValueError(f"at_launch is 1-based, got {at_launch}")
+        self._lock = threading.Lock()
+        self._kind = kind  # None: any guarded launch ("launch"/"wave")
+        self._fire_at = frozenset(range(at_launch, at_launch + max(1, n)))
+        self.launches = 0
+        self.faults_fired = 0
+
+    def __call__(self, kind: str) -> None:
+        if self._kind is not None and kind != self._kind:
+            return
+        with self._lock:
+            self.launches += 1
+            ordinal = self.launches
+            fire = ordinal in self._fire_at
+            if fire:
+                self.faults_fired += 1
+        if fire:
+            from mpi_opt_tpu_torch.utils.resources import synthetic_resource_exhausted
+
+            raise synthetic_resource_exhausted(f"chaos: injected device OOM at {kind} ordinal {ordinal}")
+
+
+def inject_oom(at_launch: int = 1, n: int = 1, kind: str | None = None):
+    """Install a device-OOM schedule on the fused launch seam: the
+    ``at_launch``-th guarded launch (``n`` in a row) raises. Returns
+    ``(injector, uninstall)``."""
+    from mpi_opt_tpu_torch.utils import resources
+
+    injector = OOMInjector(at_launch=at_launch, n=n, kind=kind)
+    resources.set_launch_fault_injector(injector)
+
+    def uninstall() -> None:
+        resources.set_launch_fault_injector(None)
+
+    return injector, uninstall
+
+
+@register
+class ChaosWorkload(Workload):
+    name = "chaos"
+
+    def __init__(self, inner: str = "quadratic", exc: float = 0.0, nan: float = 0.0,
+                 hang: float = 0.0, crash: float = 0.0, slow: float = 0.0, preempt: float = 0.0,
+                 hang_s: float = 600.0, slow_s: float = 0.25, seed: int = 0,
+                 inner_kwargs: dict | None = None):
+        total = exc + nan + hang + crash + slow + preempt
+        if total > 1.0:
+            raise ValueError(
+                f"chaos probabilities sum to {total} > 1 (exc+nan+hang+crash+slow+preempt)"
+            )
+        self.inner = get_workload(inner, **(inner_kwargs or {}))
+        self.p_exc = exc
+        self.p_nan = nan
+        self.p_hang = hang
+        self.p_crash = crash
+        self.p_slow = slow
+        self.p_preempt = preempt
+        self.hang_s = hang_s
+        self.slow_s = slow_s
+        self.chaos_seed = seed
+
+    def default_space(self) -> SearchSpace:
+        return self.inner.default_space()
+
+    def set_eval_device(self, device) -> None:
+        self.inner.set_eval_device(device)
+
+    # -- the seeded draw ------------------------------------------------------
+
+    def fault_for(self, params: dict) -> str | None:
+        """Which fault (if any) this trial draws: SHA-256 over (chaos
+        seed, the cleaned params' reprs), stable across processes."""
+        payload = json.dumps(
+            [
+                self.chaos_seed,
+                sorted((k, repr(v)) for k, v in params.items() if not k.startswith("__")),
+            ]
+        )
+        h = hashlib.sha256(payload.encode()).digest()
+        u = int.from_bytes(h[:8], "big") / 2**64  # uniform [0, 1)
+        edge = 0.0
+        # preempt last: a fault appended at probability 0 leaves every
+        # existing (seed, params) draw as it was
+        for fault, p in (
+            ("exc", self.p_exc),
+            ("nan", self.p_nan),
+            ("hang", self.p_hang),
+            ("crash", self.p_crash),
+            ("slow", self.p_slow),
+            ("preempt", self.p_preempt),
+        ):
+            edge += p
+            if u < edge:
+                return fault
+        return None
+
+    def _apply(self, fault: str | None) -> None:
+        """The faults that strike before the evaluation."""
+        if fault == "exc":
+            raise ChaosInjectedError(f"chaos: injected trial failure (seed={self.chaos_seed})")
+        if fault == "preempt":
+            # under a ShutdownGuard this only raises the drain flag: the
+            # trial completes and is journaled, so after a --resume it
+            # replays instead of preempting again
+            os.kill(os.getpid(), signal.SIGTERM)
+        elif fault == "hang":
+            time.sleep(self.hang_s)
+        elif fault == "crash":
+            os._exit(13)  # no exception, no result: a killed worker
+        elif fault == "slow":
+            time.sleep(self.slow_s)
+
+    # -- stateless protocol ---------------------------------------------------
+
+    def evaluate(self, params: dict, budget: int, seed: int) -> float:
+        fault = self.fault_for(params)
+        self._apply(fault)
+        score = self.inner.evaluate(params, budget, seed)
+        return float("nan") if fault == "nan" else score
+
+    # -- stateful protocol (delegated; faults fire in train) ------------------
+
+    @property
+    def stateful(self) -> bool:
+        # this wrapper always defines train; it is stateful when its
+        # inner workload is
+        return self.inner.stateful
+
+    def init_state(self, params: dict, seed: int):
+        return self.inner.init_state(params, seed)
+
+    def train(self, state, params: dict, steps: int, seed: int):
+        fault = self.fault_for(params)
+        self._apply(fault)
+        state, score = self.inner.train(state, params, steps, seed)
+        return state, (float("nan") if fault == "nan" else score)

@@ -226,10 +226,12 @@ def test_cli_flags_not_ported_are_usage_errors(tmp_path, flag, capsys):
                  id="argv0-'report' subcommand is not ported yet"),
     pytest.param(["serve", "--state-dir", "sd"], "'serve' subcommand is not ported yet",
                  id="argv1-'fsck' subcommand is not ported yet"),
-    # the driver path runs now (test_torch_driver.py); what it leaves
-    # out, the JAX package's cpu backend, is refused (the case keeps its id)
-    pytest.param(["--workload", "fashion_mlp", "--algorithm", "pbt", "--backend", "cpu"],
-                 "--backend cpu is not ported yet",
+    # the driver path runs on the gpu and cpu backends now
+    # (test_torch_driver.py, test_torch_backend_cpu.py); the JAX package's
+    # tpu backend is the port's gpu, and its name is refused (the case
+    # keeps its id)
+    pytest.param(["--workload", "fashion_mlp", "--algorithm", "pbt", "--backend", "tpu"],
+                 "--backend tpu is not a backend of the port",
                  id="argv2-driver path (no --fused) is not ported yet"),
     # TPE and BOHB are ported; what they leave out is refused
     (["--workload", "fashion_mlp", "--algorithm", "bohb", "--fused", "--n-pop", "2"],

@@ -621,13 +621,17 @@ def test_cli_driver_breaker_exits_1_and_retries_count(tmp_path, capsys, monkeypa
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["--backend", "cpu"], "--backend cpu is not ported yet"),
+    # --backend cpu and --workers run now (test_torch_backend_cpu.py); the
+    # cases keep their ids and check the refusals those flags still have
+    pytest.param(["--backend", "cpu", "--trial-timeout", "0"], "--trial-timeout must be > 0",
+                 id="extra0---backend cpu is not ported yet"),
     (["--backend", "tpu"], "--backend gpu"),
     (["--wave-size", "2"], "requires --fused"),
     (["--objectives", "accuracy:max,params:min", "--algorithm", "pbt"], "requires --fused"),
     (["--trial-retries", "-1"], "--trial-retries must be >= 0"),
     (["--max-failure-rate", "0"], "--max-failure-rate must be in (0, 1]"),
-    (["--workers", "2"], "--workers is not ported yet"),
+    pytest.param(["--workers", "-1"], "--workers must be >= 0",
+                 id="extra6---workers is not ported yet"),
 ])
 def test_cli_driver_refusals_are_usage_errors(extra, message, capsys):
     with pytest.raises(SystemExit) as exc:
