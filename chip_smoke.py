@@ -180,15 +180,31 @@ Phases, in order; any failure exits non-zero and prints no result:
    learning rate halved must fall outside), then ``--backend cpu
    --workload fashion_mlp`` through a pool of 2. Every pool worker
    reports at its start that it sees no CUDA device;
-18. processes: none of the phases' may be left running (the script is
+18. the measuring tools (``--phases windows``, the 19th of ``PHASES``),
+   through the CLI in this process: (a) the full-width ResNet-18 slice
+   (population 16, 3 x 5, one generation a launch) with ``--trace
+   --profile-dir --profile-launches 2:2``: exactly one trace lands, with
+   one ``train`` range, device kernels, and as many ``gn_fwd_kernel``
+   and ``gn_bwd_kernel`` events as the GN wrappers counted over launch 2
+   (read at the launch ticks), the plain versions never; (b) configs 2
+   and 4's driver halves (ASHA on fashion_mlp, TPE on tabular_mlp, phase
+   15's shapes) with ``--profile-launches 2:4``: a train range a batch of
+   the window, and the device's busy share (the union of the kernel
+   intervals over the window's wall); (c) ``trace --timeline`` of (a)'s
+   stream passes ``validate_timeline``; (d) a second, unprofiled traced
+   run of (a): ``trace --diff`` of the two exits 0 under a loose gate
+   (the set-up not gated) and 1 under ``min_mxu_frac: 0.99``, a planted regression whose
+   violation must be the utilization floor. The profiled launch's wall
+   beside the unprofiled ones;
+19. processes: none of the phases' may be left running (the script is
    its descendants' subreaper, so an orphan counts too); the fork
    server the CPU backend's pools share is stopped and waited for, and
    the port stops multiprocessing's resource tracker at exit. Whatever
    was left is killed, and the run fails;
-19. the script's wall, the ``kernels`` line (JSON), then the device line
+20. the script's wall, the ``kernels`` line (JSON), then the device line
    (JSON, last).
 
-Each path (4, 6, 8, 9, 10a, 10d, 11b, 12b, 13b, 14c, 15b, 15d, 16c, 17d) runs
+Each path (4, 6, 8, 9, 10a, 10d, 11b, 12b, 13b, 14c, 15b, 15d, 16c, 17d, 18a, 18d) runs
 through the entry points a user calls, with the launch counts zeroed
 just before and read just after (in phase 9, its runs in this process;
 in 10a, each run; in 11b, 12b, 13b and 14c, read at each bracket or
@@ -1053,7 +1069,7 @@ SHA_TRIALS, SHA_MIN, SHA_MAX, SHA_ETA, SHA_W = 64, 10, 270, 3, 16  # BENCH_ALL.j
 C5_P = 1024  # BASELINE.json config 5: PBT over 1024 ResNet-18 members
 # the phases after the build, in order (``--phases`` picks some)
 PHASES = ("kernels", "slice", "north_star", "mlp", "durability", "waves", "oom", "oom_chunk", "drain",
-          "sha", "config5", "hyperband", "tpe", "bohb", "mo", "driver", "warm", "cpu")
+          "sha", "config5", "hyperband", "tpe", "bohb", "mo", "driver", "warm", "cpu", "windows")
 
 # a launcher for the port's CLI: caps this process's CUDA allocator at a
 # fraction of the card (0: no cap), runs the CLI, and writes the
@@ -3043,6 +3059,216 @@ def cpu_phase(gn, smi):
     return out, launches, errs, None
 
 
+# The measuring tools (phase 19): launch windows of torch.profiler through
+# the CLI, and the trace subcommand's --timeline, --diff and --gate. (a)'s
+# sweep is the ResNet-18 slice's population at WIN_GENS x WIN_STEPS, one
+# generation a launch; (b) profiles configs 2 and 4's driver halves (phase
+# 15's shapes) over their steady batches
+WIN_GENS, WIN_STEPS, WIN_LAUNCH = 3, 5, 2
+WIN_DRIVER = {
+    "asha_config2": (["--workload", "fashion_mlp", "--algorithm", "asha", "--trials", str(SHA_TRIALS),
+                      "--min-budget", str(SHA_MIN), "--max-budget", str(SHA_MAX), "--eta", str(SHA_ETA),
+                      "--population", str(SHA_TRIALS)], "2:4"),
+    "tpe_config4": (["--workload", "tabular_mlp", "--algorithm", "tpe", "--trials", str(C4_TRIALS),
+                     "--budget", str(C4_BUDGET), "--population", str(C4_BATCH)], "2:4"),
+}
+# a gate loose enough for two runs of one sweep (a launch may take 4x; the
+# host's set-up is not gated: two runs' set-up spans differed 4.2x on the
+# card), and one that plants a regression: 99% of the card's bf16 peak
+WIN_GATES = {"loose": {"default": 3.0, "ignore": ["setup"], "wall_max_rel_increase": 3.0},
+             "planted": {"min_mxu_frac": 0.99}}
+WIN_PEAK_TFLOPS = "989"  # H100 SXM, bf16 dense (data sheet)
+
+
+def _window_trace(directory):
+    """(file name, trace-event document) of the one trace a window wrote,
+    or (problem, None)."""
+    names = os.listdir(directory) if os.path.isdir(directory) else []
+    if len(names) != 1:
+        return f"{directory}: {len(names)} trace files, not 1: {names}", None
+    with open(os.path.join(directory, names[0])) as f:
+        return names[0], json.load(f)
+
+
+def _window_device(doc):
+    """Kernels in a window's trace: their count by name, and the device's
+    busy share, the union of the kernel intervals over the window's wall
+    (the earliest event's start to the latest event's end)."""
+    evs = [e for e in doc["traceEvents"] if e.get("ph") == "X" and isinstance(e.get("ts"), (int, float))]
+    kern = [e for e in evs if e.get("cat") == "kernel"]
+    by_name = {}
+    for e in kern:
+        by_name[e["name"]] = by_name.get(e["name"], 0) + 1
+    lo = min(e["ts"] for e in evs)
+    hi = max(e["ts"] + e.get("dur", 0) for e in evs)
+    busy, top = 0.0, -math.inf
+    for a, b in sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in kern):
+        if b > top:
+            busy += b - max(a, top)
+            top = b
+    ranges = [e["name"] for e in evs if e.get("cat") == "user_annotation"]
+    return {"kernels": len(kern), "kernel_names": len(by_name), "wall_ms": (hi - lo) / 1e3,
+            "busy_ms": busy / 1e3, "busy_share": busy / (hi - lo) if hi > lo else None,
+            "ranges": {n: ranges.count(n) for n in sorted(set(ranges))}, "by_name": by_name}
+
+
+def windows_phase(gn, smi):
+    """The measuring tools, through the entry points a user calls. (a) The
+    full-width ResNet-18 slice (cifar100_resnet18, population P, WIN_GENS
+    x WIN_STEPS, one generation a launch) through the CLI in this process
+    with ``--trace --profile-dir --profile-launches 2:2``: one trace lands,
+    it holds one ``train`` range, and its ``gn_fwd_kernel`` and
+    ``gn_bwd_kernel`` events equal the GN wrappers' launch-counter delta
+    over launch 2 (read at the launch ticks), both non-zero, the plain
+    versions never; launch 2's wall beside launches 1 and 3. (b) Configs 2
+    and 4's driver halves (ASHA on fashion_mlp, TPE on tabular_mlp, phase
+    15's shapes) through the CLI with ``--profile-launches 2:4``: each
+    window's kernels and device busy share. (c) ``trace --timeline`` of
+    (a)'s stream passes ``validate_timeline``. (d) A second traced run of
+    (a), unprofiled: ``trace --diff`` of the two exits 0 under a loose
+    gate (WIN_GATES: the set-up is not gated) and 1 under
+    ``min_mxu_frac: 0.99`` (a planted regression), whose
+    violation must be the utilization floor. Returns (record, GN launches
+    by path, problem)."""
+    import shutil
+    import tempfile
+
+    from mpi_opt_tpu_torch import cli
+    from mpi_opt_tpu_torch.obs import report, timeline
+    from mpi_opt_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    out = {"card": smi}
+    launches = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_windows_")
+    path = lambda *p: os.path.join(tmp, *p)
+    resnet = ["--workload", "cifar100_resnet18", "--algorithm", "pbt", "--fused", "--population", str(P),
+              "--generations", str(WIN_GENS), "--steps-per-generation", str(WIN_STEPS), "--gen-chunk", "1",
+              "--seed", "0", "--device", "cuda", "--trace"]
+    real_tick, at_tick, tick_s = profiling.launch_tick, [], []
+
+    def tick():  # the GN counters at the top of each launch, and what moving the window took
+        at_tick.append(dict(gn.LAUNCHES))
+        t0 = time.perf_counter()
+        real_tick()
+        tick_s.append(time.perf_counter() - t0)
+
+    try:
+        # (a) one profiled launch of the ResNet-18 slice
+        gn.reset_launches()
+        profiling.launch_tick = tick
+        try:
+            t0 = time.perf_counter()
+            rc, lines = _in_process(cli.main, [*resnet, "--metrics-file", path("a.jsonl"), "--profile-dir",
+                                               path("prof_a"), "--profile-launches", f"{WIN_LAUNCH}:{WIN_LAUNCH}"])
+            wall_a = time.perf_counter() - t0
+        finally:
+            profiling.launch_tick = real_tick
+        launches["windows_resnet18"] = dict(gn.LAUNCHES)
+        if rc != 0 or len(at_tick) != WIN_GENS:
+            return out, launches, f"windows (a): exit {rc}, {len(at_tick)} launch ticks, {lines[-1:]}"
+        name, doc = _window_trace(path("prof_a"))
+        if doc is None:
+            return out, launches, f"windows (a): {name}"
+        dev = _window_device(doc)
+        want = {k: at_tick[WIN_LAUNCH][k] - at_tick[WIN_LAUNCH - 1][k] for k in ("gn_fwd", "gn_bwd", "plain")}
+        got = {k: sum(n for kn, n in dev["by_name"].items() if f"{k}_kernel" in kn) for k in ("gn_fwd", "gn_bwd")}
+        spans_a = [r for r in report.load_stream(path("a.jsonl")) if r.get("event") == "span"]
+        trains = {r["launch"]: r["dur_s"] for r in spans_a if r["span"] == "train"}
+        # the window opens in launch 2's tick and closes (synchronise, stop,
+        # export) in launch 3's, outside both train spans
+        out["a"] = {"trace": name, "wall_s": wall_a, "gn_in_window": got, "gn_counter_delta": want,
+                    "train_ranges": dev["ranges"].get("train", 0), "kernels": dev["kernels"],
+                    "kernel_names": dev["kernel_names"], "window_wall_ms": dev["wall_ms"],
+                    "busy_share": dev["busy_share"], "launch_train_s": trains,
+                    "window_start_s": tick_s[WIN_LAUNCH - 1], "window_stop_s": tick_s[WIN_LAUNCH],
+                    "profiled_launch_s": trains[WIN_LAUNCH] + tick_s[WIN_LAUNCH - 1] + tick_s[WIN_LAUNCH],
+                    "setup_s": [r["self_s"] for r in spans_a if r["span"] == "setup"]}
+        print(f"windows (a) resnet18 P={P} {WIN_GENS}x{WIN_STEPS}, launch {WIN_LAUNCH} profiled ({smi}): "
+              f"{json.dumps({k: v for k, v in out['a'].items()})}")
+        if dev["kernels"] == 0:
+            return out, launches, "windows (a): the window's trace holds no device kernels"
+        if got != {k: want[k] for k in got} or not (got["gn_fwd"] > 0 and got["gn_bwd"] > 0) or want["plain"]:
+            return out, launches, f"windows (a): GN kernels in the window {got}, counter delta {want}"
+        if out["a"]["train_ranges"] != 1:
+            return out, launches, f"windows (a): {out['a']['train_ranges']} train ranges, not 1"
+
+        # (b) the driver path's steady batches, configs 2 and 4
+        for key, (argv, window) in WIN_DRIVER.items():
+            at_tick.clear()
+            tick_s.clear()
+            profiling.launch_tick = tick
+            try:
+                t0 = time.perf_counter()
+                rc, lines = _in_process(cli.main, [*argv, "--seed", "0", "--device", "cuda", "--profile-dir",
+                                                   path(f"prof_{key}"), "--profile-launches", window])
+                wall = time.perf_counter() - t0
+            finally:
+                profiling.launch_tick = real_tick
+            name, doc = _window_trace(path(f"prof_{key}"))
+            if rc != 0 or doc is None:
+                return out, launches, f"windows (b) {key}: exit {rc}, {name}"
+            dev = _window_device(doc)
+            top = sorted(dev.pop("by_name").items(), key=lambda kv: -kv[1])[:5]
+            a, b = (int(x) for x in window.split(":"))
+            out[key] = {"window": window, "batches": len(at_tick), "cli_wall_s": wall, **dev,
+                        "top_kernels_by_count": top, "trials_per_s": lines[-1].get("trials_per_sec_per_chip")}
+            print(f"windows (b) driver {key}, batches {window} of {len(at_tick)} ({smi}): device busy "
+                  f"share {dev['busy_share']} of {dev['wall_ms']} ms, {dev['kernels']} kernels; "
+                  f"{json.dumps(out[key])}")
+            # a batch is one train range; a window past the last batch closes at the end
+            if dev["kernels"] == 0 or dev["ranges"].get("train") != min(b, len(at_tick)) - a + 1:
+                return out, launches, (f"windows (b) {key}: {dev['kernels']} kernels, ranges {dev['ranges']}, "
+                                       f"{len(at_tick)} batches")
+
+        # (c) the timeline of (a)'s stream
+        rc, _ = _in_process(report.trace_main, [path("a.jsonl"), "--timeline", path("a.timeline.json")])
+        with open(path("a.timeline.json")) as f:
+            tl = json.load(f)
+        problems = timeline.validate_timeline(tl)
+        out["c"] = {"exit": rc, "events": len(tl["traceEvents"]), "problems": problems[:5]}
+        print(f"windows (c) timeline of (a): {json.dumps(out['c'])}")
+        if rc != 0 or problems:
+            return out, launches, f"windows (c): exit {rc}, problems {problems[:5]}"
+
+        # (d) a second traced run, unprofiled; the diff under two gates
+        gn.reset_launches()
+        t0 = time.perf_counter()
+        rc, _ = _in_process(cli.main, [*resnet, "--metrics-file", path("d.jsonl")])
+        wall_d = time.perf_counter() - t0
+        for k, v in gn.LAUNCHES.items():
+            launches["windows_resnet18"][k] += v
+        if rc != 0:
+            return out, launches, f"windows (d): the second run exited {rc}"
+        spans_d = [r for r in report.load_stream(path("d.jsonl")) if r.get("event") == "span"]
+        out["d"] = {"wall_s": wall_d, "launch_train_s": {r["launch"]: r["dur_s"] for r in spans_d
+                                                         if r["span"] == "train"},
+                    "setup_s": [r["self_s"] for r in spans_d if r["span"] == "setup"]}
+        for gate, tol in WIN_GATES.items():
+            with open(path(f"{gate}.json.tmp"), "w") as f:
+                json.dump(tol, f)
+            os.replace(path(f"{gate}.json.tmp"), path(f"{gate}.json"))
+            rc, rep = _in_process(report.trace_main, [
+                "--diff", path("a.jsonl"), path("d.jsonl"), "--json", "--gate", path(f"{gate}.json"),
+                "--peak-tflops", WIN_PEAK_TFLOPS])
+            gate_out = rep[-1]["gate"] if rep else None
+            out["d"][gate] = {"exit": rc, "gate": gate_out,
+                              "roofline": rep[-1]["roofline"] if rep else None}
+            print(f"windows (d) trace --diff (a) (d), {gate} gate: exit {rc}, {json.dumps(out['d'][gate])}")
+            floor = gate_out is not None and any("below the 99% floor" in v for v in gate_out["violations"])
+            if (gate, rc) not in (("loose", 0), ("planted", 1)) or (gate == "planted" and not floor):
+                return out, launches, f"windows (d): the {gate} gate exited {rc}: {gate_out}"
+        print(f"windows profiled launch ({smi}): launch {WIN_LAUNCH} profiled "
+              f"{out['a']['profiled_launch_s']} s (train {trains[WIN_LAUNCH]} s, window start "
+              f"{out['a']['window_start_s']} s, stop and export {out['a']['window_stop_s']} s); "
+              f"unprofiled: run (a) {json.dumps(trains)}, run (d) {json.dumps(out['d']['launch_train_s'])}")
+    finally:
+        profiling.launch_tick = real_tick
+        shutil.rmtree(tmp, ignore_errors=True)
+        out["wall_s"] = time.perf_counter() - t_phase
+    return out, launches, None
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline-cu", default=None,
@@ -3335,7 +3561,16 @@ def main() -> int:
         if bad:
             return fail(bad)
 
-    # 18. no process left running
+    if "windows" in phases:
+        # 18. the measuring tools: profiled launch windows on the fused and
+        # the driver path, trace --timeline, --diff and --gate
+        win, win_launches, bad = windows_phase(gn, smi)
+        launches.update(win_launches)
+        done("windows", win)
+        if bad:
+            return fail(bad)
+
+    # 19. no process left running
     left = stop_processes()
     if left:
         return fail(f"processes left running after the phases (killed now): {left}")
@@ -3344,7 +3579,7 @@ def main() -> int:
         print(f"chip_smoke: partial run ({','.join(phases)}): no result line")
         return 0
 
-    # 19. the kernels line (a population step of each path, summed; launches
+    # 20. the kernels line (a population step of each path, summed; launches
     # summed over every path), then the device line
     src = "mpi_opt_tpu_torch/csrc/group_norm.cu"
     kernels = []
@@ -3359,7 +3594,7 @@ def main() -> int:
         entry["by_path"] = {path: {**tot[path][k], "launches": launches[path][k]} for path in STEP_PATHS}
         for path in ("durability", "north_star_waves", "hyperband_smallcnn", "tpe_smallcnn", "bohb_smallcnn",
                      "mo_smallcnn", "driver_smallcnn", "driver_resnet18", "warm_smallcnn",
-                     "pertrial_cifar10_cnn", "pertrial_cifar100_resnet18"):
+                     "pertrial_cifar10_cnn", "pertrial_cifar100_resnet18", "windows_resnet18"):
             entry["by_path"][path] = {"launches": launches[path][k]}
         kernels.append(entry)
     done("kernels", kernels)

@@ -9,13 +9,17 @@ the measured run, closed by a device synchronise. Host data generation
 happens before either. Both runs are traced (``obs/trace.py``) unless
 ``--no-trace`` is given, and the record's ``trace`` is the stream's
 attribution (``obs/report.bench_attribution``); ``--trace-file`` keeps
-the stream there and names it in ``trace_stream``. Prints one JSON line
-on stdout with the JAX bench's record keys; the measured matmul cap is
-not measured yet (null), and the CPU baseline is skipped.
+the stream there and names it in ``trace_stream``. ``--profile-dir
+DIR`` wraps the measured run in a ``torch.profiler`` window
+(``utils/profiling.py``: one Chrome trace-event JSON in DIR; a profiled
+run's rate is not comparable to an unprofiled one). Prints one JSON
+line on stdout with the JAX bench's record keys; the measured matmul
+cap is not measured yet (null), and the CPU baseline is skipped.
 
     python -m mpi_opt_tpu_torch.bench [--population 256] [--generations 4]
         [--steps 100] [--seed 0] [--member-chunk 32] [--gen-chunk 1]
-        [--target-acc 0.70] [--trace-file PATH | --no-trace] [--device cuda|cpu]
+        [--target-acc 0.70] [--trace-file PATH | --no-trace] [--profile-dir DIR]
+        [--device cuda|cpu]
 
 It runs on CUDA, and refuses to run without it unless ``--device cpu``
 is given.
@@ -37,6 +41,7 @@ from mpi_opt_tpu_torch.obs import report, trace
 from mpi_opt_tpu_torch.train.fused_pbt import fused_pbt
 from mpi_opt_tpu_torch.utils.flops import mfu, population_sweep_flops
 from mpi_opt_tpu_torch.utils.metrics import sweep_wall_to_target
+from mpi_opt_tpu_torch.utils.profiling import profile_window
 from mpi_opt_tpu_torch.workloads import get_workload
 
 METRIC = "pbt_cifar10_cnn_member_generations_per_sec_per_chip"
@@ -53,11 +58,13 @@ def _sync(dev: torch.device) -> None:
 
 def run(population: int = 256, generations: int = 4, steps: int = 100, seed: int = 0,
         member_chunk: int = 32, gen_chunk: int = 1, target_acc: float = 0.70,
-        device=None, traced: bool = True, trace_file: str | None = None) -> tuple[dict, dict]:
+        device=None, traced: bool = True, trace_file: str | None = None,
+        profile_dir: str | None = None) -> tuple[dict, dict]:
     """Warm-up sweep of ``cifar10_cnn``, then the measured one, both
     traced into ``trace_file`` (a temporary file when None) unless
-    ``traced`` is False. Returns (record, the measured sweep's
-    ``fused_pbt`` result)."""
+    ``traced`` is False; the measured one profiled into ``profile_dir``
+    when given. Returns (record, the measured sweep's ``fused_pbt``
+    result)."""
     from mpi_opt_tpu_torch.utils.metrics import MetricsLogger
 
     dev = resolve_device(device)
@@ -80,10 +87,11 @@ def run(population: int = 256, generations: int = 4, steps: int = 100, seed: int
         log(f"warm-up {warmup:.3f} s")
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
-        t0 = time.perf_counter()
-        result = fused_pbt(wl, **kw)
-        _sync(dev)
-        wall = time.perf_counter() - t0
+        with profile_window(profile_dir, device=dev):
+            t0 = time.perf_counter()
+            result = fused_pbt(wl, **kw)
+            _sync(dev)
+            wall = time.perf_counter() - t0
     finally:
         if traced:
             trace.deconfigure(trace_prior)
@@ -156,13 +164,17 @@ def main(argv=None) -> int:
                    help="keep the span stream of both runs here (default: a temporary file)")
     p.add_argument("--no-trace", action="store_true",
                    help="run untraced; the record's trace is null")
+    p.add_argument("--profile-dir", default=None, metavar="DIR",
+                   help="profile the measured run into DIR (torch.profiler, one Chrome "
+                   "trace-event JSON); its rate is then not comparable to an unprofiled run's")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = p.parse_args(argv)
     if args.trace_file and args.no_trace:
         p.error("--trace-file and --no-trace exclude each other")
     record, _ = run(args.population, args.generations, args.steps, args.seed,
                     args.member_chunk, args.gen_chunk, args.target_acc, args.device,
-                    traced=not args.no_trace, trace_file=args.trace_file)
+                    traced=not args.no_trace, trace_file=args.trace_file,
+                    profile_dir=args.profile_dir)
     print(json.dumps(record))
     return 0
 

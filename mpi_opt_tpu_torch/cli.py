@@ -23,7 +23,11 @@ the ``trace``, ``report`` and ``fsck`` subcommands).
         --objectives "accuracy:max,params:min"
     python -m mpi_opt_tpu_torch --workload tabular_mlp --algorithm tpe --fused \
         --trials 256 --population 64 --budget 30 --warm-start prior.jsonl
-    python -m mpi_opt_tpu_torch trace m.jsonl [--json]
+    python -m mpi_opt_tpu_torch --workload cifar100_resnet18 --algorithm pbt --fused \
+        --population 16 --generations 3 --steps-per-generation 5 \
+        --profile-dir prof --profile-launches 2:2
+    python -m mpi_opt_tpu_torch trace m.jsonl [--json] [--timeline t.json]
+    python -m mpi_opt_tpu_torch trace --diff base.jsonl new.jsonl [--gate tol.json]
     python -m mpi_opt_tpu_torch report sweep.jsonl [--json] [--validate]
     python -m mpi_opt_tpu_torch fsck ck [--ledger sweep.jsonl] [--repair] [--deep] [--json]
 
@@ -66,6 +70,7 @@ from mpi_opt_tpu_torch.utils import integrity, resources
 from mpi_opt_tpu_torch.utils.exitcodes import EX_DATAERR, EX_IOERR, EX_TEMPFAIL
 from mpi_opt_tpu_torch.utils.integrity import NoVerifiedSnapshotError
 from mpi_opt_tpu_torch.utils.metrics import stdout_logger
+from mpi_opt_tpu_torch.utils.profiling import parse_launch_window, profile_window
 from mpi_opt_tpu_torch.workloads import _REGISTRY, get_workload
 
 # the JAX CLI's algorithms; the port runs every one, fused and driver
@@ -75,8 +80,7 @@ _SUBCOMMANDS = ("lint", "serve", "submit", "status", "cancel", "drain", "corpus"
                 "suggest-client")
 # the JAX CLI's flags that the port does not take yet: valued, then boolean
 _NOT_PORTED_FLAGS = (
-    "--profile-dir",
-    "--profile-launches", "--coordinator", "--num-processes", "--process-id",
+    "--coordinator", "--num-processes", "--process-id",
     "--platform", "--local-devices", "--n-data", "--n-pop", "--coord-dir",
     "--coord-epoch", "--coord-timeout", "--rank-kill", "--suggest-serve",
     "--suggest-idle-timeout", "--http-port", "--http-queue", "--http-state-dir",
@@ -164,6 +168,17 @@ def build_parser() -> argparse.ArgumentParser:
                    "phase durations, obs/trace.py) into --metrics-file (required); render "
                    "them with `python -m mpi_opt_tpu_torch trace FILE`. Off by default: an "
                    "untraced sweep does no tracing work")
+    p.add_argument("--profile-dir", default=None, metavar="DIR",
+                   help="capture a torch.profiler trace of the sweep here: one Chrome "
+                   "trace-event JSON a window, <host>_<pid>.run.pt.trace.json (or "
+                   ".launches_<A>-<B>.pt.trace.json), which Perfetto and TensorBoard load; "
+                   "CPU activity, plus CUDA kernels on the card. A profiled launch is not "
+                   "comparable to an unprofiled one")
+    p.add_argument("--profile-launches", default=None, metavar="N|A:B",
+                   help="with --profile-dir: profile only this launch window (1-based, "
+                   "inclusive: fused launches/rungs/generations/wave intervals, or driver "
+                   "batches, counted as the JAX CLI counts them) instead of the whole run; "
+                   "e.g. 2:3 skips the first launch's cuDNN autotuning")
     p.add_argument("--ledger", default=None, metavar="PATH",
                    help="journal every final trial result (driver path) or one record per "
                    "population member at every generation (--fused), fsync'd per record; with "
@@ -395,7 +410,8 @@ def run_fused(args, parser, workload) -> int:
     t0 = time.perf_counter()
     fields = dict(workload=args.workload, algorithm=args.algorithm, backend="fused")
     try:
-        with resources.oom_funnel():
+        with resources.oom_funnel(), profile_window(args.profile_dir, launches=args.profile_window,
+                                                    device=args.device):
             return _run_fused_dispatch(args, workload, metrics, t0, ledger, warm_obs)
     except resources.DeviceOOM as e:
         return _resource_exit(e, metrics, "device_oom", **fields)
@@ -736,8 +752,11 @@ def run_driver(args, parser, workload) -> int:
                                     algorithm.ingest_observations(warm_obs))
             policy = FailurePolicy(max_retries=args.trial_retries,
                                    max_failure_rate=args.max_failure_rate, seed=args.seed)
-            result = run_search(algorithm, backend, metrics=metrics, checkpointer=checkpointer,
-                                policy=policy, ledger=ledger)
+            # under --backend cpu only this process is profiled, not its workers
+            with profile_window(args.profile_dir, launches=args.profile_window,
+                                device=args.device):
+                result = run_search(algorithm, backend, metrics=metrics,
+                                    checkpointer=checkpointer, policy=policy, ledger=ledger)
     except resources.DeviceOOM as e:
         return _resource_exit(e, metrics, "device_oom", **fields)
     except resources.StorageFull as e:
@@ -897,6 +916,16 @@ def main(argv=None) -> int:
         parser.error("--resume requires --checkpoint-dir or --ledger")
     if args.trace and not args.metrics_file:
         parser.error("--trace needs --metrics-file: the spans go to that stream")
+    # --profile-launches: parsed and validated as a usage error, the
+    # window carried on args for the profile_window call sites
+    args.profile_window = None
+    if args.profile_launches is not None:
+        if not args.profile_dir:
+            parser.error("--profile-launches requires --profile-dir")
+        try:
+            args.profile_window = parse_launch_window(args.profile_launches)
+        except ValueError as e:
+            parser.error(f"--profile-launches: {e}")
     if args.backend not in ("gpu", "cpu"):
         parser.error(f"--backend {args.backend} is not a backend of the port: its device "
                      "slot pool is --backend gpu (the default), its host pool --backend cpu")

@@ -6,9 +6,9 @@ slot-pool backend receives device-shaped batches, and a generational
 algorithm (PBT) holds the loop between generations by handing out an
 empty batch only once everything it dispatched has been reported.
 
-Not here: the JAX package's ``profiling.launch_tick`` (it waits for
-``--profile-dir``) and the sweep service's slice hook (the port has no
-service).
+A batch that dispatches trials is one launch of ``--profile-launches``
+(``utils/profiling.launch_tick``, counted as the JAX driver counts it).
+Not here: the sweep service's slice hook (the port has no service).
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from mpi_opt_tpu_torch.health.shutdown import SweepInterrupted
 from mpi_opt_tpu_torch.ledger.store import result_from_record
 from mpi_opt_tpu_torch.obs import trace
 from mpi_opt_tpu_torch.trial import Trial, TrialResult
+from mpi_opt_tpu_torch.utils import profiling
 from mpi_opt_tpu_torch.utils.metrics import MetricsLogger, null_logger
 
 
@@ -252,6 +253,7 @@ def run_search(
                     continue
             pending.append(t)
         if pending:
+            profiling.launch_tick()
             # the driver path's launch: backend.evaluate blocks until the
             # batch's scores exist, so the span is the batch's real wall
             # (retries included); journal spans nest inside it

@@ -22,8 +22,10 @@ attributed:
   overlap, and the roofline verdict.
 
 ``--json`` prints one object (the bench embeds ``bench_attribution``);
-text mode renders the table. ``--diff``, ``--gate`` and ``--timeline``
-(``obs/diff.py``, ``obs/timeline.py``) are not ported yet.
+text mode renders the table. ``--timeline OUT.json`` also exports the
+merged streams as Chrome trace-event JSON (``obs/timeline.py``);
+``--diff BASE NEW [--gate TOL.json]`` compares two attributions and
+gates them (``obs/diff.py``).
 """
 
 from __future__ import annotations
@@ -504,9 +506,20 @@ def trace_main(argv=None) -> int:
         nargs="+",
         metavar="FILE|DIR",
         help="metrics stream(s) (--metrics-file output of a --trace run), or "
-        "directories to discover streams under",
+        "directories to discover streams under. With --diff: exactly two targets, "
+        "each a stream/dir, a `trace --json` attribution file, or a bench record "
+        "with an embedded trace",
     )
     p.add_argument("--json", action="store_true", help="machine-readable output")
+    p.add_argument(
+        "--timeline",
+        default=None,
+        metavar="OUT.json",
+        help="also export the merged streams as Chrome trace-event JSON (load in "
+        "https://ui.perfetto.dev or chrome://tracing): per-rank process rows, "
+        "per-thread tracks, span attrs as args, plus a 'device idle' track "
+        "rendering the bubble analysis",
+    )
     p.add_argument(
         "--peak-tflops",
         type=float,
@@ -514,14 +527,33 @@ def trace_main(argv=None) -> int:
         help="platform matmul cap for the roofline verdict (TF/s); default: "
         "the obs/bubbles.py table keyed by the card the setup span recorded",
     )
-    for flag in ("--diff", "--gate", "--timeline"):
-        p.add_argument(flag, nargs="?", const=True, default=None, help=argparse.SUPPRESS)
+    p.add_argument(
+        "--diff",
+        action="store_true",
+        help="compare two attributions (BASE NEW): per-phase deltas judged against "
+        "each phase's own measured jitter, achieved-TF/s, time-to-first-trial and "
+        "device-memory watermark deltas (obs/diff.py)",
+    )
+    p.add_argument(
+        "--gate",
+        default=None,
+        metavar="TOL.json",
+        help="with --diff: apply per-phase tolerance budgets from this file and "
+        "exit 1 on regression (the JAX package's file format; README)",
+    )
     args = p.parse_args(argv)
-    for flag in ("diff", "gate", "timeline"):
-        if getattr(args, flag) is not None:
-            p.error(f"trace --{flag} is not ported yet (obs/diff.py and obs/timeline.py)")
+    if args.gate and not args.diff:
+        p.error("--gate requires --diff")
+    if args.timeline and args.diff:
+        p.error("--timeline renders ONE run's streams; it cannot combine "
+                "with --diff (export each side separately)")
     if args.peak_tflops is not None and args.peak_tflops <= 0:
         p.error(f"--peak-tflops must be > 0, got {args.peak_tflops}")
+    if args.diff:
+        from mpi_opt_tpu_torch.obs.diff import diff_main
+
+        return diff_main(args.targets, json_out=args.json, gate_path=args.gate,
+                         error=p.error, peak_tflops=args.peak_tflops)
 
     streams: dict = {}
 
@@ -555,6 +587,18 @@ def trace_main(argv=None) -> int:
             print(json.dumps({"streams": [], "records": 0, "phases": {}}))
         return rc
     rep = attribute(streams, peak_tflops=args.peak_tflops)
+    if args.timeline:
+        from mpi_opt_tpu_torch.obs.timeline import write_timeline
+
+        try:
+            n = write_timeline(streams, args.timeline, peak_tflops=args.peak_tflops,
+                               attribution=rep)
+        except OSError as e:
+            print(f"--timeline {args.timeline}: {e}", file=sys.stderr)
+            rc = 1
+        else:
+            # stderr: --json's stdout stays one machine-parseable object
+            print(f"timeline: {n} events -> {args.timeline}", file=sys.stderr)
     if args.json:
         print(json.dumps(rep))
     else:

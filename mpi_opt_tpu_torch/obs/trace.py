@@ -30,9 +30,11 @@ Design rules (the JAX package's):
 The port has no XLA compile, so it emits no ``compile`` spans: the
 attribution's compile table reports zero counts.
 
-While a ``torch.profiler`` is recording, each span also enters
-``torch.profiler.record_function`` of its name, so the card's profiles
-carry the sweep's phase names ("train", "stage_in").
+While a ``utils/profiling.py`` window records, each span also enters
+``torch.profiler.record_function`` of its name (gated on
+``profiling.active()``, as the JAX package gates its
+``TraceAnnotation``), so a window's trace carries the sweep's phase
+names ("train", "stage_in") and spans cost nothing more otherwise.
 """
 
 from __future__ import annotations
@@ -41,6 +43,8 @@ import contextlib
 import threading
 import time
 from typing import Optional
+
+from mpi_opt_tpu_torch.utils import profiling
 
 _SINK = None  # the MetricsLogger spans emit through (None = disabled)
 _TAGS: dict = {}  # rank/tenant labels stamped into every record
@@ -167,13 +171,13 @@ def _emit(name: str, dur_s: float, self_s: float, attrs: dict) -> None:
 
 
 def _profiler_range(name: str):
-    """``record_function(name)``, entered, while a torch profiler
+    """``record_function(name)``, entered, while a ``profile_window``
     records; else None."""
+    if not profiling.active():
+        return None
     try:
         import torch
 
-        if not torch.autograd._profiler_enabled():
-            return None
         rf = torch.profiler.record_function(name)
         rf.__enter__()
         return rf

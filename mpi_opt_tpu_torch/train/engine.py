@@ -49,7 +49,7 @@ import torch
 from mpi_opt_tpu_torch.obs import memory, trace
 from mpi_opt_tpu_torch.train.common import launch_boundary
 from mpi_opt_tpu_torch.train.population import PopState
-from mpi_opt_tpu_torch.utils import resources
+from mpi_opt_tpu_torch.utils import profiling, resources
 
 
 def balanced_split(total: int, chunk: int) -> list[int]:
@@ -295,6 +295,8 @@ class WaveRunner:
             for w in range(start_wave):
                 off, wl = offs[w], wave_lens[w]
                 wave_scores[w] = scores_host[off:off + wl].to(self.device)
+            # an interval attempt is a launch (a backoff re-run is another)
+            profiling.launch_tick()
             try:
                 with resources.oom_funnel(self.wave_size), trace.span(
                         "train", **({"waves": n_waves} if span_attrs is None else span_attrs(n_waves))

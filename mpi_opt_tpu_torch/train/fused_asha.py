@@ -55,6 +55,7 @@ from mpi_opt_tpu_torch.train.common import (
 from mpi_opt_tpu_torch.train.engine import WaveRunner, boundary_span, resolve_wave_size
 from mpi_opt_tpu_torch.train.engine import run_wave as _run_wave
 from mpi_opt_tpu_torch.train.population import PopState
+from mpi_opt_tpu_torch.utils import profiling
 
 # arguments of the JAX package's fused_sha that the port does not take
 # yet, with their defaults: a non-default value raises
@@ -284,6 +285,9 @@ def fused_sha(  # sweeplint: barrier(rung host loop: gathers cohort scores for t
         for r in range(start_rung, len(rungs)):
             budget = rungs[r]
             steps = budget - (rungs[r - 1] if r > 0 else 0)
+            # a rung is a launch, as the JAX package ticks it: in waves
+            # the runner's interval ticks once more
+            profiling.launch_tick()
             # the rung's FLOPs for the trace (None untraced), probed
             # before its span; a deferred rung's span times dispatch only
             # and carries none

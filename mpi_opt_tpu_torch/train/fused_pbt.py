@@ -66,7 +66,7 @@ from mpi_opt_tpu_torch.train.engine import (
 )
 from mpi_opt_tpu_torch.train.engine import run_wave as _run_wave
 from mpi_opt_tpu_torch.train.population import PopState
-from mpi_opt_tpu_torch.utils import resources
+from mpi_opt_tpu_torch.utils import profiling, resources
 
 # arguments of the JAX package's fused_pbt that the port does not take
 # yet, with their defaults: a non-default value raises
@@ -315,6 +315,7 @@ def fused_pbt(  # sweeplint: barrier(resident host loop: launch boundaries, expl
     flops_gen = segment_flops_hint(workload, population, steps_per_gen)
     try:
         for i in range(start_launch, n_launches):
+            profiling.launch_tick()
             t0 = time.perf_counter()
             best, mean, fails, pre_s, pre_u, pre_mo = [], [], [], [], [], []
             # a resident sweep has no wave to halve: a CUDA OOM leaves as

@@ -49,6 +49,7 @@ from mpi_opt_tpu_torch.train.common import (
 )
 from mpi_opt_tpu_torch.train.engine import WaveRunner, boundary_span, resolve_wave_size
 from mpi_opt_tpu_torch.train.engine import run_wave as _run_wave
+from mpi_opt_tpu_torch.utils import profiling
 
 # arguments of the JAX package's fused_tpe that the port does not take
 # yet, with their defaults: a non-default value raises
@@ -273,6 +274,8 @@ def fused_tpe(  # sweeplint: barrier(batch host loop: fetches obs ring for snaps
                 best_curve.append(float(_running_best(obs_scores, valid, live)))
                 member_fail.append(int((~torch.isfinite(scores)).sum()))
             else:
+                # a generation is a launch (in waves the runner ticks)
+                profiling.launch_tick()
                 # the curve fetch is the generation's completion barrier;
                 # a deferred generation's span times its dispatch and
                 # carries no FLOPs
