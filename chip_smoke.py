@@ -40,9 +40,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    mpi_opt_tpu_torch``) in subprocesses: SIGTERM once generation 1 is
    journaled must exit 75 with the preempted line, SIGKILL in launch 3,
    and a ``--step-chunk 7`` run (snapshots every 2 launches) SIGKILLed
-   once generation 2 is journaled; each ``--resume`` must exit 0 with
-   the unkilled run's ledger records, best score and curve. A resume
-   against a tampered ledger must exit 65, and a population whose
+   once generation 2 is journaled (the three drills at once); each
+   ``--resume`` must exit 0 with the unkilled run's ledger records,
+   best score and curve. A resume against a tampered ledger must exit
+   65, and a population whose
    parameters do not fit the card (65536 members) 74. Last, two
    256-member runs (1 x 5 steps) must agree, and one snapshot of their
    state is timed: save, restore and verify, bytes on disk;
@@ -196,15 +197,32 @@ Phases, in order; any failure exits non-zero and prints no result:
    (the set-up not gated) and 1 under ``min_mxu_frac: 0.99``, a planted regression whose
    violation must be the utilization floor. The profiled launch's wall
    beside the unprofiled ones;
-19. processes: none of the phases' may be left running (the script is
+19. multi-process (``--phases mesh``, the 20th of ``PHASES``): the
+   ResNet-18 slice (cifar100_resnet18 at full width, population 16, 3 x
+   5, one generation a launch) through ``python -m
+   mpi_opt_tpu_torch.launch --n-proc 2``, both ranks on the card over
+   gloo, each counting its GN launches and shapes (a wrapper around the
+   rank's CLI writes them to the log dir): (a) ``--n-pop 2`` with a
+   ledger and a final snapshot: both GN kernels on each rank, the plain
+   versions never, and the ledger and the snapshot's state digest
+   bit-equal to a one-process run at ``--member-chunk 8``; (b) ``--n-pop
+   1 --n-data 2``, 2 generations: each one's best and mean score within
+   0.02 of that run's; (c) (a) with snapshots every 2 launches and
+   ``--rank-kill rank=1,at=2 --retries 1``: the supervisor relaunches
+   after the SIGKILL, exits 0, and the ledger and digest equal (a)'s.
+   The three supervisors run at once (with room for their six ranks on
+   the card; else (b) after the others), the one-process run after them.
+   Every GN shape a rank launched is held against the plain versions,
+   and a rank's GN time a population step is timed at its shard shape;
+20. processes: none of the phases' may be left running (the script is
    its descendants' subreaper, so an orphan counts too); the fork
    server the CPU backend's pools share is stopped and waited for, and
    the port stops multiprocessing's resource tracker at exit. Whatever
    was left is killed, and the run fails;
-20. the script's wall, the ``kernels`` line (JSON), then the device line
+21. the script's wall, the ``kernels`` line (JSON), then the device line
    (JSON, last).
 
-Each path (4, 6, 8, 9, 10a, 10d, 11b, 12b, 13b, 14c, 15b, 15d, 16c, 17d, 18a, 18d) runs
+Each path (4, 6, 8, 9, 10a, 10d, 11b, 12b, 13b, 14c, 15b, 15d, 16c, 17d, 18a, 18d, 19) runs
 through the entry points a user calls, with the launch counts zeroed
 just before and read just after (in phase 9, its runs in this process;
 in 10a, each run; in 11b, 12b, 13b and 14c, read at each bracket or
@@ -926,54 +944,76 @@ def durability_phase(gn, fused_pbt, get_workload, smi):
                 return f"{name}: best {summary['best_score']} {summary['best_curve']} vs {want_best}"
             return None
 
-        # 2. the CLI: SIGTERM once generation 1 is journaled -> 75, resume -> 0
-        argv = _cli(tmp, "sigterm")
-        t0 = time.perf_counter()
-        rc, stdout, err = _interrupt(argv, _journaled(os.path.join(tmp, "sigterm", "ledger.jsonl"), 1),
-                                     signal.SIGTERM, "SIGTERM run")
-        last = json.loads(stdout.strip().splitlines()[-1]) if stdout.strip() else {}
-        if rc != EX_TEMPFAIL or not last.get("preempted"):
-            return out, launches, f"SIGTERM run: exit {rc}, last line {last}:\n{err[-3000:]}"
-        summary = _resume(argv, "SIGTERM run")
-        out["sigterm"] = {"exit": rc, "preempted_line": last, "resumed": summary,
-                          "wall_s": time.perf_counter() - t0}
-        print(f"durability SIGTERM: exit {rc} at {last['at']}, resume journal {summary.get('journal')}")
-        bad = same_as_unkilled("sigterm", summary)
-        if bad:
-            return out, launches, bad
-        # SIGKILL in the middle of launch 3 -> resume -> 0
-        argv = _cli(tmp, "sigkill")
-        rc, _, _ = _interrupt(argv, _committed(os.path.join(tmp, "sigkill", "ck"), 2, 0.15),
-                              signal.SIGKILL, "SIGKILL run")
-        steps = integrity._committed_steps(os.path.join(tmp, "sigkill", "ck"))
-        summary = _resume(argv, "SIGKILL run")
-        out["sigkill"] = {"exit": rc, "committed_at_kill": steps, "resumed": summary}
-        print(f"durability SIGKILL: exit {rc}, snapshots {steps}, resume journal {summary.get('journal')}")
-        if rc != -signal.SIGKILL:
-            return out, launches, f"SIGKILL run exited {rc}, not by the signal"
-        bad = same_as_unkilled("sigkill", summary)
-        if bad:
-            return out, launches, bad
-        # a tampered ledger -> 65: the newest two snapshots removed, one
-        # journaled score of generation 2 edited; the resume re-computes
-        # generation 2 and refuses the journal
-        for step in (3, 4):
-            shutil.rmtree(os.path.join(tmp, "sigkill", "ck", str(step)))
-        path = os.path.join(tmp, "sigkill", "ledger.jsonl")
-        with open(path) as f:
-            lines = f.read().splitlines()
-        i = next(i for i, x in enumerate(lines) if '"boundary": 2' in x)
-        rec = json.loads(lines[i])
-        rec["score"] += 0.25
-        lines[i] = json.dumps(rec)
-        with open(path, "w") as f:
-            f.write("\n".join(lines) + "\n")
-        rc, last = _run_to_end([*argv, "--resume"])
-        out["tampered_ledger"] = {"exit": rc, "last_line": last}
-        print(f"durability tampered ledger: exit {rc}")
-        if rc != EX_DATAERR or "data_error" not in last:
-            return out, launches, f"tampered ledger: exit {rc}, last line {last}"
-        # a real device OOM -> 74: 65536 members' parameters do not fit
+        # 2. the CLI: three drills at once (their runs are independent; the
+        # device-OOM run after them, since it fills the card)
+        def sigterm_drill():
+            # SIGTERM once generation 1 is journaled -> 75, resume -> 0
+            argv = _cli(tmp, "sigterm")
+            t0 = time.perf_counter()
+            rc, stdout, err = _interrupt(argv, _journaled(os.path.join(tmp, "sigterm", "ledger.jsonl"), 1),
+                                         signal.SIGTERM, "SIGTERM run")
+            last = json.loads(stdout.strip().splitlines()[-1]) if stdout.strip() else {}
+            if rc != EX_TEMPFAIL or not last.get("preempted"):
+                return {}, f"SIGTERM run: exit {rc}, last line {last}:\n{err[-3000:]}"
+            summary = _resume(argv, "SIGTERM run")
+            print(f"durability SIGTERM: exit {rc} at {last['at']}, resume journal {summary.get('journal')}")
+            return ({"sigterm": {"exit": rc, "preempted_line": last, "resumed": summary,
+                                 "wall_s": time.perf_counter() - t0}}, same_as_unkilled("sigterm", summary))
+
+        def sigkill_drill():
+            # SIGKILL in the middle of launch 3 -> resume -> 0
+            argv = _cli(tmp, "sigkill")
+            rc, _, _ = _interrupt(argv, _committed(os.path.join(tmp, "sigkill", "ck"), 2, 0.15),
+                                  signal.SIGKILL, "SIGKILL run")
+            steps = integrity._committed_steps(os.path.join(tmp, "sigkill", "ck"))
+            summary = _resume(argv, "SIGKILL run")
+            rec = {"sigkill": {"exit": rc, "committed_at_kill": steps, "resumed": summary}}
+            print(f"durability SIGKILL: exit {rc}, snapshots {steps}, resume journal {summary.get('journal')}")
+            if rc != -signal.SIGKILL:
+                return rec, f"SIGKILL run exited {rc}, not by the signal"
+            bad = same_as_unkilled("sigkill", summary)
+            if bad:
+                return rec, bad
+            # a tampered ledger -> 65: the newest two snapshots removed, one
+            # journaled score of generation 2 edited; the resume re-computes
+            # generation 2 and refuses the journal
+            for step in (3, 4):
+                shutil.rmtree(os.path.join(tmp, "sigkill", "ck", str(step)))
+            path = os.path.join(tmp, "sigkill", "ledger.jsonl")
+            with open(path) as f:
+                lines = f.read().splitlines()
+            i = next(i for i, x in enumerate(lines) if '"boundary": 2' in x)
+            r = json.loads(lines[i])
+            r["score"] += 0.25
+            lines[i] = json.dumps(r)
+            with open(path, "w") as f:
+                f.write("\n".join(lines) + "\n")
+            rc, last = _run_to_end([*argv, "--resume"])
+            rec["tampered_ledger"] = {"exit": rc, "last_line": last}
+            print(f"durability tampered ledger: exit {rc}")
+            if rc != EX_DATAERR or "data_error" not in last:
+                return rec, f"tampered ledger: exit {rc}, last line {last}"
+            return rec, None
+
+        def step_chunk_drill():
+            # step_chunk 7, snapshots every 2 launches, SIGKILL once generation
+            # 2 is journaled: the resume re-computes generation 2 and verifies it
+            argv = _cli(tmp, "step_chunk", "--step-chunk", "7", "--checkpoint-every", "2")
+            rc, _, _ = _interrupt(argv, _journaled(os.path.join(tmp, "step_chunk", "ledger.jsonl"), 3),
+                                  signal.SIGKILL, "step_chunk run")
+            summary = _resume(argv, "step_chunk run")
+            problems = validate_ledger(os.path.join(tmp, "step_chunk", "ledger.jsonl"))
+            rec = {"step_chunk": {"exit": rc, "resumed": summary, "ledger_problems": problems}}
+            print(f"durability step_chunk 7: exit {rc}, resume journal {summary.get('journal')}")
+            if problems or summary["journal"]["verified"] < DUR_P:
+                return rec, f"step_chunk run: journal {summary['journal']}, problems {problems}"
+            return rec, same_as_unkilled("step_chunk", summary)  # the port's step_chunk is bit-identical
+
+        for rec, bad in _together(sigterm_drill, sigkill_drill, step_chunk_drill):
+            out.update(rec)
+            if bad:
+                return out, launches, bad
+        # 3. a real device OOM -> 74: 65536 members' parameters do not fit
         argv = _cli(tmp, "oom")
         argv[argv.index("--population") + 1] = "65536"
         rc, last = _run_to_end(argv)
@@ -981,20 +1021,6 @@ def durability_phase(gn, fused_pbt, get_workload, smi):
         print(f"durability device OOM: exit {rc}, {str(last)[:300]}")
         if rc != EX_IOERR or last.get("kind") != "device_oom":
             return out, launches, f"device OOM: exit {rc}, last line {last}"
-        # 3. step_chunk 7, snapshots every 2 launches, SIGKILL once generation
-        # 2 is journaled: the resume re-computes generation 2 and verifies it
-        argv = _cli(tmp, "step_chunk", "--step-chunk", "7", "--checkpoint-every", "2")
-        rc, _, _ = _interrupt(argv, _journaled(os.path.join(tmp, "step_chunk", "ledger.jsonl"), 3),
-                              signal.SIGKILL, "step_chunk run")
-        summary = _resume(argv, "step_chunk run")
-        problems = validate_ledger(os.path.join(tmp, "step_chunk", "ledger.jsonl"))
-        out["step_chunk"] = {"exit": rc, "resumed": summary, "ledger_problems": problems}
-        print(f"durability step_chunk 7: exit {rc}, resume journal {summary.get('journal')}")
-        if problems or summary["journal"]["verified"] < DUR_P:
-            return out, launches, f"step_chunk run: journal {summary['journal']}, problems {problems}"
-        bad = same_as_unkilled("step_chunk", summary)  # the port's step_chunk is bit-identical
-        if bad:
-            return out, launches, bad
 
         # 4. a snapshot at the north star's population: 256 members, 1 x 5
         # steps, twice (the same digest), saved once and restored
@@ -1069,7 +1095,7 @@ SHA_TRIALS, SHA_MIN, SHA_MAX, SHA_ETA, SHA_W = 64, 10, 270, 3, 16  # BENCH_ALL.j
 C5_P = 1024  # BASELINE.json config 5: PBT over 1024 ResNet-18 members
 # the phases after the build, in order (``--phases`` picks some)
 PHASES = ("kernels", "slice", "north_star", "mlp", "durability", "waves", "oom", "oom_chunk", "drain",
-          "sha", "config5", "hyperband", "tpe", "bohb", "mo", "driver", "warm", "cpu", "windows")
+          "sha", "config5", "hyperband", "tpe", "bohb", "mo", "driver", "warm", "cpu", "windows", "mesh")
 
 # a launcher for the port's CLI: caps this process's CUDA allocator at a
 # fraction of the card (0: no cap), runs the CLI, and writes the
@@ -1232,6 +1258,15 @@ def north_star_waves_phase(gn, fused_pbt, get_workload, smi):
     return out, launches, None
 
 
+def _together(*fns):
+    """Call independent functions (each starting and waiting on its own
+    subprocesses) at once, on threads; their results in order. Drills
+    whose runs do not depend on each other overlap their processes'
+    start-up (the script's wall is mostly start-up)."""
+    with concurrent.futures.ThreadPoolExecutor(len(fns)) as pool:
+        return [f.result() for f in [pool.submit(fn) for fn in fns]]
+
+
 def _launch_cli(argv, frac: float, peaks: str):
     """Run the CLI through the capping launcher; (exit code, stdout lines
     parsed as JSON, stderr, allocator peaks)."""
@@ -1251,12 +1286,14 @@ def oom_drill_phase(smi):
     Clean runs: waves of OOM_W with --oom-backoff 2 (launches of OOM_W >> 2
     members), waves of OOM_W/2 with --oom-backoff 1 (launches of the same
     width) and waves of OOM_W with --oom-backoff 0 (launches of OOM_W,
-    whole waves): their allocator peaks and rates. Then a run capped three quarters of the way from the
+    whole waves), at once: their allocator peaks and rates (the three
+    share the card). Then, at once, a run capped three quarters of the way from the
     half-cap run's allocated peak to the cap-OOM_W run's (its allocated
     bytes must pass the cap; the backed-off waves keep a quarter of the gap
     for the allocator's fragmentation), at --wave-size OOM_W --oom-backoff
     2: exit 0 with one backoff, no launch-shape change and the records of
-    the UNFAULTED cap-OOM_W run; with --oom-backoff 0 it must exit 74."""
+    the UNFAULTED cap-OOM_W run, and the same cap with --oom-backoff 0,
+    which must exit 74."""
     import shutil
 
     from mpi_opt_tpu_torch.utils.exitcodes import EX_IOERR
@@ -1275,13 +1312,20 @@ def oom_drill_phase(smi):
                     "--oom-backoff", str(backoff), "--ledger", os.path.join(tmp, f"{name}.jsonl")]
 
         clean = {}
-        for name, ws, backoff in (("w32", OOM_W, 2), ("w16", OOM_W // 2, 1), ("w32_wide", OOM_W, 0)):
+        specs = (("w32", OOM_W, 2), ("w16", OOM_W // 2, 1), ("w32_wide", OOM_W, 0))
+
+        def clean_run(name, ws, backoff):
             t0 = time.perf_counter()
-            rc, lines, err, mem = _launch_cli(argv(name, ws, backoff), 0.0, os.path.join(tmp, f"{name}.json"))
+            got = _launch_cli(argv(name, ws, backoff), 0.0, os.path.join(tmp, f"{name}.json"))
+            return (*got, time.perf_counter() - t0)
+
+        # the three clean runs at once (each process's peaks are its own)
+        results = _together(*[lambda s=s: clean_run(*s) for s in specs])
+        for (name, _, _), (rc, lines, err, mem, wall) in zip(specs, results):
             if rc != 0 or mem is None:
                 return out, f"OOM drill: the clean run {name} exited {rc}:\n{err[-3000:]}"
             summary = lines[-1]
-            clean[name] = {"summary": summary, "peaks": mem, "process_wall_s": time.perf_counter() - t0,
+            clean[name] = {"summary": summary, "peaks": mem, "process_wall_s": wall,
                            "launch_width": summary.get("launch_width"),
                            "member_generations_per_s": summary.get("trials_per_sec_per_chip")}
         out["clean"] = clean
@@ -1297,7 +1341,10 @@ def oom_drill_phase(smi):
         cap = lo + 3 * (hi - lo) // 4
         frac = cap / total
         out.update(cap_bytes=cap, cap_fraction=frac, card_bytes=total)
-        rc, lines, err, mem = _launch_cli(argv("oom", OOM_W, 2), frac, os.path.join(tmp, "oom.json"))
+        # both capped runs at once (each process has its own cap)
+        (rc, lines, err, mem), nobackoff = _together(
+            lambda: _launch_cli(argv("oom", OOM_W, 2), frac, os.path.join(tmp, "oom.json")),
+            lambda: _launch_cli(argv("nobackoff", OOM_W, 0), frac, os.path.join(tmp, "nobackoff.json")))
         summary = lines[-1] if lines else {}
         events = [x for x in lines if x.get("event") == "oom_backoff"]
         out["backoff"] = {"exit": rc, "summary": summary, "oom_backoff_events": events, "peaks": mem}
@@ -1313,8 +1360,7 @@ def oom_drill_phase(smi):
         if got != want:
             n = sum(a != b for a, b in zip(got, want)) + abs(len(got) - len(want))
             return out, f"OOM drill: {n} records differ from the unfaulted cap-{OOM_W} run's"
-        rc, lines, err, _ = _launch_cli(argv("nobackoff", OOM_W, 0), frac,
-                                        os.path.join(tmp, "nobackoff.json"))
+        rc, lines, err, _ = nobackoff
         out["no_backoff"] = {"exit": rc, "last_line": lines[-1] if lines else None}
         print(f"oom drill --oom-backoff 0: exit {rc}")
         if rc != EX_IOERR or not lines or lines[-1].get("kind") != "device_oom":
@@ -1327,7 +1373,7 @@ def oom_drill_phase(smi):
 def oom_chunk_drill_phase(smi):
     """(b2) An OOM backed off inside one launch width: cifar100_resnet18
     at B2_P members in chunks of B2_CHUNK, through the CLI. Clean runs at
-    waves of B2_W and B2_CHUNK measure their allocated peaks; a run capped
+    waves of B2_W and B2_CHUNK, at once, measure their allocated peaks; a run capped
     between them at --wave-size B2_W --oom-backoff 2 must exit 0 with one
     backoff to B2_CHUNK, no launch-shape change, and the records of the
     UNFAULTED run at B2_W."""
@@ -1349,13 +1395,18 @@ def oom_chunk_drill_phase(smi):
                     "--ledger", os.path.join(tmp, f"{name}.jsonl")]
 
         clean = {}
-        for ws in (B2_W, B2_CHUNK):
+
+        def clean_run(ws):
             t0 = time.perf_counter()
-            rc, lines, err, mem = _launch_cli(argv(f"clean{ws}", ws), 0.0,
-                                              os.path.join(tmp, f"clean{ws}.json"))
+            got = _launch_cli(argv(f"clean{ws}", ws), 0.0, os.path.join(tmp, f"clean{ws}.json"))
+            return (*got, time.perf_counter() - t0)
+
+        # both clean runs at once (each process's peaks are its own)
+        for ws, (rc, lines, err, mem, wall) in zip((B2_W, B2_CHUNK), _together(
+                lambda: clean_run(B2_W), lambda: clean_run(B2_CHUNK))):
             if rc != 0 or mem is None:
                 return out, f"OOM chunk drill: the clean run at waves of {ws} exited {rc}:\n{err[-3000:]}"
-            clean[ws] = {"summary": lines[-1], "peaks": mem, "wall_s": time.perf_counter() - t0}
+            clean[ws] = {"summary": lines[-1], "peaks": mem, "wall_s": wall}
         out["clean"] = clean
         total = torch.cuda.get_device_properties(0).total_memory
         lo, hi = clean[B2_CHUNK]["peaks"]["max_allocated"], clean[B2_W]["peaks"]["max_allocated"]
@@ -1390,7 +1441,8 @@ def drain_waves_phase(smi):
     SIGTERM once wave 2 of generation 1 (0-based) is dispatched must exit
     75; --resume must exit 0, train only the waves not completed
     (``waves_run``), and end with the unkilled wave run's records, which
-    must equal the resident run's."""
+    must equal the resident run's. The two unkilled runs and the one
+    SIGTERMed run at once."""
     import shutil
 
     from mpi_opt_tpu_torch.health import heartbeat
@@ -1407,17 +1459,6 @@ def drain_waves_phase(smi):
             return [*_cli(tmp, name), "--member-chunk", str(DRAIN_CHUNK), "--gen-chunk", "0",
                     "--wave-size", str(ws), "--heartbeat-file", os.path.join(tmp, name, "beat.json")]
 
-        ends = {}
-        for name, ws in (("resident", 0), ("waves", DRAIN_W)):
-            t0 = time.perf_counter()
-            rc, last = _run_to_end(argv(name, ws))
-            ends[name] = {"exit": rc, "summary": last, "wall_s": time.perf_counter() - t0}
-            if rc != 0:
-                return out, f"drain drill: the unkilled {name} run exited {rc}: {last}"
-        out["unkilled"] = ends
-        want = _records(os.path.join(tmp, "waves", "ledger.jsonl"))
-        if _records(os.path.join(tmp, "resident", "ledger.jsonl")) != want:
-            return out, "drain drill: the wave run's records differ from the resident run's"
         beat = os.path.join(tmp, "sigterm", "beat.json")
         launch = 1 * n_waves + 2  # generation 1, wave 2: its between-waves boundary
 
@@ -1426,7 +1467,23 @@ def drain_waves_phase(smi):
             p = (rec or {}).get("progress", {})
             return p.get("launch", 0) >= launch or p.get("transfers", 0) >= launch
 
-        rc, stdout, err = _interrupt(argv("sigterm", DRAIN_W), ready, signal.SIGTERM, "drain drill")
+        def unkilled(name, ws):
+            t0 = time.perf_counter()
+            rc, last = _run_to_end(argv(name, ws))
+            return {"exit": rc, "summary": last, "wall_s": time.perf_counter() - t0}
+
+        # the two unkilled runs and the one to be drained, at once
+        resident, waves, (rc, stdout, err) = _together(
+            lambda: unkilled("resident", 0), lambda: unkilled("waves", DRAIN_W),
+            lambda: _interrupt(argv("sigterm", DRAIN_W), ready, signal.SIGTERM, "drain drill"))
+        ends = {"resident": resident, "waves": waves}
+        out["unkilled"] = ends
+        for name, end in ends.items():
+            if end["exit"] != 0:
+                return out, f"drain drill: the unkilled {name} run exited {end['exit']}: {end['summary']}"
+        want = _records(os.path.join(tmp, "waves", "ledger.jsonl"))
+        if _records(os.path.join(tmp, "resident", "ledger.jsonl")) != want:
+            return out, "drain drill: the wave run's records differ from the resident run's"
         last = json.loads(stdout.strip().splitlines()[-1]) if stdout.strip() else {}
         steps = integrity._committed_steps(os.path.join(tmp, "sigterm", "ck"))
         print(f"drain drill: exit {rc} at {last.get('at')}, snapshots {steps}")
@@ -3269,6 +3326,401 @@ def windows_phase(gn, smi):
     return out, launches, None
 
 
+# the multi-process path: the ResNet-18 slice at phase 18's depth over 2
+# ranks on the one card (gloo: NCCL refuses two ranks on one device)
+MESH_P, MESH_GENS, MESH_STEPS, MESH_RANKS = 16, 3, 5, 2
+MESH_TOL = 0.02  # the data axis against one process (tests/test_parallel.py's)
+# the data axis's update (the trained minus the initial weights of all 16
+# members, before the exploit) against one process's, by relative norm: on
+# an H100 it reads 0.035, and the planted fault (one process on the first
+# half of every batch: rank 0 with its gradient average dropped) 1.63; the
+# limit sits between them, 5.7x and 8.2x from each
+MESH_UPDATE_RTOL = 0.2
+# a rank of the port's CLI that records its GN wrappers' launch counts and
+# launch shapes and writes them to $MESH_COUNTS_DIR/rank<R>.gn.json at exit
+# (its counts start at 0: a fresh process, reset again before the CLI runs).
+# With $MESH_PRE_EXPLOIT set it also records its final state's digest, and
+# rank 0 saves its weights as the first exploit finds them to that path.
+_MESH_RANK = """
+import atexit, json, os, runpy, sys
+from mpi_opt_tpu_torch.ops import group_norm as gn
+argv = sys.argv[1:]
+rank = argv[argv.index("--process-id") + 1]
+final, pre = {}, os.environ.get("MESH_PRE_EXPLOIT")
+if pre:
+    import torch
+    from mpi_opt_tpu_torch.train import fused_pbt as fp
+    from mpi_opt_tpu_torch.train import population as tpop
+    from mpi_opt_tpu_torch.utils import integrity
+    real_gm, real_fp = tpop.PopulationTrainer.gather_members, fp.fused_pbt
+    def gather_members(self, state, src_idx):
+        if rank == "0" and not os.path.exists(pre):
+            torch.save({k: v.detach().cpu() for k, v in state.params.items()}, pre)
+        return real_gm(self, state, src_idx)
+    def fused_pbt(*a, **k):
+        res = real_fp(*a, **k)
+        st = res["state"]
+        final["digest"] = integrity.tree_digest({"params": st.params, "momentum": st.momentum,
+                                                 "step": st.step})
+        return res
+    tpop.PopulationTrainer.gather_members, fp.fused_pbt = gather_members, fused_pbt
+shapes, real = set(), (gn.gn_fwd, gn.gn_bwd)
+def fwd(x, gamma, beta, groups, eps, relu):
+    shapes.add((tuple(x.shape), groups, bool(relu), str(x.dtype)))
+    return real[0](x, gamma, beta, groups, eps, relu)
+def bwd(x, dy, gamma, beta, mean, rstd, groups, relu):
+    shapes.add((tuple(x.shape), groups, bool(relu), str(x.dtype)))
+    return real[1](x, dy, gamma, beta, mean, rstd, groups, relu)
+gn.gn_fwd, gn.gn_bwd = fwd, bwd
+gn.reset_launches()
+def dump():
+    path = os.path.join(os.environ["MESH_COUNTS_DIR"], f"rank{rank}.gn.json")
+    with open(path + ".tmp", "w") as f:
+        json.dump({"launches": dict(gn.LAUNCHES), "shapes": sorted(list(s) for s in shapes),
+                   "digest": final.get("digest")}, f)
+    os.replace(path + ".tmp", path)
+atexit.register(dump)
+sys.argv = ["mpi_opt_tpu_torch", *argv]
+runpy.run_module("mpi_opt_tpu_torch", run_name="__main__", alter_sys=True)
+"""
+# the port's launch supervisor, each rank it spawns run through _MESH_RANK
+_MESH_SUPERVISOR = """
+import sys
+from mpi_opt_tpu_torch import launch
+real = launch.subprocess.Popen
+def popen(argv, **kw):
+    if list(argv[1:3]) == ["-m", "mpi_opt_tpu_torch"]:
+        argv = [argv[0], "-c", sys.argv[1], *argv[3:]]
+    return real(argv, **kw)
+launch.subprocess.Popen = popen
+sys.exit(launch.main(sys.argv[2:]))
+"""
+
+
+def _mesh_start(tmp, name, mesh_args, *extra, launcher=(), env=None):
+    """Start the slice through ``python -m mpi_opt_tpu_torch.launch
+    --n-proc 2`` (each rank counting its GN launches; ``env`` adds to
+    their environment); ``_mesh_wait`` collects it. The supervisor's
+    output goes to files in its log dir."""
+    logs = os.path.join(tmp, name)
+    os.makedirs(logs)
+    argv = [sys.executable, "-c", _MESH_SUPERVISOR, _MESH_RANK, "--n-proc", str(MESH_RANKS),
+            "--log-dir", logs, "--term-grace", "2", "--restart-backoff", "0", *launcher, "--",
+            "--workload", "cifar100_resnet18", "--algorithm", "pbt", "--fused", "--population",
+            str(MESH_P), "--generations", str(MESH_GENS), "--steps-per-generation", str(MESH_STEPS),
+            "--gen-chunk", "1", "--seed", "0", "--device", "cuda", "--coord-timeout", "120",
+            *mesh_args, *extra]
+    out, err = open(os.path.join(logs, "supervisor.out"), "w"), open(os.path.join(logs, "supervisor.err"), "w")
+    proc = subprocess.Popen(argv, cwd=ROOT, env=dict(os.environ, MESH_COUNTS_DIR=logs, **(env or {})), text=True,
+                            stdout=out, stderr=err)
+    return name, logs, proc, (out, err), time.perf_counter()
+
+
+def _mesh_wait_all(runs: dict) -> dict:
+    """``_mesh_wait`` of every run, each timed to its own end."""
+    ends, deadline = {}, time.perf_counter() + 300
+    while len(ends) < len(runs) and time.perf_counter() < deadline:
+        for k, run in runs.items():
+            if k not in ends and run[2].poll() is not None:
+                ends[k] = time.perf_counter()
+        time.sleep(0.1)
+    return {k: _mesh_wait(run, ends.get(k)) for k, run in runs.items()}
+
+
+def _mesh_wait(run, end=None):
+    """(exit code, supervisor events and relayed summary, the last
+    attempt's per-rank counts, wall) of a ``_mesh_start``ed run."""
+    name, logs, proc, files, t0 = run
+    try:
+        rc = proc.wait(timeout=1)
+    except subprocess.TimeoutExpired:
+        rc = None  # past _mesh_wait_all's deadline
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        for f in files:
+            f.close()
+    wall = (end or time.perf_counter()) - t0
+    with open(os.path.join(logs, "supervisor.out")) as f:
+        lines = [json.loads(x) for x in f if x.startswith("{")]
+    counts = []
+    for r in range(MESH_RANKS):
+        path = os.path.join(logs, f"rank{r}.gn.json")
+        counts.append(json.load(open(path)) if os.path.exists(path) else None)
+    if rc != 0:
+        tails = {f: open(os.path.join(logs, f)).read()[-1500:] for f in ("supervisor.err", "rank0.err", "rank1.err")
+                 if os.path.exists(os.path.join(logs, f))}
+        print(f"mesh {name}: supervisor exit {rc}; {json.dumps(tails)}")
+    return rc, lines, counts, wall
+
+
+def _final_digest(ckpt) -> str | None:
+    """The state digest of a checkpoint directory's newest step."""
+    from mpi_opt_tpu_torch.utils import integrity
+
+    steps = integrity._committed_steps(ckpt)
+    if not steps:
+        return None
+    _, _, sweep = integrity.read_step(ckpt, steps[-1])
+    return integrity.tree_digest(sweep["state"])
+
+
+def _per_generation(records):
+    """(best, mean) of each boundary's member scores in a ledger."""
+    by = {}
+    for r in records:
+        by.setdefault(r["boundary"], []).append(r["score"])
+    return ([max(v) for _, v in sorted(by.items())],
+            [sum(v) / len(v) for _, v in sorted(by.items())])
+
+
+@contextlib.contextmanager
+def _pbt_states(halve_batch=False):
+    """Within: the first fused PBT generation's weights kept on the host,
+    ``{"init": ..., "trained": ...}``: the initial weights
+    (``init_population``) and the trained ones as the exploit finds them
+    (``gather_members``'s input). With ``halve_batch`` every step trains
+    on the first half of its batch alone: rank 0 of a data split whose
+    gradient average was dropped."""
+    from mpi_opt_tpu_torch.train import population as tpop
+
+    cls, got = tpop.PopulationTrainer, {}
+    real = (cls.init_population, cls.gather_members, cls._pop_update)
+    host = lambda st: {k: v.detach().cpu().clone() for k, v in st.params.items()}
+
+    def init_population(self, generator, n):
+        st = real[0](self, generator, n)
+        got.setdefault("init", host(st))
+        return st
+
+    def gather_members(self, state, src_idx):
+        got.setdefault("trained", host(state))
+        return real[1](self, state, src_idx)
+
+    def pop_update(self, state, hp, aug, bx, by, active=None):
+        k = bx.shape[0] // 2
+        aug = None if aug is None else (aug[0][:, :k], aug[1], aug[2])
+        return real[2](self, state, hp, aug, bx[:k], by[:k], active)
+
+    cls.init_population, cls.gather_members = init_population, gather_members
+    if halve_batch:
+        cls._pop_update = pop_update
+    try:
+        yield got
+    finally:
+        cls.init_population, cls.gather_members, cls._pop_update = real
+
+
+def _rank_step_times(gn, members: int, batch: int, flush, bandwidth):
+    """One rank's population step of GN at its shard shape (``members``
+    folded into channels, ``batch`` rows), summed over the ResNet-18
+    sites as ``kernel_phase`` sums the slice's: ms of kernel, plain
+    version, library call and the bytes bound."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    tot = {k: dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0) for k in ("gn_fwd", "gn_bwd")}
+    for s, c, n_relu, n_plain in SHAPES:
+        cc, g = members * c, members * GROUPS
+        x = torch.randn((batch, s, cc), generator=gen, device="cuda").to(_BF16)
+        dy = torch.randn((batch, s, cc), generator=gen, device="cuda").to(_BF16)
+        gamma = 1.0 + 0.5 * torch.randn(cc, generator=gen, device="cuda")
+        beta = 0.1 * torch.randn(cc, generator=gen, device="cuda")
+        for relu, n_sites in ((True, n_relu), (False, n_plain)):
+            row = time_shape(gn, x, dy, gamma, beta, g, relu, None, flush, bandwidth)
+            for k, kk in (("gn_fwd", "fwd"), ("gn_bwd", "bwd")):
+                tot[k]["ms"] += n_sites * row[kk + "_ms"]
+                tot[k]["plain_ms"] += n_sites * row[kk + "_plain_ms"]
+                tot[k]["library_ms"] += n_sites * row[kk + "_lib_ms"]
+                tot[k]["bound_ms"] += n_sites * row[kk + "_bound_ms"]
+        del x, dy
+    torch.cuda.empty_cache()
+    return tot
+
+
+def mesh_phase(gn, smi, bandwidth):
+    """Multi-process SPMD on the card, through the entry points a user
+    calls: ``python -m mpi_opt_tpu_torch.launch --n-proc 2`` over the
+    full-width ResNet-18 slice (cifar100_resnet18, MESH_P members,
+    MESH_GENS x MESH_STEPS, one generation a launch), each rank on the
+    card and counting its GN launches. (a) ``--n-pop 2``, with a ledger
+    and a final snapshot: each rank trains 8 members through both GN
+    kernels (the plain versions never), and the ledger and the final
+    snapshot's state digest equal a one-process run in this process at
+    ``--member-chunk 8`` (the ranks' launch width) bit for bit. (b)
+    ``--n-pop 1 --n-data 2`` (each rank half of every batch, gradients
+    averaged over gloo), one generation: its best and mean score within
+    MESH_TOL of a one-process run's, both ranks' final states of one
+    digest, and its update (the weights rank 0 holds when the exploit
+    comes, minus the initial ones) within MESH_UPDATE_RTOL of the
+    one-process run's by relative norm; the same run in this process on
+    the first half of every batch alone (rank 0 with its gradient
+    average dropped) must fall outside it. (c) (a) with snapshots every
+    2 launches, ``--rank-kill rank=1,at=2`` and ``--retries 1``: rank 1
+    is SIGKILLed at generation 2's boundary, the supervisor relaunches
+    both ranks with ``--resume`` and exits 0, and the ledger and digest
+    equal (a)'s. The three supervisors run at once, their six ranks on
+    the card, and the one-process runs in this process after them.
+    Then every GN shape a rank launched is held against the plain
+    versions, and a rank's GN time a population step timed at its shard
+    shape, alone on the card. Returns (record, GN launches by path, max
+    abs error of each kernel, problem)."""
+    import gc
+    import shutil
+    import tempfile
+
+    from mpi_opt_tpu_torch import cli
+
+    t_phase = time.perf_counter()
+    # six ranks of ~10 GB share the card: give back what earlier phases
+    # left in this process's allocator cache first
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"card": smi, "this_process_gb": {"allocated": torch.cuda.memory_allocated() / 1e9,
+                                            "reserved": torch.cuda.memory_reserved() / 1e9},
+           "free_gb": torch.cuda.mem_get_info()[0] / 1e9}
+    launches = {}
+    errs = {"gn_fwd": 0.0, "gn_bwd": 0.0}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    path = lambda *p: os.path.join(tmp, *p)
+    marker = path("killed.marker")
+    runs = {}
+    pbt = lambda gens, *extra: [
+        "--workload", "cifar100_resnet18", "--algorithm", "pbt", "--fused", "--population", str(MESH_P),
+        "--generations", str(gens), "--steps-per-generation", str(MESH_STEPS), "--gen-chunk", "1",
+        "--seed", "0", "--device", "cuda", *extra]
+    try:
+        runs["a"] = _mesh_start(tmp, "a", ["--n-pop", "2"], "--ledger", path("a.jsonl"),
+                                "--checkpoint-dir", path("ck_a"), "--checkpoint-every", str(MESH_GENS))
+        runs["c"] = _mesh_start(tmp, "c", ["--n-pop", "2"], "--ledger", path("c.jsonl"), "--checkpoint-dir",
+                                path("ck_c"), "--checkpoint-every", "2", "--rank-kill",
+                                f"rank=1,at=2,marker={marker}", launcher=("--retries", "1"))
+        runs["b"] = _mesh_start(tmp, "b", ["--n-pop", "1", "--n-data", "2", "--generations", "1"],
+                                "--ledger", path("b.jsonl"), env={"MESH_PRE_EXPLOIT": path("b_trained.pt")})
+        done = _mesh_wait_all(runs)
+        runs.clear()
+        out["walls_s"] = {k: d[3] for k, d in done.items()}
+        # then one process at the ranks' launch width, in this process
+        gn.reset_launches()
+        t0 = time.perf_counter()
+        rc_ref, ref_lines = _in_process(cli.main, pbt(
+            MESH_GENS, "--member-chunk", str(MESH_P // 2), "--ledger", path("ref.jsonl"),
+            "--checkpoint-dir", path("ck_ref"), "--checkpoint-every", str(MESH_GENS)))
+        ref_wall = time.perf_counter() - t0
+        launches["mesh_reference_resnet18"] = dict(gn.LAUNCHES)
+        print(f"mesh: supervisors (a) (b) (c) at once, {json.dumps(out['walls_s'])} s; then one process "
+              f"at --member-chunk {MESH_P // 2}, exit {rc_ref}, {ref_wall} s ({smi})")
+        recs_ref, digest_ref = _records(path("ref.jsonl")), _final_digest(path("ck_ref"))
+        out["reference"] = {"exit": rc_ref, "wall_s": ref_wall, "summary": ref_lines[-1] if ref_lines else None,
+                            "digest": digest_ref, "launches": launches["mesh_reference_resnet18"]}
+        if rc_ref != 0 or not recs_ref:
+            return out, launches, errs, f"mesh: the one-process run exited {rc_ref}"
+
+        # (a) pop-sharded: bit-equal to one process at the same width
+        rc, lines, counts, wall = done["a"]
+        digest_a, recs_a = _final_digest(path("ck_a")), _records(path("a.jsonl"))
+        out["a"] = {"exit": rc, "wall_s": wall, "summary": lines[-2] if len(lines) > 1 else None,
+                    "events": [e["event"] for e in lines if "event" in e], "counts": counts,
+                    "digest": digest_a, "records_equal": recs_a == recs_ref}
+        print(f"mesh (a) 2 ranks --n-pop 2 ({smi}): {json.dumps(out['a'])}")
+        if rc != 0 or None in counts:
+            return out, launches, errs, f"mesh (a): exit {rc}, counts {counts}"
+        launches["mesh_resnet18"] = {k: sum(c["launches"][k] for c in counts) for k in gn.LAUNCHES}
+        for r, c in enumerate(counts):
+            if not (c["launches"]["gn_fwd"] > 0 and c["launches"]["gn_bwd"] > 0) or c["launches"]["plain"]:
+                return out, launches, errs, f"mesh (a): rank {r} GN launches {c['launches']}"
+        if digest_a is None or digest_a != digest_ref or recs_a != recs_ref:
+            return out, launches, errs, "mesh (a): the 2-rank run differs from one process at the same width"
+
+        # (b) the data axis: each rank half of every batch, held by its
+        # update against one process's and against the planted fault
+        rc, lines, counts_b, wall = done["b"]
+        out["b"] = {"exit": rc, "wall_s": wall, "summary": lines[-2] if len(lines) > 1 else None,
+                    "counts": counts_b}
+        if rc != 0 or None in counts_b:
+            return out, launches, errs, f"mesh (b): exit {rc}, counts {counts_b}"
+        launches["mesh_data_resnet18"] = {k: sum(c["launches"][k] for c in counts_b) for k in gn.LAUNCHES}
+        for r, c in enumerate(counts_b):
+            if not (c["launches"]["gn_fwd"] > 0 and c["launches"]["gn_bwd"] > 0) or c["launches"]["plain"]:
+                return out, launches, errs, f"mesh (b): rank {r} GN launches {c['launches']}"
+        t0 = time.perf_counter()
+        with _pbt_states() as ref_b:
+            rc_rb, _ = _in_process(cli.main, pbt(1, "--ledger", path("ref_b.jsonl")))
+        with _pbt_states(halve_batch=True) as fault_b:
+            rc_fb, _ = _in_process(cli.main, pbt(1))
+        out["b"]["reference_walls_s"] = time.perf_counter() - t0
+        if rc_rb != 0 or rc_fb != 0 or "trained" not in ref_b or "trained" not in fault_b:
+            return out, launches, errs, f"mesh (b): the one-process runs exited {rc_rb}, {rc_fb}"
+        best_b, mean_b = _per_generation(_records(path("b.jsonl")))
+        best_r, mean_r = _per_generation(_records(path("ref_b.jsonl")))
+        gap = max(abs(a - b) for a, b in zip(best_b + mean_b, best_r + mean_r))
+        card = lambda tree: {k: v.cuda() for k, v in tree.items()}
+        init, want = card(ref_b["init"]), card(ref_b["trained"])
+        rel = _update_rel(init, card(torch.load(path("b_trained.pt"))), want)
+        rel_fault = _update_rel(init, card(fault_b["trained"]), want)
+        del init, want, ref_b, fault_b
+        torch.cuda.empty_cache()
+        digests = [c["digest"] for c in counts_b]
+        out["b"].update(best=best_b, mean=mean_b, reference_best=best_r, reference_mean=mean_r, max_gap=gap,
+                        update_rel_err=rel, update_rel_err_average_dropped=rel_fault, digests=digests)
+        print(f"mesh (b) 2 ranks --n-data 2 ({smi}): {wall} s, best {best_b} mean {mean_b} against one "
+              f"process's {best_r} {mean_r}: max gap {gap} (limit {MESH_TOL}); update relative error "
+              f"{rel} (gradient average dropped: {rel_fault}; limit {MESH_UPDATE_RTOL}); rank digests {digests}")
+        if len(best_b) != 1 or gap > MESH_TOL:
+            return out, launches, errs, f"mesh (b): the data axis is {gap} from one process"
+        if not rel <= MESH_UPDATE_RTOL < rel_fault:
+            return out, launches, errs, f"mesh (b): update relative error {rel}, the planted fault's {rel_fault}"
+        if None in digests or len(set(digests)) != 1:
+            return out, launches, errs, f"mesh (b): the data ranks end apart: {digests}"
+
+        # (c) rank 1 SIGKILLed at generation 2's boundary, relaunched, resumed
+        rc, lines, counts_c, wall = done["c"]
+        events = [e for e in lines if "event" in e]
+        recs_c, digest_c = _records(path("c.jsonl")), _final_digest(path("ck_c"))
+        out["c"] = {"exit": rc, "wall_s": wall, "events": events, "digest": digest_c, "counts": counts_c,
+                    "records_equal": recs_c == recs_a, "killed": os.path.exists(marker)}
+        print(f"mesh (c) --rank-kill rank=1,at=2 ({smi}): {json.dumps(out['c'])}")
+        kinds = [e["event"] for e in events]
+        if (rc != 0 or kinds != ["launch", "restart", "launch", "done"] or not out["c"]["killed"]
+                or recs_c != recs_a or digest_c != digest_a):
+            return out, launches, errs, f"mesh (c): exit {rc}, events {kinds}, records equal {recs_c == recs_a}"
+
+        # every GN shape a rank launched against the plain versions, then
+        # each rank's GN time a population step at its shard shape
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(7)
+        shapes = {(tuple(s[0]), s[1], s[2], s[3]) for c in counts + counts_b for s in c["shapes"]}
+        for shape, g, relu, dtype in sorted(shapes, key=str):
+            dt = {"torch.bfloat16": _BF16, "torch.float32": _F32}[dtype]
+            x = torch.randn(shape, generator=gen, device="cuda").to(dt)
+            dy = torch.randn(shape, generator=gen, device="cuda").to(dt)
+            ch = shape[-1]
+            gamma = 1.0 + 0.5 * torch.randn(ch, generator=gen, device="cuda")
+            beta = 0.1 * torch.randn(ch, generator=gen, device="cuda")
+            e = check_shape(gn, x, dy, gamma, beta, g, relu, "bf16" if dt == _BF16 else "f32", None)
+            for k in errs:
+                errs[k] = max(errs[k], e[k])
+            del x, dy
+        torch.cuda.empty_cache()
+        out["gn_shapes"] = sorted([list(s), g, r, d] for s, g, r, d in shapes)
+        out["max_abs_err"] = dict(errs)
+        flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+        out["rank_step_pop"] = _rank_step_times(gn, MESH_P // 2, BATCH, flush, bandwidth)
+        out["rank_step_data"] = _rank_step_times(gn, MESH_P, BATCH // 2, flush, bandwidth)
+        print(f"mesh GN shapes checked against the plain versions: {len(shapes)} (max abs err "
+              f"{json.dumps(errs)}); a rank's GN ms a population step ({smi}): pop-sharded "
+              f"{json.dumps(out['rank_step_pop'])}, data-split {json.dumps(out['rank_step_data'])}")
+    finally:
+        for run in runs.values():  # a phase that failed early: stop what it started
+            if run[2].poll() is None:
+                run[2].kill()
+                run[2].wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+        out["wall_s"] = time.perf_counter() - t_phase
+        print(f"mesh phase wall: {out['wall_s']} s")
+    return out, launches, errs, None
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline-cu", default=None,
@@ -3570,7 +4022,16 @@ def main() -> int:
         if bad:
             return fail(bad)
 
-    # 19. no process left running
+    if "mesh" in phases:
+        # 19. multi-process: the ResNet-18 slice over 2 ranks through the
+        # launch supervisor, pop-sharded, data-split and rank-killed
+        mesh_out, mesh_launches, mesh_errs, bad = mesh_phase(gn, smi, bandwidth)
+        launches.update(mesh_launches)
+        done("mesh", mesh_out)
+        if bad:
+            return fail(bad)
+
+    # 20. no process left running
     left = stop_processes()
     if left:
         return fail(f"processes left running after the phases (killed now): {left}")
@@ -3579,7 +4040,7 @@ def main() -> int:
         print(f"chip_smoke: partial run ({','.join(phases)}): no result line")
         return 0
 
-    # 20. the kernels line (a population step of each path, summed; launches
+    # 21. the kernels line (a population step of each path, summed; launches
     # summed over every path), then the device line
     src = "mpi_opt_tpu_torch/csrc/group_norm.cu"
     kernels = []
@@ -3589,13 +4050,19 @@ def main() -> int:
         for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
             entry[key] = sum(tot[path][k][key] for path in STEP_PATHS)
         entry["max_abs_err"] = max(max(t[k]["max_abs_err"] for t in tot.values()), drv_errs[k],
-                                   warm_errs[k], cpu_errs[k])
+                                   warm_errs[k], cpu_errs[k], mesh_errs[k])
         entry["bound_share"] = entry["bound_ms"] / entry["ms"]
         entry["by_path"] = {path: {**tot[path][k], "launches": launches[path][k]} for path in STEP_PATHS}
         for path in ("durability", "north_star_waves", "hyperband_smallcnn", "tpe_smallcnn", "bohb_smallcnn",
                      "mo_smallcnn", "driver_smallcnn", "driver_resnet18", "warm_smallcnn",
-                     "pertrial_cifar10_cnn", "pertrial_cifar100_resnet18", "windows_resnet18"):
+                     "pertrial_cifar10_cnn", "pertrial_cifar100_resnet18", "windows_resnet18",
+                     "mesh_reference_resnet18", "mesh_data_resnet18"):
             entry["by_path"][path] = {"launches": launches[path][k]}
+        # the 2-rank path: both ranks' launches in (a), each rank's GN time
+        # a population step at its shard shape (8 members folded in)
+        entry["by_path"]["mesh_resnet18"] = {**mesh_out["rank_step_pop"][k],
+                                             "launches": launches["mesh_resnet18"][k],
+                                             "max_abs_err": mesh_errs[k]}
         kernels.append(entry)
     done("kernels", kernels)
     print(json.dumps({"kernels": kernels}))

@@ -21,6 +21,14 @@ batch of any size (ASHA's rung batches differ) then launches the same
 shapes, and cuDNN keeps its plans. The padding is the trainer's
 stand-ins, whose results are dropped; nothing padded is scattered back.
 
+Under a ``('pop', 'data')`` mesh (``mesh=``, ``parallel/mesh.py``) the
+slot pool shards over the ranks' ``pop`` axis (its slot count rounded
+up to a multiple of the axis), every rank runs the same host plan, a
+batch is padded to a multiple of the axis with frozen stand-ins that are
+never written back, and the gather and the scatter move only the rows
+another rank holds (``Mesh.exchange``). Scores come back gathered, so
+every rank returns the same results.
+
 Random numbers. Batch k (counting only batches that evaluate
 something) draws from generators seeded from (seed, 9000 + k, 0) for the
 fresh inits and (seed, 9000 + k, 1) for training, on the device; the
@@ -49,8 +57,6 @@ class GPUPopulationBackend(Backend):
 
     def __init__(self, workload, population: int = 32, seed: int = 0, member_chunk: int = 0,
                  mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError("GPUPopulationBackend(mesh=...) is not ported yet")
         if not hasattr(workload, "make_trainer"):
             raise ValueError(
                 f"workload {getattr(workload, 'name', workload)!r} has no population protocol "
@@ -61,11 +67,17 @@ class GPUPopulationBackend(Backend):
         self.seed = seed
         self.member_chunk = member_chunk
         self.device = resolve_device(device)
+        self.mesh = mesh
         # a batch (<= capacity == population trials) pins its sources and
         # allocates its outputs, at most 2 * population slots, so no
         # pinned slot is ever evicted; +1 scratch slot, the source of
         # fresh members
         self.pool_size = 2 * population + 1
+        if mesh is not None:
+            # a pool the 'pop' axis does not divide would be replicated
+            # on every rank: round up (extra slots are just free slots)
+            n_pop = mesh.shape["pop"]
+            self.pool_size = -(-self.pool_size // n_pop) * n_pop
         self._scratch = self.pool_size - 1
         self._setup_done = False
         self._step_counter = 0
@@ -89,7 +101,7 @@ class GPUPopulationBackend(Backend):
         from mpi_opt_tpu_torch.train.common import workload_arrays
 
         trainer, self._space, self._train_x, self._train_y, self._val_x, self._val_y = (
-            workload_arrays(self.workload, self.member_chunk, self.device))
+            workload_arrays(self.workload, self.member_chunk, self.device, self.mesh))
         self._trainer = trainer.launching(self.launch_width)
         self._pool = self._trainer.init_population(
             path_generator((self.seed, 7001), self.device), self.pool_size)
@@ -158,18 +170,25 @@ class GPUPopulationBackend(Backend):
         t0 = time.perf_counter()
         n = len(entries)
         dev = self.device
-        gather_idx = torch.tensor([e[1] for e in entries], dtype=torch.int64, device=dev)
+        # under a mesh the batch pads to a multiple of the 'pop' axis with
+        # frozen stand-ins (the scratch slot's state, no steps), so it
+        # shards; nothing padded is scored or written back
+        n_pad = n if self.mesh is None else -(-n // self.mesh.shape["pop"]) * self.mesh.shape["pop"]
+        pad = n_pad - n
+        gather_idx = torch.tensor([e[1] for e in entries] + [self._scratch] * pad,
+                                  dtype=torch.int64, device=dev)
         out_slots = torch.tensor([e[3] for e in entries], dtype=torch.int64, device=dev)
-        fresh = [e[2] for e in entries]
-        unit = torch.from_numpy(np.stack([np.asarray(e[0].unit, np.float32) for e in entries])).to(dev)
-        rem_host = [int(e[4]) for e in entries]
+        fresh = [e[2] for e in entries] + [False] * pad
+        unit = torch.from_numpy(np.stack([np.asarray(e[0].unit, np.float32) for e in entries]
+                                         + [np.zeros(self._space.dim, np.float32)] * pad)).to(dev)
+        rem_host = [int(e[4]) for e in entries] + [0] * pad
         path = (self.seed, 9000 + self._step_counter)
         self._step_counter += 1
 
         trainer = self._trainer
         sub = trainer.gather_members(self._pool, gather_idx)
         if any(fresh):  # steady-state resume/inherit batches skip the init
-            new = trainer.init_population(path_generator((*path, 0), dev), n)
+            new = trainer.init_population(path_generator((*path, 0), dev), n_pad)
             sub = trainer.select_members(torch.tensor(fresh, device=dev), new, sub)
         # hparams from the unit rows, as the device path builds them
         hp = self.workload.make_hparams(self._space.from_unit(unit))
@@ -178,8 +197,11 @@ class GPUPopulationBackend(Backend):
             trainer.train_segment_masked(sub, hp, self._train_x, self._train_y,
                                          path_generator((*path, 1), dev), steps,
                                          torch.tensor(rem_host, dtype=torch.int32, device=dev))
-        scores = trainer.eval_population(sub, self._val_x, self._val_y)
-        _scatter(self._pool, sub, out_slots)
+        scores = trainer.eval_population(sub, self._val_x, self._val_y)[:n]
+        if self.mesh is None:
+            _scatter(self._pool, sub, out_slots)
+        else:
+            self._pool = _scatter_mesh(self.mesh, self._pool, sub, out_slots, self.pool_size)
         scores = np.asarray(scores.cpu(), dtype=np.float64)  # the batch's one host sync
         wall = time.perf_counter() - t0
         out: dict[int, TrialResult] = {}
@@ -243,7 +265,16 @@ class GPUPopulationBackend(Backend):
         self._step_counter = int(state["step_counter"])
 
     def device_state(self):
-        return self._pool if self._setup_done else None
+        """The slot pool; under a mesh the whole pool, gathered to rank 0
+        (the snapshot's writer: every rank joins, the others get None)."""
+        if not self._setup_done:
+            return None
+        if self.mesh is None:
+            return self._pool
+        from mpi_opt_tpu_torch.train.population import PopState
+
+        full = self._trainer.gather_state(self._pool, root=0)
+        return None if full is None else PopState(full["params"], full["momentum"], full["step"])
 
     def load_device_state(self, pool) -> None:
         """Install a restored pool (host tensors, a ``PopState`` or its
@@ -254,6 +285,13 @@ class GPUPopulationBackend(Backend):
         self._setup()
         if not isinstance(pool, PopState):
             pool = PopState(params=pool["params"], momentum=pool["momentum"], step=pool["step"])
+        if self.mesh is not None:
+            if pool.step.shape[0] != self.pool_size:
+                raise ValueError(
+                    f"restored pool leaf shapes do not match this backend's pool (saved slot "
+                    f"count {pool.step.shape[0]}, this backend {self.pool_size}: resumed under "
+                    "a different population or mesh?)")
+            pool = self._trainer.place(pool)  # this rank's slots
 
         def leaves(st):
             return ([("params", k, v) for k, v in st.params.items()]
@@ -275,6 +313,20 @@ class GPUPopulationBackend(Backend):
         with torch.no_grad():
             for (_, _, dst), (_, _, srcv) in zip(want, got):
                 dst.copy_(srcv)
+
+
+@torch.no_grad()
+def _scatter_mesh(mesh, pool, sub, slots: torch.Tensor, pool_size: int):
+    """``_scatter`` over a mesh: pool slot ``slots[i]`` takes the batch's
+    row ``i``, wherever either lives; other slots keep their rows. One
+    ``Mesh.exchange`` with the pool as its base; returns the new pool."""
+    from mpi_opt_tpu_torch.train.population import PopState
+
+    src = np.full(pool_size, -1, dtype=np.int64)
+    src[slots.cpu().numpy()] = np.arange(slots.shape[0])
+    tree = lambda st: {"params": st.params, "momentum": st.momentum, "step": st.step}
+    got = mesh.exchange(tree(sub), src, sub.cohort or sub.step.shape[0], base=tree(pool))
+    return PopState(got["params"], got["momentum"], got["step"], cohort=pool.cohort)
 
 
 @torch.no_grad()

@@ -30,6 +30,18 @@ the ``trace``, ``report`` and ``fsck`` subcommands).
     python -m mpi_opt_tpu_torch trace --diff base.jsonl new.jsonl [--gate tol.json]
     python -m mpi_opt_tpu_torch report sweep.jsonl [--json] [--validate]
     python -m mpi_opt_tpu_torch fsck ck [--ledger sweep.jsonl] [--repair] [--deep] [--json]
+    python -m mpi_opt_tpu_torch.launch --n-proc 2 -- --workload cifar100_resnet18 \
+        --algorithm pbt --fused --n-pop 2 --population 16 --generations 3 \
+        --steps-per-generation 5 [--checkpoint-dir ck --ledger sweep.jsonl]
+
+Multi-process SPMD: ``--coordinator HOST:PORT --num-processes N
+--process-id R`` (which ``launch.py`` passes to each rank) brings up a
+``torch.distributed`` process group, one rank a device (gloo when ranks
+share a card or run with ``--device cpu``, nccl with a card each); the
+fused sweeps and the gpu slot pool then shard over a ``('pop', 'data')``
+mesh (``--n-pop``, ``--n-data``, ``--no-mesh``), boundaries agree
+through ``--coord-dir``, and only rank 0 writes the ledger and the
+snapshots.
 
 Without ``--fused`` the sweep is the JAX CLI's driver path:
 ``driver.run_search`` over a host algorithm and the ``gpu`` backend, the
@@ -80,12 +92,10 @@ _SUBCOMMANDS = ("lint", "serve", "submit", "status", "cancel", "drain", "corpus"
                 "suggest-client")
 # the JAX CLI's flags that the port does not take yet: valued, then boolean
 _NOT_PORTED_FLAGS = (
-    "--coordinator", "--num-processes", "--process-id",
-    "--platform", "--local-devices", "--n-data", "--n-pop", "--coord-dir",
-    "--coord-epoch", "--coord-timeout", "--rank-kill", "--suggest-serve",
-    "--suggest-idle-timeout", "--http-port", "--http-queue", "--http-state-dir",
+    "--suggest-serve", "--suggest-idle-timeout", "--http-port", "--http-queue",
+    "--http-state-dir",
 )
-_NOT_PORTED_SWITCHES = ("--multihost", "--no-mesh")
+_NOT_PORTED_SWITCHES = ()
 
 
 class _NotPorted(argparse.Action):
@@ -265,11 +275,146 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None, choices=("cuda", "cpu"),
                    help="where the sweep runs (default cuda, or cpu under --backend cpu; "
                    "the port never falls back to the CPU on its own)")
+    p.add_argument("--platform", default=None, choices=("cpu", "gpu"),
+                   help="the JAX CLI's name for --device: cpu is --device cpu, gpu is "
+                   "--device cuda (both given, they must agree)")
+    p.add_argument("--local-devices", type=int, default=None,
+                   help="the JAX CLI's virtual CPU devices; a port rank owns one device, so "
+                   "it is a usage error: launch N ranks instead")
+    # multi-process SPMD bring-up: one process a device, each invoking
+    # this CLI with its rank (launch.py passes these)
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="multi-process SPMD: rank 0's address for the torch.distributed "
+                   "process group (tcp://HOST:PORT); give --num-processes and --process-id "
+                   "with it on every rank (python -m mpi_opt_tpu_torch.launch does)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="multi-process SPMD: the world size (with --coordinator)")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="multi-process SPMD: this process's rank (with --coordinator)")
+    p.add_argument("--multihost", action="store_true",
+                   help="bring up the process group from torch's env:// variables "
+                   "(MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK); fails rather than "
+                   "silently running one process. Implied by --coordinator")
+    p.add_argument("--n-data", type=int, default=1,
+                   help="mesh 'data' axis: ranks that split each member's minibatch and "
+                   "average its gradients (ranks are split as (world/n_data) x n_data)")
+    p.add_argument("--n-pop", type=int, default=0,
+                   help="mesh 'pop' axis: ranks that split the members (0 = all remaining)")
+    p.add_argument("--no-mesh", action="store_true",
+                   help="no ('pop','data') mesh even in a multi-process world")
+    p.add_argument("--coord-dir", default=None, metavar="DIR",
+                   help="multi-process SPMD: the boundary-agreement directory (per-rank vote "
+                   "files, rank-0 decisions); launch.py sets it for every rank")
+    p.add_argument("--coord-epoch", type=int, default=0, metavar="N",
+                   help="with --coord-dir: this attempt's vote namespace; each coordinated "
+                   "restart needs a fresh one (launch.py passes its relaunch counter)")
+    p.add_argument("--coord-timeout", type=float, default=300.0, metavar="SECONDS",
+                   help="how long a rank waits for its peers at an agreement boundary, and "
+                   "at any collective of the process group, before it declares the world "
+                   "wedged and exits (the supervisor's coordinated restart recovers)")
+    p.add_argument("--rank-kill", default=None, metavar="SPEC",
+                   help="chaos drill: 'rank=R,at=K[,n=N][,marker=PATH]' SIGKILLs the rank R "
+                   "process at the K-th (1-based) launch/rung/generation boundary; marker "
+                   "makes the kill fire once across coordinated restarts")
     for flag in _NOT_PORTED_FLAGS:
         p.add_argument(flag, nargs="?", action=_NotPorted, help=argparse.SUPPRESS)
     for flag in _NOT_PORTED_SWITCHES:
         p.add_argument(flag, nargs=0, action=_NotPorted, help=argparse.SUPPRESS)
     return p
+
+
+def _rank_world() -> tuple[int, int]:
+    """(rank, world) of this process (0, 1 without a process group)."""
+    from mpi_opt_tpu_torch.parallel.mesh import world_info
+
+    info = world_info()
+    return info["rank"], info["world"]
+
+
+def build_mesh(args):
+    """The run's ``('pop', 'data')`` mesh, or None for one process.
+    Auto-meshes whenever the world has more than one rank (the JAX
+    CLI's ``jax.device_count() > 1``: a port rank owns one device);
+    explicit ``--n-data``/``--n-pop`` force a shape, ``--no-mesh`` opts
+    out."""
+    if args.no_mesh:
+        if args.n_data > 1 or args.n_pop > 0:
+            raise SystemExit("--no-mesh contradicts --n-data/--n-pop")
+        return None
+    _, world = _rank_world()
+    if world > 1 or args.n_data > 1 or args.n_pop > 0:
+        from mpi_opt_tpu_torch.parallel.mesh import make_mesh
+
+        return make_mesh(n_pop=args.n_pop or None, n_data=args.n_data)
+    return None
+
+
+def _run_mesh(args, parser, metrics):
+    """The run's mesh (``build_mesh``; a shape the world cannot hold is
+    a usage error), with the ``launch`` event naming the world's backend
+    and device (chosen from counts at bring-up) in a multi-process
+    world; per-chip rates then count every device of the mesh."""
+    from mpi_opt_tpu_torch.parallel.mesh import world_info
+
+    try:
+        mesh = build_mesh(args)
+    except ValueError as e:
+        parser.error(f"mesh: {e}")
+    info = world_info()
+    if info["world"] > 1:
+        metrics.log("launch", rank=info["rank"], world=info["world"], backend=info["backend"],
+                    device=str(info["device"]),
+                    mesh=None if mesh is None else dict(mesh.shape))
+    if mesh is not None:
+        metrics.n_chips = mesh.size
+    return mesh
+
+
+def _install_multiprocess(args, parser):
+    """The coord plane's boundary agreements (``--coord-dir``) and the
+    ``--rank-kill`` drill, installed for the run; returns the closure
+    that uninstalls them (callers pair it in a ``finally``)."""
+    from mpi_opt_tpu_torch.parallel import coord as _coord
+    from mpi_opt_tpu_torch.parallel.mesh import world_info
+    from mpi_opt_tpu_torch.workloads.chaos import inject_rank_kill, parse_rank_kill_spec
+
+    spec = None
+    if args.rank_kill:
+        try:
+            spec = parse_rank_kill_spec(args.rank_kill)
+        except ValueError as e:
+            parser.error(f"--rank-kill: {e}")
+    undo = []
+    if args.coord_dir:
+        info = world_info()
+        plane = _coord.CoordPlane(args.coord_dir, info["rank"], info["world"],
+                                  epoch=args.coord_epoch, timeout_s=args.coord_timeout)
+        undo.append(_coord.install_hook(plane))
+    if spec is not None:
+        undo.append(inject_rank_kill(**spec)[1])
+
+    def uninstall():
+        for fn in reversed(undo):
+            fn()
+
+    return uninstall
+
+
+def _open_rank_ledger(args, parser, metrics):
+    """``--ledger`` opened for this rank: rank 0 writes, every other
+    rank reads the shared journal (replay and verification stay
+    identical on every rank; N ranks appending one file would corrupt
+    it)."""
+    from mpi_opt_tpu_torch.ledger import LedgerError, SweepLedger
+
+    rank, _ = _rank_world()
+    try:
+        ledger = SweepLedger(args.ledger, read_only=rank != 0)
+    except LedgerError as e:
+        parser.error(f"--ledger: {e}")
+    if ledger.read_only:
+        metrics.log("ledger_rank_gated", rank=rank)
+    return ledger
 
 
 _TRANSIENT_MARKERS = ("unavailable", "deadline", "connection reset", "timed out")
@@ -394,11 +539,34 @@ def run_fused(args, parser, workload) -> int:
             f"--checkpoint-dir {args.checkpoint_dir!r} already holds a sweep snapshot; "
             "pass --resume to continue it, or point at a fresh directory"
         )
+    rank, world = _rank_world()
+    if args.retries and world > 1:
+        # one rank restoring a snapshot while its peers sit in a
+        # collective would wedge the world: recovery is a job restart
+        parser.error(
+            "--retries requires a single-process run; under multi-process SPMD recovery is "
+            "a coordinated job restart: run under `python -m mpi_opt_tpu_torch.launch "
+            "--retries N`, which relaunches ALL ranks with --resume and a fresh --coord-epoch"
+        )
     metrics = stdout_logger(path=args.metrics_file, n_chips=1)
+    mesh = _run_mesh(args, parser, metrics)
+    if mesh is not None and args.algorithm in ("pbt", "tpe"):
+        n_pop = int(mesh.shape["pop"])
+        # a standing cohort that the pop axis does not divide would be
+        # replicated on every rank; SHA-family sweeps round their
+        # cohorts to the axis instead
+        if args.population % n_pop and args.population > n_pop:
+            lo = (args.population // n_pop) * n_pop
+            parser.error(
+                f"--population {args.population} does not divide the mesh 'pop' axis "
+                f"({n_pop}); the population would be replicated on every device instead of "
+                f"sharded. Use --population {lo} or {lo + n_pop}, reshape the mesh with "
+                "--n-pop/--n-data, or pass --no-mesh."
+            )
     _wire_integrity_observer(metrics)
     _wire_resource_observer(metrics)
     if args.trace:  # main restores the entry state on the way out
-        _trace.configure(metrics)
+        _trace.configure(metrics, rank=rank)
     space = workload.default_space()
     # the prior ledger validates BEFORE this run's own header commits: a
     # typo'd --warm-start must not enter a fresh ledger's identity
@@ -407,12 +575,13 @@ def run_fused(args, parser, workload) -> int:
         warm_obs, warm_info = _resolve_warm_start(args, space, parser)
         _log_warm_start(metrics, args, warm_info, len(warm_obs))
     ledger = _open_fused_ledger(args, parser, space, metrics)
+    multiprocess_off = _install_multiprocess(args, parser)
     t0 = time.perf_counter()
     fields = dict(workload=args.workload, algorithm=args.algorithm, backend="fused")
     try:
         with resources.oom_funnel(), profile_window(args.profile_dir, launches=args.profile_window,
                                                     device=args.device):
-            return _run_fused_dispatch(args, workload, metrics, t0, ledger, warm_obs)
+            return _run_fused_dispatch(args, workload, metrics, t0, ledger, warm_obs, mesh)
     except resources.DeviceOOM as e:
         return _resource_exit(e, metrics, "device_oom", **fields)
     except resources.StorageFull as e:
@@ -428,6 +597,7 @@ def run_fused(args, parser, workload) -> int:
               f"relaunch with --resume to continue (exit {EX_TEMPFAIL})", file=sys.stderr)
         return EX_TEMPFAIL
     finally:
+        multiprocess_off()
         if ledger is not None:
             ledger.close()
         metrics.close()
@@ -441,13 +611,9 @@ def _open_fused_ledger(args, parser, space, metrics):
     mode journals the resident sweep's records."""
     if not args.ledger:
         return None
-    from mpi_opt_tpu_torch.ledger import LedgerError, SweepLedger
+    from mpi_opt_tpu_torch.ledger import LedgerError
 
-    try:
-        # one process journals: the port has no multi-process SPMD yet
-        ledger = SweepLedger(args.ledger, read_only=False)
-    except LedgerError as e:
-        parser.error(f"--ledger: {e}")
+    ledger = _open_rank_ledger(args, parser, metrics)
     if ledger.records and not args.resume:
         ledger.close()
         parser.error(
@@ -517,7 +683,7 @@ def _wave_extras(res: dict) -> dict:
     )
 
 
-def _run_fused_dispatch(args, workload, metrics, t0, ledger, warm_obs) -> int:
+def _run_fused_dispatch(args, workload, metrics, t0, ledger, warm_obs, mesh=None) -> int:
     """Run the sweep, then print the JAX CLI's fused summary line."""
     import time
 
@@ -542,6 +708,7 @@ def _run_fused_dispatch(args, workload, metrics, t0, ledger, warm_obs) -> int:
             device=args.device,
             objectives=args.objective_spec,
             warm_obs=warm_obs,
+            mesh=mesh,
         ), args.retries, metrics)
         n_trials = args.population * args.generations
         extra = {"best_curve": [round(float(v), 4) for v in res["best_curve"]]}
@@ -561,6 +728,7 @@ def _run_fused_dispatch(args, workload, metrics, t0, ledger, warm_obs) -> int:
             ledger=ledger,
             device=args.device,
             warm_obs=warm_obs,
+            mesh=mesh,
         ), args.retries, metrics)
         n_trials = res["n_trials"]
         extra = {"best_curve": [round(float(v), 4) for v in res["best_curve"]]}
@@ -581,6 +749,7 @@ def _run_fused_dispatch(args, workload, metrics, t0, ledger, warm_obs) -> int:
             ledger=ledger,
             device=args.device,
             warm_obs=warm_obs,
+            mesh=mesh,
         ), args.retries, metrics)
         n_trials = res["n_trials"]
         extra = {"brackets": res["brackets"]}
@@ -606,24 +775,28 @@ def _run_fused_dispatch(args, workload, metrics, t0, ledger, warm_obs) -> int:
             ledger=ledger,
             device=args.device,
             warm_obs=warm_obs,
+            mesh=mesh,
             **mo,
         ), args.retries, metrics)
         n_trials = res["n_trials"]
         extra = {"rung_sizes": res["rung_sizes"], "rung_budgets": res["rung_budgets"]}
     extra.update(_wave_extras(res))
     wall = time.perf_counter() - t0
+    # per-chip rates divide by the devices the sweep ran on: the mesh's
+    # size (every rank counts the same global trials), else 1
+    n_chips = 1 if mesh is None else mesh.size
     metrics.count_trials(n_trials)
     member_failures = res["member_failures"]
     summary = {
         "workload": args.workload,
         "algorithm": args.algorithm,
         "backend": "fused",
-        "mesh": None,
-        "n_chips": 1,
+        "mesh": None if mesh is None else dict(mesh.shape),
+        "n_chips": n_chips,
         "n_trials": n_trials,
         "member_failures": member_failures,
         "wall_s": round(wall, 3),
-        "trials_per_sec_per_chip": round(n_trials / max(wall, 1e-9), 4),
+        "trials_per_sec_per_chip": round(n_trials / max(wall, 1e-9) / n_chips, 4),
         "best_score": None if res["best_params"] is None else round(res["best_score"], 6),
         "best_params": res["best_params"],
         **extra,
@@ -702,7 +875,12 @@ def run_driver(args, parser, workload) -> int:
         )
     space = workload.default_space()
     algorithm = make_algorithm(args, space)
+    rank, _ = _rank_world()
     metrics = stdout_logger(path=args.metrics_file, n_chips=1)
+    mesh = _run_mesh(args, parser, metrics)
+    if mesh is not None and args.backend != "gpu":
+        parser.error("a mesh shards the gpu slot pool over the ranks; --backend cpu is one "
+                     "process's host pool")
     # the prior ledger validates before this run's own header commits
     warm_obs = warm_info = None
     if args.warm_start:
@@ -710,7 +888,7 @@ def run_driver(args, parser, workload) -> int:
     _wire_integrity_observer(metrics)
     _wire_resource_observer(metrics)
     if args.trace:  # main restores the entry state on the way out
-        _trace.configure(metrics)
+        _trace.configure(metrics, rank=rank)
     fields = dict(workload=args.workload, algorithm=args.algorithm, backend=args.backend)
     if args.backend == "cpu":
         backend_kwargs = {"n_workers": args.workers, "seed": args.seed,
@@ -722,17 +900,19 @@ def run_driver(args, parser, workload) -> int:
             backend_kwargs["workload_kwargs"] = args.chaos_kwargs
     else:
         backend_kwargs = {"population": args.population, "seed": args.seed,
-                          "member_chunk": args.member_chunk, "device": args.device}
+                          "member_chunk": args.member_chunk, "device": args.device, "mesh": mesh}
     with _trace.span("setup", backend=args.backend) as sp:
         _trace.note_device(sp, args.device)
         backend = get_backend(args.backend, workload, **backend_kwargs)
     checkpointer = ledger = step = None
+    multiprocess_off = _install_multiprocess(args, parser)
     try:
         with resources.oom_funnel():
             if args.checkpoint_dir:
                 from mpi_opt_tpu_torch.utils.checkpoint import SearchCheckpointer
 
-                checkpointer = SearchCheckpointer(args.checkpoint_dir, every=args.checkpoint_every)
+                checkpointer = SearchCheckpointer(args.checkpoint_dir, every=args.checkpoint_every,
+                                                  mesh=mesh)
                 if args.resume:
                     try:
                         step = checkpointer.restore_into(algorithm, backend)
@@ -780,6 +960,7 @@ def run_driver(args, parser, workload) -> int:
               f"relaunch with --resume to continue (exit {EX_TEMPFAIL})", file=sys.stderr)
         return EX_TEMPFAIL
     finally:
+        multiprocess_off()
         backend.close()
         if checkpointer is not None:
             checkpointer.close()
@@ -814,12 +995,9 @@ def _open_driver_ledger(args, parser, space, backend, metrics):
     needs --resume; a journal of another sweep is refused."""
     if not args.ledger:
         return None
-    from mpi_opt_tpu_torch.ledger import LedgerError, SweepLedger
+    from mpi_opt_tpu_torch.ledger import LedgerError
 
-    try:
-        ledger = SweepLedger(args.ledger, read_only=False)
-    except LedgerError as e:
-        parser.error(f"--ledger: {e}")
+    ledger = _open_rank_ledger(args, parser, metrics)
     if ledger.records and not args.resume:
         ledger.close()
         parser.error(f"--ledger {args.ledger!r} already holds {len(ledger.records)} trial "
@@ -929,8 +1107,28 @@ def main(argv=None) -> int:
     if args.backend not in ("gpu", "cpu"):
         parser.error(f"--backend {args.backend} is not a backend of the port: its device "
                      "slot pool is --backend gpu (the default), its host pool --backend cpu")
+    if args.local_devices is not None:
+        parser.error("--local-devices makes the JAX package's virtual CPU devices; a port rank "
+                     "owns one device, so launch N ranks instead: python -m "
+                     "mpi_opt_tpu_torch.launch --n-proc N -- ... --device cpu")
+    if args.platform is not None:
+        # the JAX CLI's name for the device: cpu, or gpu for the card
+        asked = {"cpu": "cpu", "gpu": "cuda"}[args.platform]
+        if args.device is not None and args.device != asked:
+            parser.error(f"--platform {args.platform} contradicts --device {args.device}")
+        args.device = asked
     if args.backend == "cpu" and args.device is None:
         args.device = "cpu"  # --backend cpu asks for the CPU
+    explicit = (args.coordinator, args.num_processes, args.process_id)
+    if any(v is not None for v in explicit) and not all(v is not None for v in explicit):
+        parser.error("--coordinator, --num-processes and --process-id must be given together "
+                     "(or use --multihost alone with torch's env:// variables)")
+    if args.coord_timeout <= 0:
+        parser.error(f"--coord-timeout must be > 0, got {args.coord_timeout}")
+    if args.n_data < 1:
+        parser.error(f"--n-data must be >= 1, got {args.n_data}")
+    if args.n_pop < 0:
+        parser.error(f"--n-pop must be >= 0, got {args.n_pop}")
     if args.workers < 0:
         parser.error(f"--workers must be >= 0, got {args.workers}")
     if args.trial_timeout is not None and args.trial_timeout <= 0:
@@ -981,6 +1179,17 @@ def main(argv=None) -> int:
     # the handlers, is dropped on the way out, and the span sink restored
     trace_entry = _trace.save()
     _expandable_segments(args.device)
+    multiprocess = args.multihost or args.coordinator is not None
+    if multiprocess:
+        # the process group, with each rank's device set first; its
+        # collectives time out with the agreement barrier's timeout
+        from mpi_opt_tpu_torch.parallel.mesh import initialize_multihost
+
+        try:
+            initialize_multihost(args.coordinator, args.num_processes, args.process_id,
+                                 require=True, device=args.device, timeout_s=args.coord_timeout)
+        except (ValueError, RuntimeError) as e:
+            parser.error(f"multi-process bring-up failed: {e}")
     try:
         with _shutdown.ShutdownGuard():
             if args.heartbeat_file:
@@ -992,6 +1201,10 @@ def main(argv=None) -> int:
         integrity.clear_observer()
         resources.clear_observer()
         _trace.deconfigure(trace_entry)
+        if multiprocess:
+            from mpi_opt_tpu_torch.parallel.mesh import shutdown_multihost
+
+            shutdown_multihost()
 
 
 if __name__ == "__main__":

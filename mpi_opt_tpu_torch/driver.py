@@ -271,6 +271,12 @@ def run_search(
         if checkpointer is not None:
             saved = checkpointer.maybe_save(batches, algorithm, backend)
         heartbeat.beat(stage="driver", batches=batches, trials=algorithm.n_trials)
+        # the batch boundary's slice-hook point, where the coord plane's
+        # drain agreement votes under multi-process SPMD; only batches
+        # that evaluated something tick it (a replayed batch costs no
+        # device time), the same on every rank
+        if pending and not algorithm.finished():
+            shutdown.poll_slice(f"batch {batches}")
         if shutdown.requested() and not algorithm.finished():
             # the drain point: the batch is done and journaled; force an
             # off-cadence snapshot so --resume loses nothing. A batch that

@@ -1,5 +1,5 @@
-"""Process health: graceful shutdown and progress heartbeats (port of
-``mpi_opt_tpu/health/``; the stall watchdog is not ported yet)."""
+"""Process health: graceful shutdown, progress heartbeats and the
+supervisor's stall watchdog (port of ``mpi_opt_tpu/health/``)."""
 
 from mpi_opt_tpu_torch.health.heartbeat import (  # noqa: F401
     Heartbeat,
@@ -13,3 +13,4 @@ from mpi_opt_tpu_torch.health.shutdown import (  # noqa: F401
     ShutdownGuard,
     SweepInterrupted,
 )
+from mpi_opt_tpu_torch.health.watchdog import StallDetector  # noqa: F401

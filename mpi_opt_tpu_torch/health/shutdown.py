@@ -14,15 +14,18 @@
 A second SIGINT after a real signal escalates to ``KeyboardInterrupt``
 (first Ctrl-C drains, second aborts). Repeated SIGTERM stays graceful.
 
-The JAX package's programmatic drain (``request`` and the slice hook a
-sweep service installs) is not here: the port has no service to call it.
+``request`` and the per-boundary slice hook are the JAX package's
+programmatic drain; in the port their one user is the multi-process
+coord plane (``parallel/coord.py``), which chains its drain agreement
+onto the hook and raises the flag on every rank once any rank saw a
+signal. The port has no sweep service.
 """
 
 from __future__ import annotations
 
 import signal
 import threading
-from typing import Optional
+from typing import Callable, Optional
 
 from mpi_opt_tpu_torch.utils.exitcodes import EX_TEMPFAIL  # noqa: F401
 
@@ -92,3 +95,42 @@ def requested() -> bool:
 
 def active_signal() -> Optional[str]:
     return None if _ACTIVE is None else _ACTIVE.signal_name
+
+
+#: per-boundary callback (``set_slice_hook``); None without one
+_SLICE_HOOK: Optional[Callable[[str], None]] = None
+
+
+def request(source: str = "SIGTERM") -> bool:
+    """Raise the active guard's drain flag without a signal; False (a
+    no-op) when no guard is active. A real signal name already recorded
+    is never overwritten."""
+    if _ACTIVE is None:
+        return False
+    if _ACTIVE.signal_name is None:
+        _ACTIVE.signal_name = source
+    _ACTIVE.requested = True
+    return True
+
+
+def set_slice_hook(fn: Optional[Callable[[str], None]]) -> None:
+    """Install ``fn(stage)``, called from every non-final drain point
+    (``train.common.launch_boundary``) BEFORE the drain flag is checked,
+    so a hook that calls ``request()`` has the same boundary honour it.
+    It must be cheap and must not raise, with one sanctioned exception:
+    the coord plane's ``CoordWedged`` when a peer never reaches the
+    boundary (a process-fatal verdict)."""
+    global _SLICE_HOOK
+    _SLICE_HOOK = fn
+
+
+def get_slice_hook() -> Optional[Callable[[str], None]]:
+    """The installed hook (None without one), for wrappers that chain
+    onto it."""
+    return _SLICE_HOOK
+
+
+def poll_slice(stage: str) -> None:
+    """A drain point's call into the installed hook (no-op without one)."""
+    if _SLICE_HOOK is not None:
+        _SLICE_HOOK(stage)

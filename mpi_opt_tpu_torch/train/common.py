@@ -34,14 +34,15 @@ def seed_warm_row(unit: torch.Tensor, warm_obs) -> torch.Tensor:
     return unit
 
 
-def workload_arrays(workload, member_chunk: int, dev):
+def workload_arrays(workload, member_chunk: int, dev, mesh=None):
     """(trainer, space, train_x, train_y, val_x, val_y) of a population
     workload, the data on ``dev`` (labels as int64), cached on the
     workload instance as the JAX package caches them: the brackets of a
     Hyperband sweep, or a bench's warm-up and measured run, upload the
     data once. The key holds what shapes the trainer (member chunk,
     device, momentum dtype). A miss is traced as the ``setup`` span,
-    with the device kind the roofline's cap is looked up by."""
+    with the device kind the roofline's cap is looked up by. ``mesh``
+    gives the trainer over that mesh (``PopulationTrainer.on_mesh``)."""
     from mpi_opt_tpu_torch.workloads.base import resolve_momentum_dtype
 
     key = (member_chunk, str(dev), resolve_momentum_dtype())
@@ -57,7 +58,8 @@ def workload_arrays(workload, member_chunk: int, dev):
             )
             workload._fused_cache = (key, trainer, workload.default_space(), train_x,
                                      train_y.long(), val_x, val_y.long())
-    return workload._fused_cache[1:]
+    trainer, *rest = workload._fused_cache[1:]
+    return (trainer if mesh is None else trainer.on_mesh(mesh), *rest)
 
 
 def journal_boundary(journal, b_local: int, members, units, scores, step: int,
@@ -81,15 +83,16 @@ POPULATION_METRICS = ("accuracy", "params", "latency")
 
 def eval_population_objectives(trainer, state, val_x, val_y, names) -> torch.Tensor:
     """Raw objective matrix ``float32[P, m]``, one column per name, on
-    the population's device: nothing is read back to the host."""
+    the population's device: nothing is read back to the host. Under a
+    mesh every column covers the whole population."""
     cols = []
     for name in names:
         if name == "accuracy":
             cols.append(trainer.eval_population(state, val_x, val_y))
         elif name == "params":
-            cols.append(trainer.member_effective_params(state))
+            cols.append(trainer.gather_rows(trainer.member_effective_params(state), state))
         elif name == "latency":
-            cols.append(trainer.member_latency_proxy(state))
+            cols.append(trainer.gather_rows(trainer.member_latency_proxy(state), state))
         else:
             raise ValueError(
                 f"unknown population objective {name!r}; supported: {POPULATION_METRICS}"
@@ -178,15 +181,30 @@ def launch_boundary(stage: str, *, final: bool, snapshot=None, **progress) -> No
     ``final=True`` (the last boundary) suppresses the drain: completing
     a finished sweep beats preempting it.
 
-    The port runs one process, so the JAX package's multi-process drain
-    agreement (``parallel/coord.py``) is not here, and it has no sweep
-    service, so neither is the service's per-boundary slice hook."""
+    Under multi-process SPMD the coord plane (``parallel/coord.py``)
+    chains its drain agreement onto the shutdown slice hook: the tick
+    votes this rank's shutdown flag into the boundary's barrier, and
+    the drain additionally requires the AGREED verdict
+    (``coord.drain_allowed``), so a signal that lands on one rank after
+    this boundary's vote closed waits for the next boundary's vote
+    instead of draining half the world. The stage is then labelled
+    ``boundary:<stage>``: a rank frozen here waits in the agreement
+    barrier, the last-beat shape ``launch.py`` reads as a collective
+    wedge. The port has no sweep service, so nothing else uses the
+    hook."""
     from mpi_opt_tpu_torch.health import heartbeat, shutdown
+    from mpi_opt_tpu_torch.parallel import coord
     from mpi_opt_tpu_torch.utils import resources
 
+    if coord.active_plane() is not None:
+        stage = f"boundary:{stage}"
     resources.boundary_fault(stage)
     heartbeat.beat(stage=stage, **progress)
+    if not final:
+        shutdown.poll_slice(stage)
     if final or not shutdown.requested():
+        return
+    if not coord.drain_allowed():
         return
     if snapshot is not None:
         snapshot()

@@ -16,9 +16,10 @@ ring update); this module owns:
 - ``run_wave``: stage in, train, eval one wave.
   ``resources.launch_fault("wave")`` is its first line, the seam the
   OOM drills inject through;
-- ``resolve_wave_size``: ``auto`` estimation and the pre-clamp of an
-  explicit cap against the measured budget. The port runs one process,
-  so the JAX package's multi-process cap agreement is not here;
+- ``resolve_wave_size``: ``auto`` estimation, the pre-clamp of an
+  explicit cap against the measured budget, and under multi-process
+  SPMD the min-agreement of the cap through the coord plane
+  (``parallel/coord.py``);
 - ``boundary_span``: traces a boundary op as a ``boundary`` span and
   beats the heartbeat from inside it.
 
@@ -37,6 +38,17 @@ threads every draw: each wave starts from the generator state saved at
 the interval's start and makes the whole cohort's draws, so after the
 last wave the generator stands where the resident segment leaves it.
 An OOM re-run restarts its waves from that same state.
+
+Under a mesh (``parallel/mesh.py``) a wave splits over the ranks' ``pop``
+axis: each rank stages in and trains its rows of the wave, and the
+wave's state and scores are gathered before the stage-out, on the main
+thread (collectives keep one order on every rank), so every rank's host
+pools hold every member, as every JAX process holds the full host copy.
+An OOM halving is the world's: a rank whose attempt ran out of memory
+checks in with its flag (``parallel/mesh.py::check_in``), which its
+peers meet at the start of their next collective (or at their attempt's
+end) and leave with ``PeerOOM``; then every rank votes the attempt
+through the coord plane, and all halve together or none does.
 """
 
 from __future__ import annotations
@@ -136,21 +148,26 @@ def boundary_span(op: str, **attrs):
         yield sp
 
 
-def resolve_wave_size(trainer, population: int, *, wave_size, oom_backoff: int = 0) -> int:
+def resolve_wave_size(trainer, population: int, *, wave_size, oom_backoff: int = 0,
+                      mesh=None) -> int:
     """The requested wave cap (``'auto'`` or an int) resolved for a
     ``population``-member sweep; 0 (or a cap >= population) means
     resident. ``auto`` is ``estimate_wave_size``; with ``oom_backoff``
     on and a measured device budget, an explicit cap above the estimate
     is clamped to it before the first launch. With a member chunk the
     cap holds whole chunks (``whole_chunks``), never less than one.
-    Every change is notified as a ``wave_resized`` event."""
+    Every change is notified as a ``wave_resized`` event.
+
+    Under multi-process SPMD (an active coord plane) every rank sizes
+    against its own card, then the cap is min-agreed: all ranks must run
+    the same wave schedule, and the most constrained one binds."""
     if not wave_size:
         return 0
     from mpi_opt_tpu_torch.train.staging import estimate_wave_size
 
     was_auto = wave_size == "auto"
     if was_auto:
-        wave_size = estimate_wave_size(trainer, population)
+        wave_size = estimate_wave_size(trainer, population, mesh=mesh)
         if wave_size < population:
             resources.notify("wave_resized", requested="auto", wave_size=int(wave_size),
                              population=population)
@@ -161,7 +178,7 @@ def resolve_wave_size(trainer, population: int, *, wave_size, oom_backoff: int =
         from mpi_opt_tpu_torch.obs import memory
 
         if memory.measured_budget(trainer.device) is not None:
-            est = estimate_wave_size(trainer, population)
+            est = estimate_wave_size(trainer, population, mesh=mesh)
             if est < wave_size:
                 resources.notify("wave_resized", requested=wave_size, wave_size=est,
                                  population=population)
@@ -171,11 +188,23 @@ def resolve_wave_size(trainer, population: int, *, wave_size, oom_backoff: int =
         resources.notify("wave_resized", requested=wave_size, wave_size=whole,
                          population=population, member_chunk=trainer.member_chunk)
         wave_size = whole
+    from mpi_opt_tpu_torch.parallel import coord
+
+    plane = coord.active_plane()
+    if plane is not None and 0 < wave_size:
+        # every rank votes its settled cap (clamped to resident); the
+        # most constrained rank's answer binds them all
+        agreed = plane.agree_cap("wave_cap", min(wave_size, population))
+        if agreed and agreed != wave_size:
+            resources.notify("wave_resized", requested=wave_size, wave_size=agreed,
+                             population=population, agreed=True)
+            wave_size = agreed
     return wave_size
 
 
 def run_wave(trainer, pool, rows, offset: int, hp, train_x, train_y, val_x, val_y,
-             generator: torch.Generator, rng_start, steps: int, engine, launch_width: int = 0):
+             generator: torch.Generator, rng_start, steps: int, engine, launch_width: int = 0,
+             mesh=None, keep_state: bool = True):
     """Stage in, train and eval ONE wave: members [offset, offset+W) of
     the interval's cohort. ``rows`` are the pool rows to stage in (the
     previous boundary's map applied: staging in IS the winners' or
@@ -183,20 +212,32 @@ def run_wave(trainer, pool, rows, offset: int, hp, train_x, train_y, val_x, val_
     whole cohort; ``rng_start`` the generator state at the interval's
     start; ``launch_width`` the runner's ``chunk`` (0: the trainer's own
     member chunk). Returns (the wave's state, its scores), both on the
-    card."""
+    card.
+
+    Under ``mesh`` this rank stages in and trains its rows of the wave
+    (all of them when ``pop`` does not divide it); the returned scores
+    are the whole wave's, gathered, and so is the state unless
+    ``keep_state`` is False (a scores-only stage-out: TPE's)."""
     from mpi_opt_tpu_torch.train.staging import tree_bytes
 
     resources.launch_fault("wave")
     if launch_width and launch_width != trainer.member_chunk:
         trainer = trainer.launching(launch_width)
-    with trace.span("stage_in", members=len(rows)) as sp:
-        dev = engine.stage_in(pool, rows)
+    w = len(rows)
+    a, b = (0, w) if mesh is None else mesh.rows(w)
+    with trace.span("stage_in", members=b - a) as sp:
+        dev = engine.stage_in(pool, rows[a:b])
         sp["bytes"] = tree_bytes(dev)
         memory.note(sp, engine.device)
-    st = PopState(params=dev["params"], momentum=dev["momentum"], step=dev["step"])
+    st = PopState(params=dev["params"], momentum=dev["momentum"], step=dev["step"],
+                  cohort=0 if mesh is None else w)
     generator.set_state(rng_start)
-    trainer.train_segment_window(st, hp, train_x, train_y, generator, steps, offset)
-    return st, trainer.eval_population(st, val_x, val_y)
+    trainer.train_segment_window(st, hp, train_x, train_y, generator, steps, offset + a)
+    scores = trainer.eval_population(st, val_x, val_y)
+    if mesh is not None and st.cohort and keep_state:
+        full = trainer.gather_state(st)
+        st = PopState(full["params"], full["momentum"], full["step"])
+    return st, scores
 
 
 class WaveRunner:
@@ -285,8 +326,16 @@ class WaveRunner:
         the interval exactly. An ``oom_backoff`` event carries
         ``notify_fields`` and the launch width before and after. With no
         budget left, or at a cap of one member chunk (1 without a chunk),
-        the ``DeviceOOM`` propagates."""
+        the ``DeviceOOM`` propagates.
+
+        Across processes every attempt ends in a check-in
+        (``mesh.check_in``) that tells each rank whether any rank ran out
+        of memory, then, under an active coord plane, in one ``oom``
+        agreement (the halved cap from every rank that knows of the OOM,
+        0 from none), so the whole world halves together."""
         from mpi_opt_tpu_torch.health import heartbeat
+        from mpi_opt_tpu_torch.parallel import coord
+        from mpi_opt_tpu_torch.parallel import mesh as mesh_mod
 
         while True:  # one pass per OOM-backoff attempt
             wave_lens, offs, n_waves = wave_layout(n, self.wave_size, self.chunk)
@@ -330,11 +379,24 @@ class WaveRunner:
                     if flops:
                         sp["flops"] = flops
                     memory.note(sp, self.device)
-                return wave_scores
+                error = None
             except resources.DeviceOOM as e:
-                if self.oom_budget <= 0 or self.wave_size <= max(1, self.chunk):
-                    raise
-                error = str(e)[:300]
+                error = e
+            # the world learns of an OOM: a rank that failed, or finished,
+            # checks in; a peer that left through PeerOOM already did
+            if not isinstance(error, mesh_mod.PeerOOM) and mesh_mod.check_in(error is not None) and error is None:
+                error = mesh_mod.PeerOOM("a peer rank ran out of device memory in this attempt")
+            if error is not None and (self.oom_budget <= 0 or self.wave_size <= max(1, self.chunk)):
+                raise error
+            error = None if error is None else str(error)[:300]
+            # the OOM agreement: one barrier an attempt on every rank, so
+            # a halving is the world's or nobody's (without a plane the
+            # local proposal stands)
+            proposed = 0 if error is None else whole_chunks(max(1, self.wave_size // 2), self.chunk, n)
+            plane = coord.active_plane()
+            agreed = plane.agree_cap("oom", proposed) if plane is not None else proposed
+            if not agreed:
+                return wave_scores
             # the failed attempt's tensors die with its frames; settle
             # what the engine holds, then give the memory back
             wave_scores = None
@@ -351,7 +413,7 @@ class WaveRunner:
             self.oom_budget -= 1
             self.oom_backoffs += 1
             width = self.launch_width
-            self.wave_size = whole_chunks(max(1, self.wave_size // 2), self.chunk, n)
+            self.wave_size = agreed
             scores_host.fill_(float("nan"))
             start_wave = 0
             resources.notify("oom_backoff", **dict(notify_fields), wave_size=self.wave_size,

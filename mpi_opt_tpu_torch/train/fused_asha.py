@@ -25,8 +25,12 @@ multi-objective: each rung evaluates the objective matrix on the
 device, the cut ranks by Pareto score (``ops.asha.asha_cut_mo``), the
 journal records each member's vector, and the winner is the last rung's
 best feasible survivor. ``warm_obs`` (prior-ledger observations)
-starts one cohort row at the prior best. Not here yet (the JAX
-package's ``fused_sha`` has them): ``mesh`` and ``round_to``.
+starts one cohort row at the prior best.
+
+``mesh`` shards every rung's cohort over the ranks' ``pop`` axis, and
+``round_to`` (``mesh.shape["pop"]`` by default under a mesh) rounds the
+survivor counts up to a multiple of it, so every rung after the first
+shards; the cut moves only the survivors another rank holds.
 """
 
 from __future__ import annotations
@@ -56,14 +60,6 @@ from mpi_opt_tpu_torch.train.engine import WaveRunner, boundary_span, resolve_wa
 from mpi_opt_tpu_torch.train.engine import run_wave as _run_wave
 from mpi_opt_tpu_torch.train.population import PopState
 from mpi_opt_tpu_torch.utils import profiling
-
-# arguments of the JAX package's fused_sha that the port does not take
-# yet, with their defaults: a non-default value raises
-_NOT_PORTED = {
-    "mesh": None,
-    "round_to": 1,
-}
-
 
 def _cut_and_gather(trainer, state, unit, scores, eta: int, k: int, norm_bounds=None):
     """One rung reduction: rank, keep the top ``k`` (the rung's known
@@ -118,7 +114,8 @@ def fused_sha(  # sweeplint: barrier(rung host loop: gathers cohort scores for t
     init_unit=None,
     objectives=None,
     warm_obs=None,
-    **not_ported,
+    mesh=None,
+    round_to: int = 1,
 ):
     """Run a whole successive-halving sweep with on-device rung cuts.
 
@@ -152,16 +149,21 @@ def fused_sha(  # sweeplint: barrier(rung host loop: gathers cohort scores for t
     objectives and pareto (the last rung's front, as ``fused_pbt``'s;
     None on a scalar sweep or a resume past the last rung), and in wave
     mode ``WaveRunner.result_extras()``.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``): every rank calls with the same
+    arguments; each trains and scores its rows of every rung, and all
+    return the same result. ``round_to`` rounds the rung sizes up to a
+    multiple (``sha_cohort_sizes``); under a mesh it defaults to the
+    ``pop`` axis, so only a first cohort that the axis does not divide
+    runs replicated (with a warning).
     """
-    for name, value in not_ported.items():
-        if name not in _NOT_PORTED:
-            raise TypeError(f"fused_sha() got an unexpected keyword argument {name!r}")
-        default = _NOT_PORTED[name]
-        if (value is not None) if default is None else (value != default):
-            raise NotImplementedError(f"fused_sha({name}=...) is not ported yet")
+    if mesh is not None and round_to == 1:
+        round_to = mesh.shape["pop"]
     dev = resolve_device(device)
-    trainer, space, train_x, train_y, val_x, val_y = workload_arrays(workload, member_chunk, dev)
-    wave_size = resolve_wave_size(trainer, n_trials, wave_size=wave_size, oom_backoff=oom_backoff)
+    trainer, space, train_x, train_y, val_x, val_y = workload_arrays(workload, member_chunk, dev,
+                                                                     mesh)
+    wave_size = resolve_wave_size(trainer, n_trials, wave_size=wave_size, oom_backoff=oom_backoff,
+                                  mesh=mesh)
     waves = 0 < wave_size < n_trials
     norm_bounds = None
     if objectives is not None:
@@ -175,7 +177,7 @@ def fused_sha(  # sweeplint: barrier(rung host loop: gathers cohort scores for t
             # on the device once, not a copy a rung
             norm_bounds = torch.as_tensor(objectives.norm_bounds(), device=dev)
     rungs = asha_rungs(min_budget, max_budget, eta)
-    sizes = sha_cohort_sizes(n_trials, len(rungs), eta)
+    sizes = sha_cohort_sizes(n_trials, len(rungs), eta, round_to)
     if init_unit is not None:
         init_unit = np.asarray(init_unit, dtype=np.float32)
         if init_unit.shape != (n_trials, space.dim):
@@ -216,7 +218,7 @@ def fused_sha(  # sweeplint: barrier(rung host loop: gathers cohort scores for t
             # the selection rule shapes every cut; a scalar sweep writes
             # no key, so its snapshots resume as before
             ck_config["objectives"] = objectives.spec()
-        snap = SweepCheckpointer(checkpoint_dir, ck_config)
+        snap = SweepCheckpointer(checkpoint_dir, ck_config, mesh=mesh)
         restored = snap.restore_population_sweep()
     if restored is not None:
         host_state, unit, rng_state, np_scores, meta = restored
@@ -237,9 +239,8 @@ def fused_sha(  # sweeplint: barrier(rung host loop: gathers cohort scores for t
                                              "step": host_state.step})
             perm = np.arange(len(alive))
         else:
-            state = PopState({k: v.to(dev) for k, v in host_state.params.items()},
-                             {k: v.to(dev) for k, v in host_state.momentum.items()},
-                             host_state.step.to(dev))
+            # this rank's rows of the full restored copy under a mesh
+            state = trainer.place(host_state)
     journal = make_journal(ledger, space, boundary_offset=boundary_offset,
                            trial_offset=trial_offset, member_offset=member_offset)
     if journal is not None:
@@ -308,7 +309,7 @@ def fused_sha(  # sweeplint: barrier(rung host loop: gathers cohort scores for t
                              rng_start=rng_start, steps=steps):
                     return _run_wave(trainer, pool_front, perm[off:off + wl], off, hp, train_x,
                                      train_y, val_x, val_y, gen, rng_start, steps, eng,
-                                     launch_width=runner.chunk)
+                                     launch_width=runner.chunk, mesh=mesh)
 
                 wave_scores = runner.run_interval(
                     n=n_r,
@@ -457,14 +458,6 @@ def fused_sha(  # sweeplint: barrier(rung host loop: gathers cohort scores for t
     }
 
 
-# arguments of the JAX package's fused_hyperband that the port does not
-# take yet, with their defaults: a non-default value raises
-_HB_NOT_PORTED = {
-    "mesh": None,
-    "round_to": 1,
-}
-
-
 def _bracket_cohort(checkpoint_dir, b: int, n: int, tag: str, cohort_fn):  # sweeplint: barrier(bracket cohort cache: materializes suggested units to disk)
     """Bracket ``b``'s initial cohort ``(unit [n, dim], n_model)`` from
     ``cohort_fn``, persisted as ``cohort_{b}.npz`` beside the bracket
@@ -490,11 +483,18 @@ def _bracket_cohort(checkpoint_dir, b: int, n: int, tag: str, cohort_fn):  # swe
             return cohort, n_model
     cohort, n_model = cohort_fn(b, n)
     if path is not None:
+        import torch.distributed as dist
+
         os.makedirs(checkpoint_dir, exist_ok=True)
-        # write, then rename: a crash mid-write leaves no torn cohort
-        with open(f"{path}.tmp", "wb") as f:
+        # write, then rename: a crash mid-write leaves no torn cohort.
+        # The temporary name is the rank's: under multi-process SPMD
+        # every rank writes the same bytes to the shared directory, and
+        # two ranks sharing one temporary file would race
+        rank = dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+        tmp = f"{path}.tmp{rank}"
+        with open(tmp, "wb") as f:
             np.savez(f, cohort=cohort, n_model=n_model, tag=np.asarray(tag))
-        os.replace(f"{path}.tmp", path)
+        os.replace(tmp, path)
     return cohort, n_model
 
 
@@ -512,7 +512,8 @@ def fused_hyperband(
     cohort_fn=None,
     observe_fn=None,
     warm_obs=None,
-    **not_ported,
+    mesh=None,
+    round_to: int = 1,
 ):
     """Hyperband with every bracket a fused SHA sweep (port of the JAX
     package's ``fused_hyperband``).
@@ -538,7 +539,8 @@ def fused_hyperband(
     the hookless case of the same loop. ``warm_obs`` reaches every
     bracket's ``fused_sha`` (row 0 of each uniform cohort starts at the
     prior best) only without ``cohort_fn``: a model-drawn cohort is
-    BOHB's, which files the priors into its model instead.
+    BOHB's, which files the priors into its model instead. ``mesh`` and
+    ``round_to`` reach every bracket's ``fused_sha``.
 
     Returns the JAX package's result: best_score and best_params (the
     best finite bracket's, ``best_finite``), the per-bracket summaries
@@ -552,12 +554,6 @@ def fused_hyperband(
     from mpi_opt_tpu_torch.algorithms.base import best_finite
     from mpi_opt_tpu_torch.algorithms.hyperband import bracket_plan
 
-    for name, value in not_ported.items():
-        if name not in _HB_NOT_PORTED:
-            raise TypeError(f"fused_hyperband() got an unexpected keyword argument {name!r}")
-        default = _HB_NOT_PORTED[name]
-        if (value is not None) if default is None else (value != default):
-            raise NotImplementedError(f"fused_hyperband({name}=...) is not ported yet")
     best = None
     brackets = []
     n_total = 0
@@ -595,6 +591,8 @@ def fused_hyperband(
             member_offset=member_off,
             init_unit=cohort,
             warm_obs=warm_obs if cohort_fn is None else None,
+            mesh=mesh,
+            round_to=round_to,
         )
         boundary_off += len(res["rung_budgets"])
         trial_off += sum(res["rung_sizes"])

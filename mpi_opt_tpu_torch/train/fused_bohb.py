@@ -20,8 +20,12 @@ the model drawing the same bits again.
 
 ``warm_obs`` (a prior sweep's observations) files into the same
 ``ObsStore`` before the first bracket, so the model can qualify before
-any bracket ran. Not here yet (the JAX package's ``fused_bohb`` has
-them): ``mesh`` and ``round_to``.
+any bracket ran.
+
+Under a ``mesh`` the acquisition runs identically on every rank (same
+generator, same observations: every rank's brackets return the same
+rung records) and each rank trains its rows of the cohort;
+``round_to`` reaches the brackets' ``fused_sha``.
 """
 
 from __future__ import annotations
@@ -35,11 +39,6 @@ from mpi_opt_tpu_torch.ops.tpe import TPEConfig, tpe_suggest
 from mpi_opt_tpu_torch.train.common import workload_arrays
 from mpi_opt_tpu_torch.train.engine import boundary_span
 from mpi_opt_tpu_torch.train.fused_asha import fused_hyperband
-
-# arguments of the JAX package's fused_bohb that the port does not take
-# yet, with their defaults: a non-default value raises
-_NOT_PORTED = {"mesh": None, "round_to": 1}
-
 
 def bracket_generator(seed: int, b: int, device) -> torch.Generator:
     """Bracket ``b``'s cohort generator, seeded from (seed, 104729 + b)
@@ -65,7 +64,8 @@ def fused_bohb(  # sweeplint: barrier(bracket host loop: files rung observations
     oom_backoff: int = 2,
     device=None,
     warm_obs=None,
-    **not_ported,
+    mesh=None,
+    round_to: int = 1,
 ):
     """Returns ``fused_hyperband``'s result, each bracket's summary with
     ``n_model_sampled`` (how many of its cohort the model drew).
@@ -75,13 +75,8 @@ def fused_bohb(  # sweeplint: barrier(bracket host loop: files rung observations
     offsets; ``checkpoint_dir`` snapshots every rung and persists every
     cohort. ``warm_obs`` (prior-ledger observations, cross-mode): each
     finite prior is filed into the per-budget ``ObsStore`` at its budget
-    before the first bracket (the driver BOHB's warm start)."""
-    for name, value in not_ported.items():
-        if name not in _NOT_PORTED:
-            raise TypeError(f"fused_bohb() got an unexpected keyword argument {name!r}")
-        default = _NOT_PORTED[name]
-        if (value is not None) if default is None else (value != default):
-            raise NotImplementedError(f"fused_bohb({name}=...) is not ported yet")
+    before the first bracket (the driver BOHB's warm start). ``mesh`` /
+    ``round_to``: ``fused_sha``'s, for every bracket."""
     dev = resolve_device(device)
     _, space, *_ = workload_arrays(workload, member_chunk, dev)
     if n_min is None:
@@ -135,4 +130,6 @@ def fused_bohb(  # sweeplint: barrier(bracket host loop: files rung observations
         # the priors are in the ObsStore already: passing them down would
         # also seed the brackets' cohorts and count them twice
         warm_obs=None,
+        mesh=mesh,
+        round_to=round_to,
     )

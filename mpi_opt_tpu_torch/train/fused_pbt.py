@@ -29,6 +29,12 @@ device, the exploit ranks by Pareto score (``pbt_exploit_explore_mo``),
 the journal records each member's vector, and the winner is the best
 feasible member (``objectives.select_best``). As in the JAX package it
 runs resident only, without ``step_chunk``.
+
+``mesh`` (``parallel/mesh.py``) shards the population over ranks: each
+rank trains and scores its rows, every rank computes the same exploit
+from the gathered scores, and only the rows the exploit copies move
+between ranks. A pop-sharded sweep gives the bits of a one-process
+sweep launched at the same width (``member_chunk = P / n_pop``).
 """
 
 from __future__ import annotations
@@ -67,12 +73,6 @@ from mpi_opt_tpu_torch.train.engine import (
 from mpi_opt_tpu_torch.train.engine import run_wave as _run_wave
 from mpi_opt_tpu_torch.train.population import PopState
 from mpi_opt_tpu_torch.utils import profiling, resources
-
-# arguments of the JAX package's fused_pbt that the port does not take
-# yet, with their defaults: a non-default value raises
-_NOT_PORTED = {
-    "mesh": None,
-}
 
 
 def finish_generation(trainer, state, unit, generator, val_x, val_y, disc, cfg: PBTConfig,
@@ -143,7 +143,7 @@ def fused_pbt(  # sweeplint: barrier(resident host loop: launch boundaries, expl
     device=None,
     objectives=None,
     warm_obs=None,
-    **not_ported,
+    mesh=None,
 ):
     """Run a whole PBT sweep of a population workload.
 
@@ -199,12 +199,13 @@ def fused_pbt(  # sweeplint: barrier(resident host loop: launch boundaries, expl
     selection, violation; None on a scalar sweep, or on a resume that
     restarted past the last launch); in wave mode also ``WaveRunner.result_extras()``, and ``state`` is
     on the host.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``) runs the sweep sharded over the
+    ranks' ``pop`` axis and splits each batch over ``data``; every rank
+    calls ``fused_pbt`` with the same arguments and gets the same
+    result, except ``state``: this rank's rows (all of them in wave
+    mode, where the pools are host copies every rank holds).
     """
-    for name, value in not_ported.items():
-        if name not in _NOT_PORTED:
-            raise TypeError(f"fused_pbt() got an unexpected keyword argument {name!r}")
-        if value != _NOT_PORTED[name]:
-            raise NotImplementedError(f"fused_pbt({name}=...) is not ported yet")
     if generations < 1:
         raise ValueError(f"generations must be >= 1, got {generations}")
     if step_chunk > 0 and gen_chunk > 1:
@@ -226,10 +227,11 @@ def fused_pbt(  # sweeplint: barrier(resident host loop: launch boundaries, expl
         check_objectives(workload, objectives)
     dev = resolve_device(device)
 
-    trainer, space, train_x, train_y, val_x, val_y = workload_arrays(workload, member_chunk, dev)
+    trainer, space, train_x, train_y, val_x, val_y = workload_arrays(workload, member_chunk, dev,
+                                                                     mesh)
     if wave_size:
         wave_size = resolve_wave_size(trainer, population, wave_size=wave_size,
-                                      oom_backoff=oom_backoff)
+                                      oom_backoff=oom_backoff, mesh=mesh)
         if 0 < wave_size < population:
             if step_chunk > 0 or gen_chunk > 1:
                 raise ValueError(
@@ -239,7 +241,8 @@ def fused_pbt(  # sweeplint: barrier(resident host loop: launch boundaries, expl
             return _fused_pbt_waves(
                 workload, trainer, space, (train_x, train_y, val_x, val_y), population,
                 generations, steps_per_gen, seed, cfg, member_chunk, wave_size,
-                checkpoint_dir, snapshot_every, snapshot_last, ledger, oom_backoff, dev, warm_obs)
+                checkpoint_dir, snapshot_every, snapshot_last, ledger, oom_backoff, dev, warm_obs,
+                mesh)
     disc = space.discrete_mask()
     to_hparams = hparams_fn(space, workload)
 
@@ -279,15 +282,12 @@ def fused_pbt(  # sweeplint: barrier(resident host loop: launch boundaries, expl
             # the selection rule is part of the trajectory; a scalar
             # sweep writes no key, so its snapshots resume as before
             ck_config["objectives"] = objectives.spec()
-        snap = SweepCheckpointer(checkpoint_dir, ck_config)
+        snap = SweepCheckpointer(checkpoint_dir, ck_config, mesh=mesh)
         restored = snap.restore_population_sweep()
     if restored is not None:
         host_state, unit, rng_state, scores_np, meta = restored
-        state = PopState(
-            params={k: v.to(dev) for k, v in host_state.params.items()},
-            momentum={k: v.to(dev) for k, v in host_state.momentum.items()},
-            step=host_state.step.to(dev),
-        )
+        # this rank's rows of the full restored copy under a mesh
+        state = trainer.place(host_state)
         unit = unit.to(dev)
         gen.set_state(rng_state)
         best_parts = [np.asarray(v, dtype=np.float32) for v in meta["best"]]
@@ -434,6 +434,7 @@ def _fused_pbt_waves(  # sweeplint: barrier(wave host loop: stages pools, gather
     workload, trainer, space, data, population: int, generations: int, steps_per_gen: int,
     seed: int, cfg: PBTConfig, member_chunk: int, wave_size: int, checkpoint_dir,
     snapshot_every: int, snapshot_last: bool, ledger, oom_backoff: int, dev, warm_obs=None,
+    mesh=None,
 ):
     """Fused PBT over a population held in host pools, ``ceil(P/W)``
     waves a generation (``engine.WaveRunner``), with the exploit over the
@@ -460,7 +461,10 @@ def _fused_pbt_waves(  # sweeplint: barrier(wave host loop: stages pools, gather
     post-exploit scores), and BETWEEN waves when a graceful drain is
     pending (both pools, the scores so far, the generator state at the
     generation's start), so a preempted sweep resumes without
-    re-training completed waves."""
+    re-training completed waves.
+
+    Under a mesh each wave splits over the ranks (``run_wave``), every
+    rank holds the full pools, and only rank 0 writes snapshots."""
     from mpi_opt_tpu_torch.train.staging import nan_scores, pool_copy, pool_rows, population_pool
 
     train_x, train_y, val_x, val_y = data
@@ -496,7 +500,7 @@ def _fused_pbt_waves(  # sweeplint: barrier(wave host loop: stages pools, gather
             "wave_size": req_wave_size,
             "wave_lens": list(wave_lens),
             "device": dev.type,
-        })
+        }, mesh=mesh)
         restored = snap.restore_wave_sweep()
     if restored is not None:
         sweep, meta = restored
@@ -551,7 +555,7 @@ def _fused_pbt_waves(  # sweeplint: barrier(wave host loop: stages pools, gather
             def dispatch(w, off, wl, eng, hp=hp, pool_front=pool_front, perm=perm, rng_start=rng_start):
                 return _run_wave(trainer, pool_front, perm[off:off + wl], off, hp, train_x, train_y,
                                  val_x, val_y, gen, rng_start, steps_per_gen, eng,
-                                 launch_width=runner.chunk)
+                                 launch_width=runner.chunk, mesh=mesh)
 
             def dst(off, wl, pool_back=pool_back):
                 return {"state": pool_rows(pool_back, off, wl), "scores": scores_host[off:off + wl]}

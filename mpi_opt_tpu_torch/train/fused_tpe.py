@@ -24,7 +24,11 @@ and the ring update once every wave's scores landed. An OOM re-run
 replays the generation from the drawn suggestions and the pool, so
 waves equal the resident sweep on the CPU.
 
-Not here yet (the JAX package's ``fused_tpe`` has it): ``mesh``.
+Under a ``mesh`` every rank holds the ring and runs the same
+acquisition from the same generator; each trains and scores its rows of
+the generation's cohort (``Mesh.rows``' slice, made by
+``init_population``), and the scores come back gathered, so every
+rank writes the same ring.
 """
 
 from __future__ import annotations
@@ -50,11 +54,6 @@ from mpi_opt_tpu_torch.train.common import (
 from mpi_opt_tpu_torch.train.engine import WaveRunner, boundary_span, resolve_wave_size
 from mpi_opt_tpu_torch.train.engine import run_wave as _run_wave
 from mpi_opt_tpu_torch.utils import profiling
-
-# arguments of the JAX package's fused_tpe that the port does not take
-# yet, with their defaults: a non-default value raises
-_NOT_PORTED = {"mesh": None}
-
 
 def _tpe_ring_update(obs_unit, obs_scores, valid, sugg, scores, write_pos: int) -> None:
     """Write a completed batch's (units, scores) into the ring at
@@ -109,7 +108,7 @@ def fused_tpe(  # sweeplint: barrier(batch host loop: fetches obs ring for snaps
     ledger=None,
     device=None,
     warm_obs=None,
-    **not_ported,
+    mesh=None,
 ):
     """Run an ``n_trials`` TPE sweep as ceil(n_trials/batch) fused
     generations, the last one sized to the remainder.
@@ -140,22 +139,21 @@ def fused_tpe(  # sweeplint: barrier(batch host loop: fetches obs ring for snaps
     best_curve (the running best after each generation),
     member_failures (diverged suggestions a generation), obs_unit and
     obs_scores (this sweep's ``n_trials`` rows), n_trials, n_warm,
-    journal, and in wave mode ``WaveRunner.result_extras()``."""
-    for name, value in not_ported.items():
-        if name not in _NOT_PORTED:
-            raise TypeError(f"fused_tpe() got an unexpected keyword argument {name!r}")
-        if value is not None:
-            raise NotImplementedError(f"fused_tpe({name}=...) is not ported yet")
+    journal, and in wave mode ``WaveRunner.result_extras()``. ``mesh``
+    (a ``parallel.mesh.Mesh``): every rank calls with the same arguments
+    and gets the same result."""
     if n_trials < 1:
         raise ValueError(f"n_trials must be >= 1, got {n_trials}")
     dev = resolve_device(device)
-    trainer, space, train_x, train_y, val_x, val_y = workload_arrays(workload, member_chunk, dev)
+    trainer, space, train_x, train_y, val_x, val_y = workload_arrays(workload, member_chunk, dev,
+                                                                     mesh)
     d = space.dim
     sizes = [batch] * (n_trials // batch)
     if n_trials % batch:
         sizes.append(n_trials % batch)
     # the residency question is about the largest generation cohort
-    wave_size = resolve_wave_size(trainer, max(sizes), wave_size=wave_size, oom_backoff=oom_backoff)
+    wave_size = resolve_wave_size(trainer, max(sizes), wave_size=wave_size, oom_backoff=oom_backoff,
+                                  mesh=mesh)
     waves = 0 < wave_size < max(sizes)
     # finite-scored priors only: a diverged prior point carries no
     # evidence the model should build on (the driver's ingest rule)
@@ -200,7 +198,7 @@ def fused_tpe(  # sweeplint: barrier(batch host loop: fetches obs ring for snaps
             # the requested (resolved) cap; the OOM-settled one is meta
             "wave_size": wave_size if waves else 0,
             "device": dev.type,
-        })
+        }, mesh=mesh)
         restored = snap.restore()
         if restored is not None:
             sweep, meta = restored
@@ -251,7 +249,7 @@ def fused_tpe(  # sweeplint: barrier(batch host loop: fetches obs ring for snaps
                 def dispatch(w, off, wl, eng, hp=hp, rng_start=rng_start):
                     return _run_wave(trainer, pool, np.arange(off, off + wl), off, hp, train_x,
                                      train_y, val_x, val_y, gen, rng_start, budget, eng,
-                                     launch_width=runner.chunk)
+                                     launch_width=runner.chunk, mesh=mesh, keep_state=False)
 
                 wave_scores = runner.run_interval(
                     n=n_g,

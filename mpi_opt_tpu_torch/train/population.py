@@ -33,6 +33,19 @@ gives the same bits. Without a member chunk a launch is the whole
 cohort (or wave) the trainer is handed, except in a wave sweep that
 may halve its cap: the wave engine then gives every launch one fixed
 width (``train/engine.py::launch_chunk``, through ``launching``).
+
+Under a ``('pop', 'data')`` mesh (``on_mesh``, ``parallel/mesh.py``) a
+``PopState`` holds THIS rank's rows of a ``cohort``-member population
+(its contiguous slice over ``pop``, or all of them when ``pop`` does not
+divide the cohort), while hyperparameters, scores and exploit maps stay
+global, as every rank's host holds them. Every rank makes the whole
+cohort's draws (init, batch, augmentation) and keeps its slice, so a
+pop-sharded run equals a one-process run launched at the same width
+(``member_chunk = P / n_pop``). ``eval_population`` returns the global
+scores (an all_gather over ``pop``), ``gather_members`` moves only the
+rows another rank owns, and over ``data`` a rank trains on its share of
+each minibatch and averages gradients and losses with its data peers
+before the update.
 """
 
 from __future__ import annotations
@@ -69,11 +82,14 @@ class OptHParams:
 
 @dataclasses.dataclass
 class PopState:
-    """Population training state; every tensor's leading axis is the member."""
+    """Population training state; every tensor's leading axis is the
+    member. Under a mesh the rows are this rank's of a ``cohort``-member
+    population (0: the state is the whole population)."""
 
     params: dict
     momentum: dict
     step: torch.Tensor  # int32[P]
+    cohort: int = 0
 
 
 def draw_batch(generator: torch.Generator, n_data: int, batch_size: int) -> torch.Tensor:
@@ -148,16 +164,78 @@ class PopulationTrainer:
         self.member_chunk = member_chunk
         self.device = resolve_device(device)
         self.momentum_dtype = momentum_dtype
+        self.mesh = None
         # parameters are always passed in (functional_call), so the
         # module itself holds none: built on the meta device
         self.template = model_fn(1, "meta")
 
+    def on_mesh(self, mesh) -> "PopulationTrainer":
+        """This trainer over a ``('pop', 'data')`` mesh (a shallow copy;
+        None gives the one-process trainer). A batch the ``data`` axis
+        does not divide raises ``ValueError``."""
+        if mesh is not None:
+            mesh.batch_rows(self.batch_size)
+        trainer = copy.copy(self)
+        trainer.mesh = mesh
+        return trainer
+
+    def _mesh_rows(self, n: int):
+        """(a, b) of this rank's rows of an ``n``-member cohort."""
+        return (0, n) if self.mesh is None else self.mesh.rows(n)
+
     def init_population(self, generator: torch.Generator, n: int) -> PopState:
-        model = self.model_fn(n, self.device)
-        model.init_params(generator)
-        params = {k: v.detach() for k, v in model.named_parameters()}
+        """Fresh states for ``n`` members (this rank's rows of them under
+        a mesh: each layer is drawn for all ``n``, its rows kept)."""
+        a, b = self._mesh_rows(n)
+        if b - a < n:
+            params = self._init_rows(generator, n, a, b)
+        else:
+            model = self.model_fn(n, self.device)
+            model.init_params(generator)
+            params = {k: v.detach() for k, v in model.named_parameters()}
         momentum = {k: torch.zeros_like(v, dtype=self.momentum_dtype) for k, v in params.items()}
-        return PopState(params, momentum, torch.zeros(n, dtype=torch.int32, device=self.device))
+        return PopState(params, momentum, torch.zeros(b - a, dtype=torch.int32, device=self.device),
+                        cohort=0 if self.mesh is None else n)
+
+    @torch.no_grad()
+    def _init_rows(self, generator: torch.Generator, n: int, a: int, b: int) -> dict:
+        """Rows [a, b) of ``init_population``'s parameters, one layer at
+        a time (``init_population_into``'s draws: bit-identical), so the
+        device holds at most one full-population layer."""
+        model = self.model_fn(n, "meta")
+        params = {}
+        for prefix, layer in init_layers(model):
+            layer.to_empty(device=self.device)
+            layer.init_params(generator)
+            for name, p in layer.named_parameters():
+                params[f"{prefix}.{name}" if prefix else name] = p[a:b].clone()
+            layer.to_empty(device="meta")
+        return {k: params[k] for k, _ in model.named_parameters()}
+
+    def place(self, host: PopState) -> PopState:
+        """A whole population held on the host (a restored snapshot) on
+        this trainer's device: this rank's rows of it under a mesh."""
+        n = host.step.shape[0]
+        a, b = self._mesh_rows(n)
+        take = lambda d: {k: v[a:b].to(self.device) for k, v in d.items()}
+        return PopState(take(host.params), take(host.momentum), host.step[a:b].to(self.device),
+                        cohort=0 if self.mesh is None else n)
+
+    def gather_state(self, state: PopState, root=None):
+        """``{"params", "momentum", "step"}`` of the WHOLE population
+        (a collective under a mesh: every rank must call it; with
+        ``root``, a global rank, only that rank gets it, the others
+        None)."""
+        tree = {"params": state.params, "momentum": state.momentum, "step": state.step}
+        if self.mesh is None or not state.cohort:
+            return tree
+        return self.mesh.gather_tree(tree, state.cohort, root=root)
+
+    def gather_rows(self, x: torch.Tensor, state: PopState) -> torch.Tensor:
+        """A per-member value of this rank's rows made global."""
+        if self.mesh is None or not state.cohort:
+            return x
+        return self.mesh.gather(x, state.cohort)
 
     @torch.no_grad()
     def init_population_into(self, generator: torch.Generator, params: dict) -> None:
@@ -228,6 +306,11 @@ class PopulationTrainer:
             params = {k: _rows(v, a, b, w).detach().requires_grad_() for k, v in state.params.items()}
             loss = _member_loss(self.logits(params, self._inputs(bx, aug, a, b, w)), by)
             grads = torch.autograd.grad(loss.sum(), list(params.values()))
+            if self.mesh is not None and self.mesh.shape["data"] > 1:
+                # the batch is split over ``data``: the full batch's mean
+                # loss and gradient are the data peers' average
+                loss = loss.detach().clone()
+                self.mesh.data_mean_([*grads, loss])
             lr, mu, wd = hp.lr[a:b], hp.momentum[a:b], hp.weight_decay[a:b]
             frozen = None
             if active is not None:
@@ -254,8 +337,11 @@ class PopulationTrainer:
 
     def train_segment(self, state: PopState, hp: OptHParams, train_x, train_y,
                       generator: torch.Generator, steps: int):
-        """``steps`` shared-batch steps; returns (state, mean losses [steps])."""
-        return self.train_segment_window(state, hp, train_x, train_y, generator, steps, 0)
+        """``steps`` shared-batch steps; returns (state, mean losses [steps]).
+        Under a mesh ``hp`` covers the whole cohort and ``state`` this
+        rank's rows of it."""
+        a, _ = self._mesh_rows(hp.lr.shape[0])
+        return self.train_segment_window(state, hp, train_x, train_y, generator, steps, a)
 
     def train_segment_window(self, state: PopState, hp_full: OptHParams, train_x, train_y,
                              generator: torch.Generator, steps: int, offset: int, rem=None):
@@ -271,14 +357,17 @@ class PopulationTrainer:
         losses [steps])."""
         w = state.step.shape[0]
         hp = hp_full.rows(offset, offset + w)
+        # over ``data`` this rank trains on its share of each batch
+        c, d = (0, self.batch_size) if self.mesh is None else self.mesh.batch_rows(self.batch_size)
         losses = []
         for t in range(steps):
             idx = draw_batch(generator, train_x.shape[0], self.batch_size)
-            bx, by = train_x[idx], train_y[idx]
+            bx, by = train_x[idx[c:d]], train_y[idx[c:d]]
             aug = None
             if self.augment and bx.dim() == 4:
                 aug = draw_augment(generator, hp_full.flip_prob, hp_full.shift, self.batch_size)
-                aug = tuple(a[offset:offset + w] for a in aug)
+                aug = (aug[0][offset:offset + w, c:d], aug[1][offset:offset + w],
+                       aug[2][offset:offset + w])
             if rem is None:
                 losses.append(self._pop_update(state, hp, aug, bx, by).mean())
             else:
@@ -298,18 +387,26 @@ class PopulationTrainer:
         ``steps`` should be ``max(rem)``. Frozen members still compute
         each step, but their update is the identity; their step count
         does not advance. A step's loss is the mean over all members with the
-        frozen ones counted as 0, as in the JAX package. Returns (state,
+        frozen ones counted as 0, as in the JAX package. Under a mesh
+        ``hp`` and ``rem`` cover the whole cohort. Returns (state,
         losses [steps])."""
-        return self.train_segment_window(state, hp, train_x, train_y, generator, steps, 0, rem=rem)
+        a, b = self._mesh_rows(hp.lr.shape[0])
+        return self.train_segment_window(state, hp, train_x, train_y, generator, steps, a,
+                                         rem=rem[a:b])
 
     @torch.no_grad()
     def eval_population(self, state: PopState, val_x, val_y, eval_chunk: int = 1024):
-        """Validation accuracy per member: float32[P].
+        """Validation accuracy per member: float32[P] (the whole
+        cohort's under a mesh: each rank scores its rows, then an
+        all_gather).
 
         The val set runs in fixed chunks of ``eval_chunk`` (members in
         ``member_chunk`` slices); the tail chunk is padded and masked,
         not dropped, so every chunk has one shape.
         """
+        return self.gather_rows(self._eval_rows(state, val_x, val_y, eval_chunk), state)
+
+    def _eval_rows(self, state: PopState, val_x, val_y, eval_chunk: int):
         n_val = val_x.shape[0]
         n_chunks = -(-n_val // eval_chunk)
         pad = n_chunks * eval_chunk - n_val
@@ -363,6 +460,7 @@ class PopulationTrainer:
 
         one = copy.copy(self)
         one.member_chunk = 0
+        one.mesh = None
 
         meta = torch.device("meta")
 
@@ -388,11 +486,14 @@ class PopulationTrainer:
         f_eval = count(lambda: one.eval_population(state, vx, vy, eval_chunk))
         return f_step, f_eval
 
-    @staticmethod
     @torch.no_grad()
-    def select_members(fresh_mask: torch.Tensor, fresh: PopState, existing: PopState) -> PopState:
+    def select_members(self, fresh_mask: torch.Tensor, fresh: PopState, existing: PopState) -> PopState:
         """Per-member choice between a fresh init (where ``fresh_mask``,
-        bool [P], is set) and existing state."""
+        bool [P] over the whole cohort, is set) and existing state."""
+        if existing.cohort and fresh_mask.shape[0] != existing.step.shape[0]:
+            a, b = self._mesh_rows(existing.cohort)
+            fresh_mask = fresh_mask[a:b]
+
         def pick(a, b):
             return torch.where(fresh_mask.view((-1,) + (1,) * (a.dim() - 1)), a, b)
 
@@ -400,10 +501,16 @@ class PopulationTrainer:
             return {k: pick(fa[k], fb[k]) for k in fa}
 
         return PopState(tree(fresh.params, existing.params), tree(fresh.momentum, existing.momentum),
-                        pick(fresh.step, existing.step))
+                        pick(fresh.step, existing.step), cohort=existing.cohort)
 
-    @staticmethod
-    def gather_members(state: PopState, src_idx: torch.Tensor) -> PopState:
-        """Exploit: member i continues from member src_idx[i]'s state."""
+    def gather_members(self, state: PopState, src_idx: torch.Tensor) -> PopState:
+        """Exploit: member i continues from member src_idx[i]'s state.
+        Under a mesh ``src_idx`` is global and only the rows another
+        rank owns move (``Mesh.exchange``)."""
+        if self.mesh is not None and state.cohort:
+            got = self.mesh.exchange(
+                {"params": state.params, "momentum": state.momentum, "step": state.step},
+                src_idx, state.cohort)
+            return PopState(got["params"], got["momentum"], got["step"], cohort=int(src_idx.shape[0]))
         take = lambda d: {k: v.index_select(0, src_idx) for k, v in d.items()}
         return PopState(take(state.params), take(state.momentum), state.step.index_select(0, src_idx))

@@ -118,7 +118,8 @@ def nan_scores(n: int, device) -> torch.Tensor:
 
 def stage_in(pool: dict, rows) -> dict:
     """A host gather of ``pool``'s ``rows`` (an index array: passing
-    ``perm[lo:hi]`` stages in the rows a boundary's map names). The
+    ``perm[lo:hi]`` stages in the rows a boundary's map names; under a
+    mesh ``engine.run_wave`` passes this rank's rows of the wave). The
     engine's ``stage_in`` adds the copy to the card."""
     idx = torch.as_tensor(rows, dtype=torch.long)
     return tree_map(lambda leaf: leaf.index_select(0, idx), pool)
@@ -370,7 +371,7 @@ def envelope_report(trainer, population: int, metrics_path: str) -> dict:
 
 
 def estimate_wave_size(trainer, population: int, budget_bytes: Optional[int] = None,
-                       measured_peak: Optional[tuple] = None) -> int:
+                       measured_peak: Optional[tuple] = None, mesh=None) -> int:
     """The ``--wave-size auto`` residency estimate: the largest wave
     whose carried state (``PopulationTrainer.member_bytes`` a member,
     from the meta template) fits 35% of the device budget (the wave loop
@@ -384,7 +385,13 @@ def estimate_wave_size(trainer, population: int, budget_bytes: Optional[int] = N
     all-in cost a member, and the smaller estimate wins. Returns a value
     in [1, population]; ``population`` means everything fits. With a
     member chunk the estimate holds whole chunks, at least one
-    (``engine.whole_chunks``)."""
+    (``engine.whole_chunks``).
+
+    With a mesh a wave splits over the ``pop`` axis, so the budget
+    scales by that axis and the estimate is rounded DOWN to a multiple
+    of it (a wave that does not divide would run replicated). The
+    budget is this rank's card; ``resolve_wave_size`` min-agrees the
+    ranks' caps through the coord plane."""
     from mpi_opt_tpu_torch.train.engine import whole_chunks
 
     per_member = trainer.member_bytes()
@@ -398,10 +405,13 @@ def estimate_wave_size(trainer, population: int, budget_bytes: Optional[int] = N
         budget_bytes = memory.measured_budget(trainer.device)
     if budget_bytes is None:
         budget_bytes = 8 << 30
-    w = int(budget_bytes * 0.35 // max(1, per_member))
+    n_pop = int(mesh.shape["pop"]) if mesh is not None else 1
+    w = int(budget_bytes * 0.35 * n_pop // max(1, per_member))
     if measured_peak:
         peak_bytes, members = measured_peak
         if peak_bytes and members:
             measured_member = max(1, int(peak_bytes) // max(1, int(members)))
-            w = min(w, max(1, int(budget_bytes * 0.85 // measured_member)))
+            w = min(w, max(1, int(budget_bytes * 0.85 * n_pop // measured_member)))
+    if mesh is not None and w > n_pop:
+        w -= w % n_pop
     return whole_chunks(max(1, min(population, w)), trainer.member_chunk, population)

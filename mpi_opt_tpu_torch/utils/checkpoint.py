@@ -19,6 +19,14 @@ contract is the JAX package's:
 - the saved config must equal the sweep's, or restore raises
   ``ValueError``;
 - ``keep`` (default 3) steps are retained.
+
+Under a multi-process mesh (``mesh=``) every rank joins the gather of
+the population state, and rank 0 alone writes, prunes and quarantines
+(the JAX package leaves the multi-host write to orbax): the other ranks
+read the same directory on restore and keep their rows of the full
+restored copy. A rank that is not the writer walks past a step that
+fails to verify without renaming it, as rank 0, which does rename it,
+walks past it too.
 """
 
 from __future__ import annotations
@@ -93,9 +101,10 @@ def _restore_walk(ck: "SweepCheckpointer", attempt):
     not the bytes): it gets one retry, then re-raises raw, so an intact
     tree is never renamed away for a transient outage."""
     quarantined: list = []
+    skipped: set = set()
     had_any = False
     while True:
-        steps = ck.all_steps()
+        steps = [st for st in ck.all_steps() if st not in skipped]
         if not steps:
             break
         had_any = True
@@ -111,6 +120,11 @@ def _restore_walk(ck: "SweepCheckpointer", attempt):
                 integrity.notify("snapshot_io_retry", step=step, directory=ck.directory,
                                  error=f"{type(e).__name__}: {e}"[:500])
             except Exception as e:
+                if not ck.writes:
+                    # rank 0 quarantines it; this rank walks on past it
+                    skipped.add(step)
+                    quarantined.append(os.path.join(ck.directory, str(step)))
+                    break
                 q = integrity.quarantine_step(ck.directory, step)
                 quarantined.append(q or os.path.join(ck.directory, str(step)))
                 integrity.notify(
@@ -134,11 +148,16 @@ class SweepCheckpointer:
     **extra}``, validated on restore), with their digests in the
     manifest."""
 
-    def __init__(self, directory: str, config: dict, keep: int = 3):
+    def __init__(self, directory: str, config: dict, keep: int = 3, mesh=None):
         self.config = config
         self.directory = os.path.abspath(directory)
         self.keep = keep
+        self.mesh = mesh
+        #: rank 0 (or the one process) writes; other ranks only gather
+        self.writes = mesh is None or mesh.rank == 0
         os.makedirs(self.directory, exist_ok=True)
+        if not self.writes:
+            return
         # a save killed before its rename leaves only its temporary
         # directory, which nothing will ever commit
         for d in os.listdir(self.directory):
@@ -151,7 +170,9 @@ class SweepCheckpointer:
     def save(self, step: int, sweep: dict, meta_extra: dict) -> None:
         """Commit ``sweep`` (host tensors) and the meta as ``step``, then
         drop committed steps beyond the newest ``keep``; traced as a
-        ``save`` span."""
+        ``save`` span. A rank that is not the writer returns at once."""
+        if not self.writes:
+            return
         with trace.span("save", step=step) as sp:
             memory.note(sp)  # snapshot-time watermark: the sweep's state resident
             meta = {"config": self.config, **meta_extra}
@@ -203,15 +224,22 @@ class SweepCheckpointer:
         """Snapshot the fused-sweep payload. Device tensors come to the
         host by blocking copies and the files are written before this
         returns, so the saved bytes are this launch's although the next
-        launch updates the population in place."""
+        launch updates the population in place. Under a mesh the whole
+        population is gathered to rank 0, the writer (every rank of its
+        ``pop`` group joins)."""
         import torch
 
+        tree = {"params": state.params, "momentum": state.momentum, "step": state.step}
+        if self.mesh is not None and state.cohort:
+            tree = self.mesh.gather_tree(tree, state.cohort, root=0)
+        if not self.writes:
+            return
         host = lambda d: {k: v.detach().to("cpu") for k, v in d.items()}
         self.save(
             step,
             sweep={
-                "state": {"params": host(state.params), "momentum": host(state.momentum),
-                          "step": state.step.detach().to("cpu")},
+                "state": {"params": host(tree["params"]), "momentum": host(tree["momentum"]),
+                          "step": tree["step"].detach().to("cpu")},
                 "unit": unit.detach().to("cpu"),
                 # a CPU generator's Mersenne state; a CUDA one's seed and
                 # Philox offset
@@ -267,11 +295,11 @@ class SearchCheckpointer:
 
     CONFIG = {"kind": "search"}
 
-    def __init__(self, directory: str, every: int = 1, keep: int = 3):
+    def __init__(self, directory: str, every: int = 1, keep: int = 3, mesh=None):
         if every < 1:
             raise ValueError(f"checkpoint every must be >= 1, got {every}")
         self.every = every
-        self._ck = SweepCheckpointer(directory, dict(self.CONFIG), keep=keep)
+        self._ck = SweepCheckpointer(directory, dict(self.CONFIG), keep=keep, mesh=mesh)
         self.directory = self._ck.directory
         self._base = 0  # the restored snapshot's batch
 
@@ -284,10 +312,11 @@ class SearchCheckpointer:
 
     def save(self, step: int, algorithm, backend) -> None:
         """Commit batch ``step``: the pool comes to the host by blocking
-        copies before the files are written."""
+        copies before the files are written (under a mesh every rank
+        joins the pool's gather; rank 0 writes)."""
         step = self._base + step
         search = {"algorithm": algorithm.state_dict(), "backend": backend.host_state_dict()}
-        pool = backend.device_state()
+        pool = backend.device_state()  # None on a rank that does not write
         sweep = {}
         if pool is not None:
             host = lambda d: {k: v.detach().to("cpu") for k, v in d.items()}

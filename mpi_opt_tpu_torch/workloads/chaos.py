@@ -34,8 +34,10 @@ the CLI passes one kwargs dict to both the wrapper and the backend.
 The direct-call injectors strike the durable state: ``inject_torn_save``
 and ``inject_corrupt_save`` mangle a committed snapshot step (what
 ``fsck`` must catch), ``inject_enospc`` installs a seeded ENOSPC
-schedule on the snapshot-save and ledger-fsync seam, and ``inject_oom``
-a device OOM at a chosen guarded launch (``utils/resources.py``).
+schedule on the snapshot-save and ledger-fsync seam, ``inject_oom``
+a device OOM at a chosen guarded launch (``utils/resources.py``), and
+``inject_rank_kill`` (``--rank-kill``) a hard rank death at a chosen
+boundary of a multi-process sweep.
 """
 
 from __future__ import annotations
@@ -262,6 +264,93 @@ def inject_oom(at_launch: int = 1, n: int = 1, kind: str | None = None):
 
     def uninstall() -> None:
         resources.set_launch_fault_injector(None)
+
+    return injector, uninstall
+
+
+class RankKillInjector:
+    """The schedule ``inject_rank_kill`` installs on ``utils.resources``'
+    boundary seam (``train.common.launch_boundary`` ticks it once a
+    launch/rung/generation boundary): on the scheduled 1-based boundary
+    ordinals, IF this process is the chosen rank
+    (``torch.distributed.get_rank()``, 0 without a process group), die
+    by SIGKILL: no handlers, no atexit, no flushes, the hard rank death
+    that wedges an SPMD cohort's survivors in their next collective.
+    Other ranks count the same ordinals and do nothing, so the drill is
+    deterministic across the world.
+
+    ``once_marker``: a sentinel file created (O_EXCL) just before dying.
+    A coordinated ``--resume`` relaunch re-runs the same boundaries with
+    the same spec; the marker makes the kill fire once across restarts."""
+
+    def __init__(self, rank: int = 0, at_boundary: int = 1, n: int = 1,
+                 once_marker: str | None = None):
+        if at_boundary < 1:
+            raise ValueError(f"at_boundary is 1-based, got {at_boundary}")
+        self._lock = threading.Lock()
+        self._rank = int(rank)
+        self._fire_at = frozenset(range(at_boundary, at_boundary + max(1, n)))
+        self._once_marker = once_marker
+        self.boundaries = 0
+        self.faults_fired = 0
+
+    def __call__(self, stage: str) -> None:
+        with self._lock:
+            self.boundaries += 1
+            fire = self.boundaries in self._fire_at
+        if not fire:
+            return
+        import torch.distributed as dist
+
+        rank = dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+        if rank != self._rank:
+            return
+        if self._once_marker is not None:
+            try:
+                fd = os.open(self._once_marker, os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+                os.close(fd)
+            except FileExistsError:
+                return  # already fired in a previous attempt
+        with self._lock:
+            self.faults_fired += 1
+        os.kill(os.getpid(), signal.SIGKILL)
+
+
+def parse_rank_kill_spec(spec: str) -> dict:
+    """``"rank=1,at=3,n=1,marker=/tmp/m"`` -> ``inject_rank_kill``
+    kwargs. Unknown keys are rejected loudly: a typoed drill spec that
+    injects nothing would fake a green wedge drill."""
+    out: dict = {}
+    keys = {"rank": int, "at": int, "n": int, "marker": str}
+    names = {"rank": "rank", "at": "at_boundary", "n": "n", "marker": "once_marker"}
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if "=" not in part:
+            raise ValueError(
+                f"rank-kill spec entry {part!r} is not key=value (known keys: {sorted(keys)})"
+            )
+        k, v = part.split("=", 1)
+        k = k.strip()
+        if k not in keys:
+            raise ValueError(f"unknown rank-kill key {k!r} (known: {sorted(keys)})")
+        out[names[k]] = keys[k](v)
+    return out
+
+
+def inject_rank_kill(rank: int = 0, at_boundary: int = 1, n: int = 1,
+                     once_marker: str | None = None):
+    """Install a rank-death schedule on the boundary seam: at the
+    ``at_boundary``-th boundary (1-based; ``n`` in a row) the process of
+    rank ``rank`` SIGKILLs itself. Returns ``(injector, uninstall)``."""
+    from mpi_opt_tpu_torch.utils import resources
+
+    injector = RankKillInjector(rank=rank, at_boundary=at_boundary, n=n, once_marker=once_marker)
+    resources.set_boundary_fault_injector(injector)
+
+    def uninstall() -> None:
+        resources.set_boundary_fault_injector(None)
 
     return injector, uninstall
 

@@ -401,7 +401,11 @@ def test_no_cuda_no_fallback(workload):
         pytest.skip("the refusal is for a machine without CUDA")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         get_backend("gpu", workload)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        get_backend("gpu", workload, mesh=object(), device="cpu")
+    # mesh= is ported: the slot pool rounds up to the 'pop' axis (a pool
+    # it does not divide would be replicated on every rank)
+    from mpi_opt_tpu_torch.parallel.mesh import Mesh
+
+    assert get_backend("gpu", workload, mesh=Mesh(2, rank=0, world=2), device="cpu").pool_size == 66
+    assert get_backend("gpu", workload, mesh=Mesh(1), device="cpu").pool_size == 65
     with pytest.raises(ValueError, match="population protocol"):
         get_backend("gpu", object(), device="cpu")

@@ -240,7 +240,26 @@ def test_sha_snapshot_refuses_another_init_unit(tmp_path):
         fused_asha.fused_sha(wl, init_unit=unit[:3], **{**kw, "checkpoint_dir": None})
 
 
-@pytest.mark.parametrize("arg,value", [("mesh", object()), ("round_to", 2)])
+def _world_of_one():
+    from mpi_opt_tpu_torch.parallel.mesh import Mesh
+
+    return Mesh(1)
+
+
+@pytest.mark.parametrize("arg,value", [("mesh", _world_of_one()), ("round_to", 2)])
 def test_not_ported_arguments_raise(arg, value):
-    with pytest.raises(NotImplementedError, match=f"fused_bohb\\({arg}="):
-        fused_bohb(_workload(), device="cpu", **{arg: value})
+    # mesh= and round_to= are ported: a 1 x 1 mesh runs the one-process
+    # sweep, and round_to rounds every rung after the first up to a
+    # multiple, as the JAX package's sha_cohort_sizes does
+    got = fused_bohb(_workload(), device="cpu", **{**HB, arg: value})
+    want = fused_bohb(_workload(), device="cpu", **HB)
+    if arg == "mesh":
+        assert got["brackets"] == want["brackets"]
+        assert got["best_score"] == want["best_score"]
+    else:
+        from mpi_opt_tpu.train.fused_asha import sha_cohort_sizes as jax_sizes
+
+        for b in got["brackets"]:
+            sizes = b["rung_sizes"]
+            assert sizes == jax_sizes(sizes[0], len(sizes), HB["eta"], value)
+            assert all(s % value == 0 for s in sizes[1:] if s > 1) or sizes[1:] == []

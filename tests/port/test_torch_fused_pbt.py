@@ -74,13 +74,25 @@ def test_default_device_raises_without_cuda(workload, monkeypatch):
         workload.make_trainer()
 
 
+def _world_of_one():
+    from mpi_opt_tpu_torch.parallel.mesh import Mesh
+
+    return Mesh(1)
+
+
 @pytest.mark.parametrize(
     "arg,value",
-    [("mesh", object())],
+    [("mesh", _world_of_one())],
 )
-def test_out_of_scope_arguments_raise(workload, arg, value):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        fused_pbt(workload, **RUN, **{arg: value})
+def test_out_of_scope_arguments_raise(workload, runs, arg, value):
+    # mesh= is ported (tests/port/test_torch_multiprocess.py): a 1 x 1
+    # mesh, a world of one, runs the one-process sweep bit for bit
+    got = fused_pbt(workload, **RUN, **{arg: value})
+    whole = runs[0]
+    np.testing.assert_array_equal(got["best_curve"], whole["best_curve"])
+    np.testing.assert_array_equal(got["unit"], whole["unit"])
+    for k, v in whole["state"].params.items():
+        assert torch.equal(got["state"].params[k], v), k
 
 
 @pytest.mark.parametrize("arg,value,match", [

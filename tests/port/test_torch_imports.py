@@ -41,7 +41,8 @@ def test_no_jax_imports(path):
     "backends/base.py", "backends/gpu.py", "ledger/cache.py", "driver.py", "utils/checkpoint.py",
     "ledger/warmstart.py", "ledger/report.py", "utils/integrity.py", "workloads/base.py",
     "workloads/synthetic.py", "workloads/chaos.py", "backends/cpu.py", "utils/profiling.py",
-    "obs/diff.py", "obs/timeline.py",
+    "obs/diff.py", "obs/timeline.py", "parallel/__init__.py", "parallel/mesh.py", "parallel/coord.py",
+    "launch.py", "health/watchdog.py",
 ])
 def test_wave_engine_modules_are_scanned(module):
     assert ROOT / "mpi_opt_tpu_torch" / module in FILES

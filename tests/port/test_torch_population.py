@@ -84,7 +84,11 @@ def test_draw_augment_shapes_and_ranges():
     assert abs(int(dy[0])) <= 2 and int(dy[1]) == 0 and int(dx[1]) == 0
 
 
-def test_one_pop_update_matches_jax():
+def pop_update_case():
+    """One population step of the JAX trainer (Pallas GN in interpret
+    mode: call under ``interpret_mode``) on seeded inputs: the port's
+    inputs (its layout, JAX's augmentation draws) and JAX's result
+    (params and momentum in the port's layout, the losses)."""
     model = FlaxResNet(**KW, dtype=jnp.float32, pallas_gn=True)
     jt = JaxTrainer(
         apply_fn=lambda p, x: model.apply({"params": p}, x),
@@ -99,24 +103,38 @@ def test_one_pop_update_matches_jax():
     bx = rng.standard_normal((B, 8, 8, 3)).astype(np.float32)
     by = rng.integers(0, 10, B).astype(np.int32)
     keys = jax.random.split(jax.random.key(2), P)
-
-    port_state = PopState(
-        flax_to_torch(jax.tree.map(np.asarray, st.params), stacked=True),
-        flax_to_torch(mom, stacked=True),
-        torch.zeros(P, dtype=torch.int32),
-    )
     want, want_loss = jax.jit(jt._pop_update)(
         st, JaxOptHParams(**{k: jnp.asarray(v) for k, v in hp.items()}), keys, jnp.asarray(bx), jnp.asarray(by)
     )
+    port = {
+        "params": flax_to_torch(jax.tree.map(np.asarray, st.params), stacked=True),
+        "momentum": flax_to_torch(mom, stacked=True),
+        "hp": {k: torch.from_numpy(v) for k, v in hp.items()},
+        "aug": _port_aug(keys, hp, B),
+        "bx": torch.from_numpy(bx),
+        "by": torch.from_numpy(by).long(),
+    }
+    return port, {
+        "params": flax_to_torch(jax.tree.map(np.asarray, want.params), stacked=True),
+        "momentum": flax_to_torch(jax.tree.map(np.asarray, want.momentum), stacked=True),
+        "loss": np.asarray(want_loss),
+    }
+
+
+#: ``pop_update_case``'s tolerances: params, momentum, losses
+PARAMS_ATOL, MOMENTUM_ATOL, LOSS_ATOL = 1e-5, 1e-3, 1e-5
+
+
+def test_one_pop_update_matches_jax():
+    port, want = pop_update_case()
+    port_state = PopState(port["params"], port["momentum"], torch.zeros(P, dtype=torch.int32))
     loss = _port_trainer()._pop_update(
-        port_state, OptHParams(**{k: torch.from_numpy(v) for k, v in hp.items()}),
-        _port_aug(keys, hp, B), torch.from_numpy(bx), torch.from_numpy(by).long(),
+        port_state, OptHParams(**port["hp"]), port["aug"], port["bx"], port["by"],
     )
-    np.testing.assert_allclose(loss.numpy(), np.asarray(want_loss), atol=1e-5)
+    np.testing.assert_allclose(loss.numpy(), want["loss"], atol=LOSS_ATOL)
     assert port_state.step.tolist() == [1] * P
-    for name, tree, atol in (("params", want.params, 1e-5), ("momentum", want.momentum, 1e-3)):
-        ref = flax_to_torch(jax.tree.map(np.asarray, tree), stacked=True)
-        got = getattr(port_state, name)
+    for name, atol in (("params", PARAMS_ATOL), ("momentum", MOMENTUM_ATOL)):
+        ref, got = want[name], getattr(port_state, name)
         for k in ref:
             np.testing.assert_allclose(got[k].numpy(), ref[k].numpy(), atol=atol, err_msg=f"{name} {k}")
 
