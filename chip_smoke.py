@@ -74,7 +74,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    members in chunks of 16, waves of 32 and of 16, capped between their
    allocated peaks: ``--wave-size 32`` must back off once to 16 with no
    launch-shape change and end with the UNFAULTED waves-of-32 run's
-   records;
+   records. (b) and (b2) run at once, so their clean runs' rates are
+   read with five CLI processes on the card;
    (c) a drain between waves: phase 9's durability config through the
    CLI in waves of 8 (member chunk 8): resident and wave runs must
    journal the same records; SIGTERM once wave 2 of generation 1 is
@@ -214,15 +215,48 @@ Phases, in order; any failure exits non-zero and prints no result:
    the card; else (b) after the others), the one-process run after them.
    Every GN shape a rank launched is held against the plain versions,
    and a rank's GN time a population step is timed at its shard shape;
-20. processes: none of the phases' may be left running (the script is
+20. the sweep service (``--phases service``, the 21st of ``PHASES``):
+   (a) three tenants in one ``SweepService(...).serve()`` in this
+   process, one boundary a slice, drained on empty: T1 is BASELINE.json
+   config 3 (fused PBT, full-width cifar10_cnn, 32 members x 4 x 20, one
+   generation a launch), T2 the same at seed 1 (one program key), T3 the
+   full-width ResNet-18 at 16 members in chunks of 8, 2 x 10. All end
+   done in >= 9 slices with their solo CLI runs' ledger records and
+   final state digests, and ``report --validate`` passes; T2 is a
+   program-cache hit from its first slice, T1 a miss; both GN kernels
+   launch in the server and the plain versions never, and both are held
+   against their plain versions at every shape the tenants launched. Each
+   tenant's wall and slices, the set-up from its first slice's start to
+   its first GN launch (and from its admission), the server's peak
+   memory over what the script held before it, what the card holds at
+   every slice's end (the program cache's data and the cuBLAS
+   workspace, within 1 MiB) and, once the server is dropped, nothing. (b) T1 through
+   ``submit`` to a resident server subprocess: ``status`` shows its live
+   phase; SIGTERM once its heartbeat shows generation 1: the server exits
+   0 with T1 parked; a queued job ``cancel``led ends cancelled; ``drain
+   --wait`` of a restarted server mid-slice exits 0 and loses no job; a
+   third server finishes T1 to the solo run's records and digest. (c)
+   Two servers on one spool (ids a and b) with two fused SHA tenants at
+   config 2's shape on fashion_mlp: a SIGKILLs itself at its first
+   boundary once b is registered; b takes over a's lease and finishes
+   both to their solo runs' records. (d) ``corpus index`` over a
+   directory holding config 4's cold fused TPE ledger (phase 16 (a)'s
+   run), then the same sweep with ``--warm-start auto:DIR``: the corpus
+   merges the prior's records by (params, budget), so its observations
+   and records equal a ``--warm-start PATH`` run's on the merged copy of
+   the ledger (and on the ledger itself when no point repeats), and
+   ``corpus resolve --json`` names the ledger. (a)'s server runs alone
+   on the card; (b) and (c) then run while (a)'s solo references and (d)
+   run in this process;
+21. processes: none of the phases' may be left running (the script is
    its descendants' subreaper, so an orphan counts too); the fork
    server the CPU backend's pools share is stopped and waited for, and
    the port stops multiprocessing's resource tracker at exit. Whatever
    was left is killed, and the run fails;
-21. the script's wall, the ``kernels`` line (JSON), then the device line
+22. the script's wall, the ``kernels`` line (JSON), then the device line
    (JSON, last).
 
-Each path (4, 6, 8, 9, 10a, 10d, 11b, 12b, 13b, 14c, 15b, 15d, 16c, 17d, 18a, 18d, 19) runs
+Each path (4, 6, 8, 9, 10a, 10d, 11b, 12b, 13b, 14c, 15b, 15d, 16c, 17d, 18a, 18d, 19, 20a) runs
 through the entry points a user calls, with the launch counts zeroed
 just before and read just after (in phase 9, its runs in this process;
 in 10a, each run; in 11b, 12b, 13b and 14c, read at each bracket or
@@ -546,6 +580,27 @@ def check_shape(gn, x, dy, gamma, beta, g, relu, tag, base):
         check(f"baseline dx {at}", base.bwd(x, dy, gamma, beta, mean, rstd, g, relu)[0], dxp,
               *TOL[(tag, "dx")])
     return {"gn_fwd": max(errs_f), "gn_bwd": max(errs_b)}
+
+
+def check_shapes(gn, shapes, errs: dict, seed: int = 7, empty_cache: bool = False) -> None:
+    """``check_shape`` at every (input shape, groups, relu, dtype) a path
+    launched the kernels at (a ``_ShapeRecorder``'s), on random inputs
+    from ``seed``; raises ``errs`` to each kernel's largest error
+    (``empty_cache``: return each shape's memory to the card)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    for shape, g, relu, dtype in sorted(shapes, key=str):
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        gamma = 1.0 + 0.5 * torch.randn(shape[-1], generator=gen, device="cuda")
+        beta = 0.1 * torch.randn(shape[-1], generator=gen, device="cuda")
+        e = check_shape(gn, x, dy, gamma, beta, g, relu,
+                        "bf16" if dtype == torch.bfloat16 else "f32", None)
+        for k in errs:
+            errs[k] = max(errs[k], e[k])
+        del x, dy
+        if empty_cache:
+            torch.cuda.empty_cache()
 
 
 def time_shape(gn, x, dy, gamma, beta, g, relu, base, flush, bandwidth):
@@ -1095,7 +1150,8 @@ SHA_TRIALS, SHA_MIN, SHA_MAX, SHA_ETA, SHA_W = 64, 10, 270, 3, 16  # BENCH_ALL.j
 C5_P = 1024  # BASELINE.json config 5: PBT over 1024 ResNet-18 members
 # the phases after the build, in order (``--phases`` picks some)
 PHASES = ("kernels", "slice", "north_star", "mlp", "durability", "waves", "oom", "oom_chunk", "drain",
-          "sha", "config5", "hyperband", "tpe", "bohb", "mo", "driver", "warm", "cpu", "windows", "mesh")
+          "sha", "config5", "hyperband", "tpe", "bohb", "mo", "driver", "warm", "cpu", "windows", "mesh",
+          "service")
 
 # a launcher for the port's CLI: caps this process's CUDA allocator at a
 # fraction of the card (0: no cap), runs the CLI, and writes the
@@ -1287,7 +1343,7 @@ def oom_drill_phase(smi):
     members), waves of OOM_W/2 with --oom-backoff 1 (launches of the same
     width) and waves of OOM_W with --oom-backoff 0 (launches of OOM_W,
     whole waves), at once: their allocator peaks and rates (the three
-    share the card). Then, at once, a run capped three quarters of the way from the
+    share the card, and (b2)'s runs too). Then, at once, a run capped three quarters of the way from the
     half-cap run's allocated peak to the cap-OOM_W run's (its allocated
     bytes must pass the cap; the backed-off waves keep a quarter of the gap
     for the allocator's fragmentation), at --wave-size OOM_W --oom-backoff
@@ -1874,9 +1930,9 @@ def tpe_cnn_phase(gn, get_workload, smi):
 
 def tpe_cli_phase(smi):
     """(c) The CLI at config 4's shape on tabular_mlp with a ledger and
-    snapshots: an unkilled run; a run SIGKILLed once batch 2 is journaled
-    (exit -9), then ``--resume`` (exit 0) must end with the unkilled
-    run's records, best and curve."""
+    snapshots, at once: an unkilled run, and a run SIGKILLed once batch 2
+    is journaled (exit -9), then ``--resume`` (exit 0) must end with the
+    unkilled run's records, best and curve."""
     import shutil
 
     tmp = os.path.join(ROOT, "build", "chip_smoke_tpe_cli")
@@ -1900,23 +1956,26 @@ def tpe_cli_phase(smi):
 
     out = {"card": smi}
     try:
-        rc, whole = _run_to_end(argv("whole"))
+        # the unkilled and the killed run are independent: at once
+        cut = argv("cut")
+        (rc, whole), (rc_k, _, err) = _together(
+            lambda: _run_to_end(argv("whole")),
+            lambda: _interrupt(cut, batches_journaled(os.path.join(tmp, "cut", "ledger.jsonl"), 2),
+                               signal.SIGKILL, "tpe CLI SIGKILL"))
         out["unkilled"] = {"exit": rc, "summary": whole}
         if rc != 0:
             return out, f"tpe CLI: the unkilled run exited {rc}"
-        cut = argv("cut")
-        rc, _, err = _interrupt(cut, batches_journaled(os.path.join(tmp, "cut", "ledger.jsonl"), 2),
-                                signal.SIGKILL, "tpe CLI SIGKILL")
-        out["killed"] = {"exit": rc}
-        if rc != -signal.SIGKILL:
-            return out, f"tpe CLI: the killed run exited {rc}:\n{err[-3000:]}"
+        out["killed"] = {"exit": rc_k}
+        if rc_k != -signal.SIGKILL:
+            return out, f"tpe CLI: the killed run exited {rc_k}:\n{err[-3000:]}"
         resumed = _resume(cut, "tpe CLI")
         out["resumed"] = resumed
         same = _records(os.path.join(tmp, "cut", "ledger.jsonl")) == _records(
             os.path.join(tmp, "whole", "ledger.jsonl"))
         out["same_records"] = same
-        print(f"tpe CLI ({smi}): unkilled {whole.get('trials_per_sec_per_chip')} trials/s, best "
-              f"{whole.get('best_score')}; SIGKILL exit {rc}; resumed best {resumed.get('best_score')}, "
+        print(f"tpe CLI ({smi}): unkilled {whole.get('trials_per_sec_per_chip')} trials/s (beside the killed "
+              f"run, not a metric), best "
+              f"{whole.get('best_score')}; SIGKILL exit {rc_k}; resumed best {resumed.get('best_score')}, "
               f"journal {resumed.get('journal')}, same records {same}")
         if not same or (resumed.get("best_score"), resumed.get("best_curve")) != (
                 whole.get("best_score"), whole.get("best_curve")):
@@ -2033,8 +2092,9 @@ def mo_config8_phase(smi):
 
 def mo_cli_phase(smi):
     """(b) The CLI on digits_mlp with ``--objectives``, a ledger and
-    snapshots (config 8's members and steps, MO_CLI_GENS generations):
-    an unkilled run; a run SIGKILLed once generation 1 is journaled, then
+    snapshots (config 8's members and steps, MO_CLI_GENS generations),
+    three runs at once: an unkilled run, the degraded run below and a
+    run SIGKILLed once generation 1 is journaled, then
     ``--resume`` to the unkilled run's records (vectors included), best,
     curve and front; ``--resume`` under other objectives exits 2; a bound
     no member meets (``params:min<=1``) ends in ``least_violation`` with
@@ -2072,18 +2132,22 @@ def mo_cli_phase(smi):
 
     out = {"card": smi}
     try:
-        rc, whole = _run_to_end(argv("whole"))
+        # the unkilled, killed and degraded runs are independent: at once
+        cut = argv("cut")
+        (rc, whole), (rc_k, _, err), (rc_g, degraded) = _together(
+            lambda: _run_to_end(argv("whole")),
+            lambda: _interrupt(cut, journaled(os.path.join(tmp, "cut", "ledger.jsonl"), 1), signal.SIGKILL,
+                               "mo CLI SIGKILL"),
+            lambda: _run_to_end(argv("degraded", "--generations", str(C8_GENS),
+                                     spec="accuracy:max,params:min<=1")))
         out["unkilled"] = {"exit": rc, "summary": whole}
         if rc != 0 or whole.get("objectives") != ["accuracy", "params"] or not whole.get("pareto"):
             return out, f"mo CLI: the unkilled run exited {rc}: {whole}"
         if len(events("whole", "pareto_front")) != 1 or events("whole", "objective_degraded"):
             return out, "mo CLI: the unkilled run's events are not one pareto_front and no degradation"
-        cut = argv("cut")
-        rc, _, err = _interrupt(cut, journaled(os.path.join(tmp, "cut", "ledger.jsonl"), 1), signal.SIGKILL,
-                                "mo CLI SIGKILL")
-        out["killed"] = {"exit": rc}
-        if rc != -signal.SIGKILL:
-            return out, f"mo CLI: the killed run exited {rc}:\n{err[-3000:]}"
+        out["killed"] = {"exit": rc_k}
+        if rc_k != -signal.SIGKILL:
+            return out, f"mo CLI: the killed run exited {rc_k}:\n{err[-3000:]}"
         resumed = _resume(cut, "mo CLI")
         out["resumed"] = resumed
         recs, want = _records(os.path.join(tmp, "cut", "ledger.jsonl")), _records(
@@ -2091,8 +2155,9 @@ def mo_cli_phase(smi):
         same = recs == want and all(len(r["scores"]) == 2 for r in recs if r["status"] == "ok")
         out["same_records"] = same
         keys = ("best_score", "best_curve", "pareto")
-        print(f"mo CLI ({smi}): unkilled {whole.get('trials_per_sec_per_chip')} trials/s, best "
-              f"{whole.get('best_score')}, front {whole['pareto']['front_size']}; SIGKILL exit {rc}; resumed "
+        print(f"mo CLI ({smi}): unkilled {whole.get('trials_per_sec_per_chip')} trials/s (beside the killed "
+              f"and degraded runs, not a metric), best "
+              f"{whole.get('best_score')}, front {whole['pareto']['front_size']}; SIGKILL exit {rc_k}; resumed "
               f"journal {resumed.get('journal')}, same records {same}")
         if not same or any(resumed.get(k) != whole.get(k) for k in keys):
             return out, "mo CLI: the resumed run's records, best, curve or front differ from the unkilled run's"
@@ -2101,13 +2166,11 @@ def mo_cli_phase(smi):
         out["other_objectives_resume_exit"] = other.returncode
         if other.returncode != EX_USAGE:
             return out, f"mo CLI: a resume under other objectives exited {other.returncode}"
-        rc, degraded = _run_to_end(argv("degraded", "--generations", str(C8_GENS),
-                                        spec="accuracy:max,params:min<=1"))
         ev = events("degraded", "objective_degraded")
-        out["degraded"] = {"exit": rc, "pareto": degraded.get("pareto"), "events": ev}
-        print(f"mo CLI degraded ({smi}): exit {rc}, pareto {degraded.get('pareto')}, events {ev}")
-        if rc != 0 or (degraded.get("pareto") or {}).get("selection") != "least_violation" or len(ev) != 1:
-            return out, f"mo CLI: the unmeetable bound gave exit {rc}, {degraded.get('pareto')}, events {ev}"
+        out["degraded"] = {"exit": rc_g, "pareto": degraded.get("pareto"), "events": ev}
+        print(f"mo CLI degraded ({smi}): exit {rc_g}, pareto {degraded.get('pareto')}, events {ev}")
+        if rc_g != 0 or (degraded.get("pareto") or {}).get("selection") != "least_violation" or len(ev) != 1:
+            return out, f"mo CLI: the unmeetable bound gave exit {rc_g}, {degraded.get('pareto')}, events {ev}"
         # usage errors: refused before anything touches the card
         for flag, value in (("--wave-size", "4"), ("--step-chunk", "5")):
             try:
@@ -2467,20 +2530,7 @@ def driver_phase(gn, get_workload, smi):
         return out, launches, errs, bad or f"driver pbt resnet18: GN launches {lr}"
     del be
     torch.cuda.empty_cache()
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(5)
-    for shape, g, relu, dtype in sorted(rec.shapes, key=str):
-        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-        dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-        c = shape[-1]
-        gamma = 1.0 + 0.5 * torch.randn(c, generator=gen, device="cuda")
-        beta = 0.1 * torch.randn(c, generator=gen, device="cuda")
-        tag = "bf16" if dtype == torch.bfloat16 else "f32"
-        e = check_shape(gn, x, dy, gamma, beta, g, relu, tag, None)
-        for k in errs:
-            errs[k] = max(errs[k], e[k])
-        del x, dy
-        torch.cuda.empty_cache()
+    check_shapes(gn, rec.shapes, errs, seed=5, empty_cache=True)
     out["pbt_resnet18"]["max_abs_err"] = dict(errs)
     print(f"driver resnet18 GN shapes checked against the plain versions: {len(rec.shapes)} "
           f"(max abs err {json.dumps(errs)})")
@@ -2681,17 +2731,7 @@ def warm_phase(gn, smi):
             return out, launches, errs, f"warm (c): GN launches {lw}"
         if not (lines[-1]["best_score"] is not None and 0 <= lines[-1]["best_score"] <= 1):
             return out, launches, errs, f"warm (c): best {lines[-1]['best_score']}"
-        gen = torch.Generator(device="cuda")
-        gen.manual_seed(7)
-        for shape, g, relu, dtype in sorted(rec.shapes, key=str):
-            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-            dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-            gamma = 1.0 + 0.5 * torch.randn(shape[-1], generator=gen, device="cuda")
-            beta = 0.1 * torch.randn(shape[-1], generator=gen, device="cuda")
-            e = check_shape(gn, x, dy, gamma, beta, g, relu,
-                            "bf16" if dtype == torch.bfloat16 else "f32", None)
-            for k in errs:
-                errs[k] = max(errs[k], e[k])
+        check_shapes(gn, rec.shapes, errs)
         out["pbt"]["gn_shapes"] = sorted([list(s), g, r, str(d)] for s, g, r, d in rec.shapes)
         out["pbt"]["max_abs_err"] = dict(errs)
         print(f"warm (c) GN shapes checked against the plain versions: {len(rec.shapes)} "
@@ -3085,17 +3125,7 @@ def cpu_phase(gn, smi):
             if (abs(acc - acc_cpu) > PT_ACC_TOL or not rel <= PT_UPDATE_RTOL < rel_fault
                     or not 0 <= acc <= 1):
                 return out, launches, errs, f"cpu (d): {name} card against CPU: {out['per_trial'][name]}"
-            gen = torch.Generator(device="cuda")
-            gen.manual_seed(7)
-            for shape, g, relu, dtype in sorted(rec.shapes, key=str):
-                x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-                dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-                gamma = 1.0 + 0.5 * torch.randn(shape[-1], generator=gen, device="cuda")
-                beta = 0.1 * torch.randn(shape[-1], generator=gen, device="cuda")
-                e = check_shape(gn, x, dy, gamma, beta, g, relu,
-                                "bf16" if dtype == torch.bfloat16 else "f32", None)
-                for k in errs:
-                    errs[k] = max(errs[k], e[k])
+            check_shapes(gn, rec.shapes, errs)
         out["per_trial_max_abs_err"] = dict(errs)
         with _WorkerWatch() as watch:
             rc, lines = _in_process(cli.main, ["--backend", "cpu", "--workload", "fashion_mlp",
@@ -3721,6 +3751,425 @@ def mesh_phase(gn, smi, bandwidth):
     return out, launches, errs, None
 
 
+# phase 21, the sweep service: T1 is BASELINE.json config 3 (fused PBT,
+# cifar10_cnn, 32 members x 4 generations x 20 steps, one generation a
+# launch), T2 the same at another seed (the same program key), T3 fused
+# PBT on the full-width ResNet-18 at 16 members in chunks of 8, 2 x 10
+SVC_T1 = ["--workload", "cifar10_cnn", "--algorithm", "pbt", "--fused", "--population", "32",
+          "--generations", "4", "--steps-per-generation", "20", "--gen-chunk", "1", "--seed", "0"]
+SVC_T2 = [*SVC_T1[:-1], "1"]
+SVC_T3 = ["--workload", "cifar100_resnet18", "--algorithm", "pbt", "--fused", "--population", "16",
+          "--member-chunk", "8", "--generations", "2", "--steps-per-generation", "10",
+          "--gen-chunk", "1", "--seed", "0"]
+# config 2's fused SHA on fashion_mlp: the fleet drill's tenants
+SVC_SHA = ["--workload", "fashion_mlp", "--algorithm", "asha", "--fused", "--trials", str(SHA_TRIALS),
+           "--min-budget", str(SHA_MIN), "--max-budget", str(SHA_MAX), "--eta", str(SHA_ETA)]
+# config 4's fused TPE (phase 16 (a)'s cold run), for the corpus
+SVC_C4 = ["--workload", "tabular_mlp", "--algorithm", "tpe", "--fused", "--trials", str(C4_TRIALS),
+          "--population", str(C4_BATCH), "--budget", str(C4_BUDGET), "--seed", "0", "--device", "cuda"]
+
+# a fleet server (id "a") that SIGKILLs itself at the first boundary of
+# its first slice, once its peer (id "b") has registered on the spool
+_SERVE_KILL = """
+import os, signal, sys, time
+from mpi_opt_tpu_torch.service.scheduler import SweepService
+sd = sys.argv[1]
+def die(t, stage, n):
+    end = time.monotonic() + 120
+    while not os.path.exists(os.path.join(sd, "servers", "b.json")) and time.monotonic() < end:
+        time.sleep(0.05)
+    os.kill(os.getpid(), signal.SIGKILL)
+sys.exit(SweepService(sd, server_id="a", slice_boundaries=1, drain_on_empty=True, poll_seconds=0.05,
+                      on_boundary=die).serve())
+"""
+
+
+def _spool_client(*argv):
+    """(exit code, stdout) of a spool client, run as a user runs it."""
+    proc = subprocess.run([sys.executable, "-m", "mpi_opt_tpu_torch", *argv], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    return proc.returncode, proc.stdout
+
+
+def _serve(sd, log, *extra, script=None):
+    """Start a server on the spool ``sd`` (``script``: a launcher given
+    the spool), its output to ``log``; returns (process, log file)."""
+    f = open(log, "w")
+    argv = ([sys.executable, "-c", script, sd] if script else
+            [sys.executable, "-m", "mpi_opt_tpu_torch", "serve", "--state-dir", sd, "--poll-seconds",
+             "0.1", *extra])
+    return subprocess.Popen(argv, cwd=ROOT, stdout=f, stderr=subprocess.STDOUT, text=True), f
+
+
+def _wait_until(ready, procs, what: str, timeout: float = 300):
+    """Poll ``ready()``; fails if a server in ``procs`` ends first or the
+    deadline passes."""
+    end = time.monotonic() + timeout
+    while not ready():
+        dead = [p.returncode for p in procs if p.poll() is not None]
+        if dead or time.monotonic() > end:
+            raise AssertionError(f"{what}: servers ended ({dead}) or timed out")
+        time.sleep(0.05)
+
+
+def _stop(servers):
+    """Kill and reap whatever server is still running; close the logs."""
+    for proc, f in servers:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        f.close()
+
+
+def _events(sd, name):
+    with open(os.path.join(sd, "server-metrics.jsonl")) as f:
+        return [r for r in map(json.loads, f) if r.get("event") == name]
+
+
+def _solo_ref(cli, tmp, name, argv):
+    """A solo CLI run of ``argv`` in this process, with a ledger and
+    snapshots: (its records, its final state digest)."""
+    d = os.path.join(tmp, name)
+    rc, _ = _in_process(cli.main, [*argv, "--device", "cuda", "--ledger", os.path.join(d, "l.jsonl"),
+                                   "--checkpoint-dir", os.path.join(d, "ck")])
+    if rc != 0:
+        raise AssertionError(f"the solo run {name} exited {rc}")
+    return _records(os.path.join(d, "l.jsonl")), _final_digest(os.path.join(d, "ck"))
+
+
+def service_phase(gn, smi):
+    """The sweep service (``python -m mpi_opt_tpu_torch serve``) on the
+    card. (a) Three tenants (SVC_T1: config 3; SVC_T2: the same at seed
+    1, one program key; SVC_T3: the ResNet-18 in chunks of 8) through
+    ``SweepService(...).serve()`` in this process at one boundary a
+    slice, drained on empty: all done in >= 9 slices, each ledger's
+    records and final state digest equal a solo CLI run's, ``report
+    --validate`` passes, T2 a program-cache hit from its first slice and
+    T1 a miss, both GN kernels launched and the plain versions never,
+    held against the plain versions at every shape the tenants launched;
+    each tenant's wall and slices, the set-up before its first launch,
+    the server's peak memory over what the script held before it, and
+    what the card holds at every slice's end (the program cache's arrays
+    and the cuBLAS workspace, gated) and once the server is gone. (b) T1 submitted through ``submit`` to a
+    resident server subprocess: ``status`` shows a live phase,
+    SIGTERM once the heartbeat shows generation 1 exits 0 with T1
+    parked; a queued job ``cancel``led ends cancelled; ``drain`` of a
+    restarted server mid-slice exits 0 and loses no job; a third server
+    finishes T1 to the solo run's records and digest. (c) Two servers
+    (ids a and b) on one spool with two SVC_SHA tenants: a SIGKILLs
+    itself mid-slice, b takes over its lease and finishes both to their
+    solo records. (d) ``corpus index`` over a directory holding config
+    4's cold ledger, then fused TPE with ``--warm-start auto:DIR``: its
+    observations and records equal a ``--warm-start PATH`` run's on the
+    ledger merged by (params, budget) as the corpus merges it, and
+    ``corpus resolve`` names the source. (a)'s server runs alone on the
+    card; then (b) and (c) run in threads while (a)'s solo references
+    and (d) run in this process.
+    Returns (record, GN launches by path, max abs error of each kernel,
+    problem)."""
+    import gc
+    import shutil
+
+    from mpi_opt_tpu_torch import cli
+    from mpi_opt_tpu_torch.health.heartbeat import read_beat
+    from mpi_opt_tpu_torch.ledger.report import report_main
+    from mpi_opt_tpu_torch.service.scheduler import SweepService
+    from mpi_opt_tpu_torch.service.spool import Spool
+    from mpi_opt_tpu_torch.utils.metrics import MetricsLogger
+
+    tmp = os.path.join(ROOT, "build", "chip_smoke_service")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    out = {"card": smi}
+    launches = {}
+    errs = {"gn_fwd": 0.0, "gn_bwd": 0.0}
+
+    def drained():
+        """(b) T1 through the spool clients and resident servers."""
+        sd = os.path.join(tmp, "b")
+        servers = []
+        res = {}
+        try:
+            rc, o = _spool_client("submit", "--state-dir", sd, "--tenant", "t1", "--", *SVC_T1)
+            job = json.loads(o)["job"]
+            servers.append(_serve(sd, os.path.join(tmp, "b1.log")))
+            hb = os.path.join(sd, "tenants", job, "heartbeat.json")
+            _wait_until(lambda: ((read_beat(hb) or {}).get("progress") or {}).get("launch", 0) >= 1,
+                        [servers[0][0]], "service (b): generation 1")
+            rc_s, o = _spool_client("status", "--state-dir", sd, "--json")
+            live = next(j for j in json.loads(o)["jobs"] if j["job"] == job)
+            servers[0][0].send_signal(signal.SIGTERM)
+            rc1 = servers[0][0].wait(timeout=120)
+            spool = Spool(sd)
+            res.update(status={k: live.get(k) for k in ("state", "phase", "slice_elapsed_s")},
+                       sigterm_exit=rc1, after_sigterm=spool.tenant(job).status["state"])
+            _, o = _spool_client("submit", "--state-dir", sd, "--tenant", "t2", "--", *SVC_SHA)
+            other = json.loads(o)["job"]
+            _, o = _spool_client("submit", "--state-dir", sd, "--tenant", "t3", "--", *SVC_SHA,
+                                 "--seed", "1")
+            queued = json.loads(o)["job"]
+            _, o = _spool_client("cancel", "--state-dir", sd, queued)
+            res["cancel"] = json.loads(o)["state"]
+            n0 = len(_events(sd, "slice_start"))
+            servers.append(_serve(sd, os.path.join(tmp, "b2.log"), "--slice-boundaries", "1"))
+            _wait_until(lambda: len(_events(sd, "slice_start")) > n0, [servers[1][0]],
+                        "service (b): the restarted server's first slice")
+            rc_d, _ = _spool_client("drain", "--state-dir", sd, "--wait", "180")
+            res.update(drain_exit=rc_d, drained_server_exit=servers[1][0].wait(timeout=60),
+                       after_drain={j: spool.tenant(j).status["state"] for j in (job, other, queued)})
+            servers.append(_serve(sd, os.path.join(tmp, "b3.log"), "--drain-on-empty"))
+            res["final_server_exit"] = servers[2][0].wait(timeout=300)
+            res["final"] = {j: spool.tenant(j).status["state"] for j in (job, other, queued)}
+            ok = (rc == rc_s == rc_d == 0 and live["state"] == "running" and live.get("phase")
+                  and rc1 == 0 and res["after_sigterm"] == "parked" and res["cancel"] == "cancelled"
+                  and res["drained_server_exit"] == 0
+                  and "parked" in res["after_drain"].values()
+                  and res["after_drain"][queued] == "cancelled"
+                  and res["final_server_exit"] == 0
+                  and res["final"] == {job: "done", other: "done", queued: "cancelled"})
+            return res, None if ok else f"service (b): {res}", spool.tenant(job)
+        finally:
+            _stop(servers)
+
+    def fleet():
+        """(c) two servers on one spool, one SIGKILLed mid-slice."""
+        sd = os.path.join(tmp, "c")
+        spool = Spool(sd)
+        jobs = [spool.submit([*SVC_SHA, "--seed", str(i)], tenant=f"s{i}") for i in range(2)]
+        servers = []
+        try:
+            servers.append(_serve(sd, os.path.join(tmp, "c_a.log"), script=_SERVE_KILL))
+            _wait_until(lambda: any(spool.tenant(j) and spool.tenant(j).status.get("server") == "a"
+                                    for j in jobs), [servers[0][0]], "service (c): a's first slice")
+            servers.append(_serve(sd, os.path.join(tmp, "c_b.log"), "--server-id", "b",
+                                  "--slice-boundaries", "1", "--drain-on-empty"))
+            rc_a = servers[0][0].wait(timeout=300)  # reaped: its pid is gone
+            rc_b = servers[1][0].wait(timeout=300)
+            takeovers = [(e["job"], e["from_server"], e["to_server"]) for e in _events(sd, "tenant_takeover")]
+            res = {"a_exit": rc_a, "b_exit": rc_b, "takeovers": takeovers,
+                   "states": [spool.tenant(j).status["state"] for j in jobs]}
+            return res, (None if rc_a == -signal.SIGKILL and rc_b == 0 and len(takeovers) == 1
+                         and takeovers[0][1:] == ("a", "b") and res["states"] == ["done", "done"]
+                         else f"service (c): {res}"), [spool.tenant(j).ledger for j in jobs]
+        finally:
+            _stop(servers)
+
+    def served():
+        """(a) three tenants in one server in this process, alone on the
+        card; (the problem or None, what the solo check needs)."""
+        sd = os.path.join(tmp, "a")
+        spool = Spool(sd)
+        names = {spool.submit(SVC_T1, tenant="t1"): "T1", spool.submit(SVC_T2, tenant="t2"): "T2",
+                 spool.submit(SVC_T3, tenant="t3"): "T3"}
+        first_launch = {}
+        kept = []  # at each slice's end: (job, bytes over base, cached bytes)
+
+        def cached_bytes(svc):
+            """The bytes of the on-card arrays the program cache holds."""
+            return sum(t.numel() * t.element_size() for w in svc.programs._workloads.values()
+                       for t in getattr(w, "_fused_cache", ())[3:] if isinstance(t, torch.Tensor))
+
+        class Clock(MetricsLogger):
+            """The server's metrics, remembering whose slice runs now and
+            reading what the card holds once each slice is over."""
+            job = svc = None
+
+            def log(self, event, **fields):
+                if event == "slice_start":
+                    Clock.job = fields["job"]
+                elif event == "slice_end":  # after the slice's frames are collected
+                    torch.cuda.synchronize()
+                    kept.append((fields["job"], torch.cuda.memory_allocated() - base,
+                                 cached_bytes(Clock.svc)))
+                return super().log(event, **fields)
+
+        real_fwd = gn.gn_fwd
+
+        def first_fwd(*a, **k):  # the first GN launch of each tenant
+            first_launch.setdefault(Clock.job, time.time())
+            return real_fwd(*a, **k)
+
+        gc.collect()
+        base = torch.cuda.memory_allocated()
+        gn.reset_launches()
+        gn.gn_fwd = first_fwd
+        try:
+            with _ShapeRecorder(gn) as rec:
+                svc = Clock.svc = SweepService(sd, slice_boundaries=1, drain_on_empty=True, poll_seconds=0.05,
+                                               metrics=Clock(path=spool.metrics_path), device="cuda")
+                t0 = time.perf_counter()
+                rc = svc.serve()
+                wall = time.perf_counter() - t0
+        finally:
+            gn.gn_fwd = real_fwd
+        launches["service"] = dict(gn.LAUNCHES)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - base
+        cached = cached_bytes(svc)
+        del svc
+        Clock.svc = None
+        gc.collect()
+        # what is left is the process's, not a tenant's: cuBLAS keeps a
+        # workspace a handle and stream once a matmul ran (64 MiB here)
+        workspace = torch.cuda.memory_allocated() - base
+        getattr(torch._C, "_cuda_clearCublasWorkspaces", lambda: None)()
+        left = torch.cuda.memory_allocated() - base
+        # the server's own peak: the script's earlier phases hold `base`
+        summary = _events(sd, "summary")[-1]
+        peak = summary["device_memory_peak_bytes"]
+        starts, ends, admits = (_events(sd, e) for e in ("slice_start", "slice_end", "tenant_admit"))
+        tenants = {}
+        for job, name in names.items():
+            st = spool.tenant(job).status
+            first = next(e for e in starts if e["job"] == job)
+            tenants[name] = {
+                "state": st["state"], "slices": st["slices"],
+                "wall_s": sum(e["wall_s"] for e in ends if e["job"] == job),
+                "first_slice_wall_s": st["first_slice_wall_s"],
+                "first_slice_program_cache_hit": st["first_slice_program_cache_hit"],
+                "setup_s": first_launch.get(job, math.nan) - first["ts"],
+                "admission_to_first_launch_s": first_launch.get(job, math.nan)
+                - next(e["ts"] for e in admits if e["job"] == job),
+                "peak_over_base_bytes": max(e["mem_peak_bytes"] for e in ends if e["job"] == job) - base,
+            }
+        # a parked or finished tenant pins nothing: at every slice's end
+        # the server holds the program cache's arrays and the cuBLAS
+        # workspace (`workspace`, the process's), within 1 MiB
+        over = max(k - c for _, k, c in kept)
+        la = launches["service"]
+        out["serve"] = {"exit": rc, "wall_s": wall, "slices": summary["slices"],
+                        "tenants_done": summary["tenants_done"], "tenants": tenants, "launches": la,
+                        "program_cache": [summary["program_cache_hits"], summary["program_cache_misses"]],
+                        "script_base_bytes": base, "server_peak_over_base_bytes": peak - base,
+                        "held_at_slice_ends_bytes": [k for _, k, _ in kept],
+                        "cached_at_slice_ends_bytes": [c for _, _, c in kept],
+                        "held_after_serve_bytes": held, "cached_array_bytes": cached,
+                        "left_after_server_bytes": workspace, "left_without_cublas_workspace_bytes": left}
+        print(f"service (a) three tenants in one server, alone on the card ({smi}): {json.dumps(out['serve'])}")
+        if rc != 0 or summary["slices"] < 9 or any(t["state"] != "done" for t in tenants.values()):
+            return f"service (a): exit {rc}, {summary['slices']} slices, {tenants}", None
+        if tenants["T1"]["first_slice_program_cache_hit"] or not tenants["T2"]["first_slice_program_cache_hit"]:
+            return f"service (a): the program cache: {tenants}", None
+        if not (la["gn_fwd"] > 0 and la["gn_bwd"] > 0) or la["plain"]:
+            return f"service (a): GN launches {la}", None
+        if over > workspace + (1 << 20) or held - cached > workspace + (1 << 20):
+            return (f"service (a): the server held {over} bytes at a slice's end and {held - cached} after "
+                    f"serve beyond the program cache's arrays (cuBLAS workspace {workspace})"), None
+        if left > 1 << 20:
+            return f"service (a): {left} bytes still allocated once the server is gone", None
+        return None, (names, spool, rec)
+
+    def against_solo(names, spool, rec):
+        """(a)'s tenants against solo CLI runs of their argv; the GN
+        shapes they launched against the plain versions."""
+        gn.reset_launches()
+        for job, name in names.items():
+            solo[name] = _solo_ref(cli, tmp, name, {"T1": SVC_T1, "T2": SVC_T2, "T3": SVC_T3}[name])
+            t = spool.tenant(job)
+            got = (_records(t.ledger), _final_digest(t.ckpt))
+            rc_v, _ = _in_process(report_main, [t.ledger, "--validate"])
+            out["serve"]["tenants"][name].update(same_records=got[0] == solo[name][0],
+                                                 same_digest=got[1] == solo[name][1], validate=rc_v)
+            if got != solo[name] or rc_v != 0:
+                return f"service (a): {name} against its solo run: {out['serve']}"
+        launches["service_solo"] = dict(gn.LAUNCHES)
+        check_shapes(gn, rec.shapes, errs)
+        out["serve"]["gn_shapes"] = sorted([list(s), g, r, str(d)] for s, g, r, d in rec.shapes)
+        out["serve"]["max_abs_err"] = dict(errs)
+        print(f"service (a) against solo runs: records and digests equal, reports validate; GN shapes "
+              f"checked against the plain versions: {len(rec.shapes)} (max abs err {json.dumps(errs)})")
+        return None
+
+    def corpus():
+        """(d) --warm-start auto:DIR against --warm-start PATH. The corpus
+        merges a prior's records by (params, budget), newest first
+        (``corpus/resolve.py``, as the JAX package does), and config 4's
+        space has integer dimensions, so TPE's ledger can hold one point
+        twice: auto:DIR is held against PATH on that merged copy of the
+        ledger, and against PATH on the ledger itself for the record."""
+        from mpi_opt_tpu_torch import get_workload
+
+        d = os.path.join(tmp, "d")
+        cold = os.path.join(d, "corpus", "cold.jsonl")
+        rc, _ = _in_process(cli.main, [*SVC_C4, "--ledger", cold])
+        rc_i, _ = _in_process(cli.main, ["corpus", "index", os.path.dirname(cold)])
+        space = get_workload("tabular_mlp").default_space()
+        with open(cold) as f:
+            head, *lines = f.read().splitlines()
+        merged = {}
+        for line in lines:
+            rec = json.loads(line)
+            if rec["status"] != "ok" or rec.get("score") is None:
+                continue
+            key = (space.params_key(rec["params"]), int(rec["step"]))
+            if key not in merged or rec["ts"] >= json.loads(merged[key])["ts"]:
+                merged[key] = line
+        prior = os.path.join(d, "prior_merged.jsonl")
+        with open(prior + ".tmp", "w") as f:
+            f.write("\n".join([head, *merged.values()]) + "\n")
+        os.replace(prior + ".tmp", prior)
+        runs = {}
+        for name, warm in (("auto", f"auto:{os.path.dirname(cold)}"),
+                           ("merged", prior), ("path", cold)):
+            rc_w, lines = _in_process(cli.main, [*SVC_C4, "--ledger", os.path.join(d, f"{name}.jsonl"),
+                                                 "--warm-start", warm])
+            ev = next((x for x in lines if x.get("event") == "warm_start"), {})
+            runs[name] = {"exit": rc_w, "observations": ev.get("observations"),
+                          "sources": ev.get("sources"), "records": _records(os.path.join(d, f"{name}.jsonl"))}
+        rc_r, lines = _in_process(cli.main, ["corpus", "resolve", os.path.dirname(cold), "--workload",
+                                             "tabular_mlp", "--json"])
+        res = {"cold_exit": rc, "index_exit": rc_i, "resolve_exit": rc_r,
+               "resolve": lines[-1] if lines else None, "distinct_points": len(merged),
+               "observations": {k: v["observations"] for k, v in runs.items()},
+               "auto_sources": runs["auto"]["sources"],
+               "same_records_as_merged": runs["auto"]["records"] == runs["merged"]["records"],
+               "same_records_as_path": runs["auto"]["records"] == runs["path"]["records"]}
+        ok = (rc == rc_i == rc_r == 0 and all(v["exit"] == 0 for v in runs.values())
+              and res["observations"]["auto"] == res["observations"]["merged"] == len(merged)
+              and res["observations"]["path"] == C4_TRIALS and res["same_records_as_merged"]
+              and (res["same_records_as_path"] or len(merged) < C4_TRIALS)
+              and [(s["match"], s["path"]) for s in (res["resolve"] or {}).get("sources", [])]
+              == [("exact", cold)]
+              and [s["path"] for s in res["auto_sources"] or []] == [cold])
+        return res, None if ok else f"service (d): {res}"
+
+    # (a) runs alone on the card, so its walls, set-up and peak are the
+    # server's own. (b) and (c) drive servers in subprocesses, whose
+    # start is most of their wall: they run while (a)'s solo references
+    # and (d) run in this process
+    solo = {}
+    pool = concurrent.futures.ThreadPoolExecutor(2)
+    try:
+        bad, ctx = served()
+        if bad:
+            return out, launches, errs, bad
+        drills = (pool.submit(drained), pool.submit(fleet))
+        bad = against_solo(*ctx)
+        d, bad_d = corpus()
+        (b, bad_b, t1), (c, bad_c, sha_ledgers) = (f.result() for f in drills)
+        if bad:
+            return out, launches, errs, bad
+    except Exception as e:  # a drill's server or client failed before its gate
+        return out, launches, errs, f"service: {type(e).__name__}: {e}"
+    finally:
+        pool.shutdown(wait=True)
+    b.update(same_records=_records(t1.ledger) == solo["T1"][0],
+             same_digest=_final_digest(t1.ckpt) == solo["T1"][1])
+    out.update(drained=b, fleet=c, corpus=d)
+    print(f"service (b) a server drained by SIGTERM and drain ({smi}): {json.dumps(b)}")
+    print(f"service (c) two servers, one SIGKILLed ({smi}): {json.dumps(c)}")
+    print(f"service (d) --warm-start auto:DIR ({smi}): {json.dumps(d)}")
+    if bad_b or bad_c or bad_d or not (b["same_records"] and b["same_digest"]):
+        return out, launches, errs, bad_b or bad_c or bad_d or f"service (b): T1 against its solo run: {b}"
+    for i, path in enumerate(sha_ledgers):
+        want, _ = _solo_ref(cli, tmp, f"sha{i}", [*SVC_SHA, "--seed", str(i)])
+        if _records(path) != want:
+            return out, launches, errs, f"service (c): tenant {i} against its solo run"
+    out["fleet"]["same_records"] = True
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out, launches, errs, None
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline-cu", default=None,
@@ -3900,16 +4349,15 @@ def main() -> int:
         done("north_star_waves", waves)
         if bad:
             return fail(bad)
-    if "oom" in phases:
-        oom, bad = oom_drill_phase(smi)
-        print("oom-drill " + json.dumps(oom))
-        done("oom_drill", oom)
-        if bad:
-            return fail(bad)
-    if "oom_chunk" in phases:
-        oom_chunk, bad = oom_chunk_drill_phase(smi)
-        print("oom-chunk-drill " + json.dumps(oom_chunk))
-        done("oom_chunk_drill", oom_chunk)
+    # (b) and (b2) are independent subprocess drills, each process capped
+    # on its own: at once (oom_drill's record_s then holds both)
+    drills = {"oom": ("oom-drill", "oom_drill", oom_drill_phase),
+              "oom_chunk": ("oom-chunk-drill", "oom_chunk_drill", oom_chunk_drill_phase)}
+    drills = [v for k, v in drills.items() if k in phases]
+    for (tag, name, _), (rec, bad) in zip(drills, _together(
+            *[lambda fn=fn: fn(smi) for _, _, fn in drills]) if drills else ()):
+        print(f"{tag} " + json.dumps(rec))
+        done(name, rec)
         if bad:
             return fail(bad)
     if "drain" in phases:
@@ -4031,7 +4479,17 @@ def main() -> int:
         if bad:
             return fail(bad)
 
-    # 20. no process left running
+    if "service" in phases:
+        # 20. the sweep service: three tenants time-sliced in one server,
+        # a server drained by signal and restarted, two servers on one
+        # spool with one SIGKILLed, and the corpus warm start
+        svc_out, svc_launches, svc_errs, bad = service_phase(gn, smi)
+        launches.update(svc_launches)
+        done("service", svc_out)
+        if bad:
+            return fail(bad)
+
+    # 21. no process left running
     left = stop_processes()
     if left:
         return fail(f"processes left running after the phases (killed now): {left}")
@@ -4040,7 +4498,7 @@ def main() -> int:
         print(f"chip_smoke: partial run ({','.join(phases)}): no result line")
         return 0
 
-    # 21. the kernels line (a population step of each path, summed; launches
+    # 22. the kernels line (a population step of each path, summed; launches
     # summed over every path), then the device line
     src = "mpi_opt_tpu_torch/csrc/group_norm.cu"
     kernels = []
@@ -4050,13 +4508,13 @@ def main() -> int:
         for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
             entry[key] = sum(tot[path][k][key] for path in STEP_PATHS)
         entry["max_abs_err"] = max(max(t[k]["max_abs_err"] for t in tot.values()), drv_errs[k],
-                                   warm_errs[k], cpu_errs[k], mesh_errs[k])
+                                   warm_errs[k], cpu_errs[k], mesh_errs[k], svc_errs[k])
         entry["bound_share"] = entry["bound_ms"] / entry["ms"]
         entry["by_path"] = {path: {**tot[path][k], "launches": launches[path][k]} for path in STEP_PATHS}
         for path in ("durability", "north_star_waves", "hyperband_smallcnn", "tpe_smallcnn", "bohb_smallcnn",
                      "mo_smallcnn", "driver_smallcnn", "driver_resnet18", "warm_smallcnn",
                      "pertrial_cifar10_cnn", "pertrial_cifar100_resnet18", "windows_resnet18",
-                     "mesh_reference_resnet18", "mesh_data_resnet18"):
+                     "mesh_reference_resnet18", "mesh_data_resnet18", "service", "service_solo"):
             entry["by_path"][path] = {"launches": launches[path][k]}
         # the 2-rank path: both ranks' launches in (a), each rank's GN time
         # a population step at its shard shape (8 members folded in)

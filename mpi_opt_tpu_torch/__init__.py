@@ -15,10 +15,23 @@ passes ``device="cpu"`` (or ``--backend cpu``); nothing falls back to
 the CPU on its own.
 """
 
-from mpi_opt_tpu_torch.device import resolve_device
-from mpi_opt_tpu_torch.ops.pbt import PBTConfig
-from mpi_opt_tpu_torch.train.fused_asha import fused_sha
-from mpi_opt_tpu_torch.train.fused_pbt import fused_pbt
-from mpi_opt_tpu_torch.workloads import get_workload
+import importlib
 
-__all__ = ["resolve_device", "PBTConfig", "fused_pbt", "fused_sha", "get_workload"]
+# the exports load on first use: the sweep service's spool clients
+# (`submit`, `status`, `cancel`, `drain`) import the package without
+# torch and start in a fraction of a second
+_EXPORTS = {
+    "resolve_device": "mpi_opt_tpu_torch.device",
+    "PBTConfig": "mpi_opt_tpu_torch.ops.pbt",
+    "fused_pbt": "mpi_opt_tpu_torch.train.fused_pbt",
+    "fused_sha": "mpi_opt_tpu_torch.train.fused_asha",
+    "get_workload": "mpi_opt_tpu_torch.workloads",
+}
+
+__all__ = list(_EXPORTS)
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module 'mpi_opt_tpu_torch' has no attribute {name!r}")
+    return getattr(importlib.import_module(_EXPORTS[name]), name)

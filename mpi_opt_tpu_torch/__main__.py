@@ -1,3 +1,11 @@
-from mpi_opt_tpu_torch.cli import main
+import sys
+
+from mpi_opt_tpu_torch.service import CLIENT_SUBCOMMANDS, service_main
+
+# the spool clients dispatch before the CLI module (and torch) loads
+if sys.argv[1:2] and sys.argv[1] in CLIENT_SUBCOMMANDS:
+    raise SystemExit(service_main(sys.argv[1:]))
+
+from mpi_opt_tpu_torch.cli import main  # noqa: E402
 
 raise SystemExit(main())

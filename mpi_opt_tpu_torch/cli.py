@@ -1,7 +1,9 @@
 """Command line of the port (port of ``mpi_opt_tpu/cli.py``: the driver
 path on the gpu and cpu backends, the fused ``--algorithm
 pbt|asha|random|hyperband|tpe|bohb`` paths, ``--warm-start`` on both, and
-the ``trace``, ``report`` and ``fsck`` subcommands).
+the ``trace``, ``report``, ``fsck`` and ``corpus`` subcommands, and the
+sweep service's ``serve``, ``submit``, ``status``, ``cancel`` and
+``drain``).
 
     python -m mpi_opt_tpu_torch --workload fashion_mlp --algorithm asha \\
         --trials 64 --min-budget 10 --max-budget 270 --eta 3 --population 64 \\
@@ -30,6 +32,12 @@ the ``trace``, ``report`` and ``fsck`` subcommands).
     python -m mpi_opt_tpu_torch trace --diff base.jsonl new.jsonl [--gate tol.json]
     python -m mpi_opt_tpu_torch report sweep.jsonl [--json] [--validate]
     python -m mpi_opt_tpu_torch fsck ck [--ledger sweep.jsonl] [--repair] [--deep] [--json]
+    python -m mpi_opt_tpu_torch corpus index DIR; python -m mpi_opt_tpu_torch corpus resolve \\
+        DIR --workload tabular_mlp; ... --warm-start auto:DIR
+    python -m mpi_opt_tpu_torch submit --state-dir SD --tenant a -- --workload fashion_mlp \\
+        --algorithm pbt --fused --population 4 --generations 4 --gen-chunk 1
+    python -m mpi_opt_tpu_torch serve --state-dir SD [--platform cpu] [--slice-boundaries N] \\
+        [--drain-on-empty]; status|drain --state-dir SD; cancel --state-dir SD JOB
     python -m mpi_opt_tpu_torch.launch --n-proc 2 -- --workload cifar100_resnet18 \
         --algorithm pbt --fused --n-pop 2 --population 16 --generations 3 \
         --steps-per-generation 5 [--checkpoint-dir ck --ledger sweep.jsonl]
@@ -71,6 +79,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 from mpi_opt_tpu_torch.health import SweepInterrupted
@@ -78,6 +87,8 @@ from mpi_opt_tpu_torch.health import heartbeat as _heartbeat
 from mpi_opt_tpu_torch.health import shutdown as _shutdown
 from mpi_opt_tpu_torch.obs import trace as _trace
 from mpi_opt_tpu_torch.ops.pbt import PBTConfig
+from mpi_opt_tpu_torch.service import SUBCOMMANDS as SERVICE_SUBCOMMANDS
+from mpi_opt_tpu_torch.service import service_main
 from mpi_opt_tpu_torch.utils import integrity, resources
 from mpi_opt_tpu_torch.utils.exitcodes import EX_DATAERR, EX_IOERR, EX_TEMPFAIL
 from mpi_opt_tpu_torch.utils.integrity import NoVerifiedSnapshotError
@@ -88,8 +99,11 @@ from mpi_opt_tpu_torch.workloads import _REGISTRY, get_workload
 # the JAX CLI's algorithms; the port runs every one, fused and driver
 ALGORITHMS = ("asha", "bohb", "hyperband", "pbt", "random", "tpe")
 # the JAX CLI's subcommands that the port does not run yet
-_SUBCOMMANDS = ("lint", "serve", "submit", "status", "cancel", "drain", "corpus",
-                "suggest-client")
+_SUBCOMMANDS = ("lint", "suggest-client")
+#: the environment variable the sweep service sets around a traced
+#: slice: the tenant tag stamped into the slice's span records (env, not
+#: a flag, so the argv the tenant submitted stays exactly its own)
+TRACE_TAG_ENV = "MPI_OPT_TPU_TRACE_TAG"
 # the JAX CLI's flags that the port does not take yet: valued, then boolean
 _NOT_PORTED_FLAGS = (
     "--suggest-serve", "--suggest-idle-timeout", "--http-port", "--http-queue",
@@ -219,8 +233,10 @@ def build_parser() -> argparse.ArgumentParser:
                    "the search starts (TPE/BOHB build surrogate priors, fused TPE pre-fills "
                    "its on-device ring; random/asha/hyperband/pbt seed one member with the "
                    "prior best). Cross-mode: a fused ledger warm-starts a driver sweep and "
-                   "the reverse; the only gate is the space hash. The JAX CLI's auto:DIR "
-                   "corpus resolution is not ported yet")
+                   "the reverse; the only gate is the space hash. 'auto:DIR' resolves the "
+                   "priors through DIR's ledger corpus (corpus/resolve.py): every same-space "
+                   "ledger merged, same-workload structurally compatible ones down-weighted "
+                   "at budget 0; audit it first with `corpus resolve DIR --workload W`")
     p.add_argument("--checkpoint-dir", default=None,
                    help="verified snapshots written here, at launch (fused) or batch (driver) "
                    "granularity")
@@ -464,8 +480,6 @@ def _has_snapshot(directory) -> bool:
     """Does a committed sweep snapshot live under ``directory``? A step
     is a numeric directory holding the port's commit marker, so an
     unrelated numeric directory does not count."""
-    import os
-
     if not directory or not os.path.isdir(directory):
         return False
     for root, dirs, _files in os.walk(directory):
@@ -475,22 +489,33 @@ def _has_snapshot(directory) -> bool:
     return False
 
 
-def _resolve_warm_start(args, space, parser):
+def _resolve_warm_start(args, space, parser, metrics=None):
     """``--warm-start`` resolution, shared by both paths: returns
     ``(warm_obs, warm_info)``, the observations to ingest and the event
-    payload (``sources`` naming the ledger, ``skips`` counting the
-    records that could not become observations). A bad path, a space
-    hash mismatch, this run's own ledger or an ``auto`` spec is
-    ``parser.error`` (exit 2), before any ledger header commits."""
-    import os
-
+    payload (``sources`` naming every contributing ledger with its match
+    kind, ``skips`` counting the records that could not become
+    observations). ``auto:DIR`` resolves through the corpus under DIR
+    (``corpus/resolve.py``; degraded entries become ``corpus_skip``
+    events on ``metrics``). A bad path, a space hash mismatch, this
+    run's own ledger or a malformed ``auto`` spec is ``parser.error``
+    (exit 2), before any ledger header commits."""
     from mpi_opt_tpu_torch.ledger import LedgerError
     from mpi_opt_tpu_torch.ledger.warmstart import load_observations
 
     spec = args.warm_start
     if spec == "auto" or spec.startswith("auto:"):
-        parser.error("--warm-start auto:DIR resolves through the sweep corpus, which is not "
-                     "ported yet; name one prior ledger instead")
+        corpus_dir = spec[len("auto:"):] if spec.startswith("auto:") else ""
+        if not corpus_dir:
+            parser.error("--warm-start auto needs a corpus root: --warm-start auto:DIR")
+        if not os.path.isdir(corpus_dir):
+            parser.error(f"--warm-start auto: {corpus_dir!r} is not a directory")
+        from mpi_opt_tpu_torch.corpus.resolve import resolve
+
+        # exclude= is the auto path's self-warm-start guard: this run's
+        # own --ledger may live under the corpus root
+        res = resolve(space, corpus_dir, workload=args.workload, exclude=args.ledger,
+                      metrics=metrics)
+        return res.observations, {"sources": res.sources, "skips": res.skips or None}
     # realpath: './sweep.jsonl' against 'sweep.jsonl' (or a symlink) still
     # feeds this run's own journal back into it
     if args.ledger and os.path.realpath(spec) == os.path.realpath(args.ledger):
@@ -566,13 +591,13 @@ def run_fused(args, parser, workload) -> int:
     _wire_integrity_observer(metrics)
     _wire_resource_observer(metrics)
     if args.trace:  # main restores the entry state on the way out
-        _trace.configure(metrics, rank=rank)
+        _trace.configure(metrics, rank=rank, tenant=os.environ.get(TRACE_TAG_ENV))
     space = workload.default_space()
     # the prior ledger validates BEFORE this run's own header commits: a
     # typo'd --warm-start must not enter a fresh ledger's identity
     warm_obs = None
     if args.warm_start:
-        warm_obs, warm_info = _resolve_warm_start(args, space, parser)
+        warm_obs, warm_info = _resolve_warm_start(args, space, parser, metrics)
         _log_warm_start(metrics, args, warm_info, len(warm_obs))
     ledger = _open_fused_ledger(args, parser, space, metrics)
     multiprocess_off = _install_multiprocess(args, parser)
@@ -884,11 +909,11 @@ def run_driver(args, parser, workload) -> int:
     # the prior ledger validates before this run's own header commits
     warm_obs = warm_info = None
     if args.warm_start:
-        warm_obs, warm_info = _resolve_warm_start(args, space, parser)
+        warm_obs, warm_info = _resolve_warm_start(args, space, parser, metrics)
     _wire_integrity_observer(metrics)
     _wire_resource_observer(metrics)
     if args.trace:  # main restores the entry state on the way out
-        _trace.configure(metrics, rank=rank)
+        _trace.configure(metrics, rank=rank, tenant=os.environ.get(TRACE_TAG_ENV))
     fields = dict(workload=args.workload, algorithm=args.algorithm, backend=args.backend)
     if args.backend == "cpu":
         backend_kwargs = {"n_workers": args.workers, "seed": args.seed,
@@ -1036,8 +1061,6 @@ def _expandable_segments(device) -> bool:
     with little headroom, such as one that backed off a device OOM, would
     not reproduce the unfaulted run. Set at run time, since a launcher
     may have initialised CUDA already."""
-    import os
-
     import torch
 
     if device == "cpu" or os.environ.get("PYTORCH_CUDA_ALLOC_CONF") or not torch.cuda.is_available():
@@ -1049,13 +1072,16 @@ def _expandable_segments(device) -> bool:
     return True
 
 
-def _make_workload(args, parser):
-    """The sweep's workload; under ``--chaos`` wrapped in the seeded
-    fault injector, whose kwargs ride ``args.chaos_kwargs`` to the cpu
+def _make_workload(args, parser, workload=None):
+    """The sweep's workload: ``workload`` when the sweep service injects
+    its cached instance (``service/programs.py``), else a new one from
+    the registry; under ``--chaos`` wrapped in the seeded fault injector
+    (built fresh by name, so one tenant's fault schedule never reaches
+    another), whose kwargs ride ``args.chaos_kwargs`` to the cpu
     backend's workers."""
     args.chaos_kwargs = None
     if args.chaos is None:
-        return get_workload(args.workload)
+        return workload if workload is not None else get_workload(args.workload)
     if args.fused or args.backend != "cpu":
         parser.error("--chaos exercises the host driver's trial-level failure policy through "
                      "the cpu backend; fused/gpu sweeps have no per-trial injection point "
@@ -1069,7 +1095,12 @@ def _make_workload(args, parser):
         parser.error(f"--chaos: {e}")
 
 
-def main(argv=None) -> int:
+def main(argv=None, *, _workload=None) -> int:
+    """The CLI entry point. ``_workload`` is the sweep service's seam
+    (``service/programs.py``): a resident server passes its cached
+    workload instance, so shape-matching tenants share the trainer and
+    the on-card data. None, as every other caller passes, builds the
+    workload from the registry."""
     if argv is None:
         argv = sys.argv[1:]
     if argv and argv[0] == "trace":
@@ -1086,6 +1117,16 @@ def main(argv=None) -> int:
         from mpi_opt_tpu_torch.utils.integrity import fsck_main
 
         return fsck_main(argv[1:])
+    # the resident multi-tenant sweep service: `serve` owns the device,
+    # `submit`/`status`/`cancel`/`drain` are its filesystem-spool clients
+    if argv and argv[0] in SERVICE_SUBCOMMANDS:
+        return service_main(argv)
+    # `corpus index|resolve` keeps and audits the ledger corpus that
+    # `--warm-start auto:DIR` reads
+    if argv and argv[0] == "corpus":
+        from mpi_opt_tpu_torch.corpus.cli import corpus_main
+
+        return corpus_main(argv[1:])
     parser = build_parser()
     if argv and argv[0] in _SUBCOMMANDS:
         parser.error(f"the {argv[0]!r} subcommand is not ported yet")
@@ -1195,7 +1236,7 @@ def main(argv=None) -> int:
             if args.heartbeat_file:
                 _heartbeat.configure(args.heartbeat_file)
             run = run_fused if args.fused else run_driver
-            return run(args, parser, _make_workload(args, parser))
+            return run(args, parser, _make_workload(args, parser, _workload))
     finally:
         _heartbeat.deconfigure()
         integrity.clear_observer()

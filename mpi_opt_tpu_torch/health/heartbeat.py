@@ -69,11 +69,39 @@ class Heartbeat:
                     "reporting disabled for this process",
                     stacklevel=2,
                 )
+            _notify_listener(rec)
             return None
+        _notify_listener(rec)
         return rec
 
 
 _ACTIVE: Optional[Heartbeat] = None
+
+#: process-wide beat listener (``set_beat_listener``)
+_LISTENER = None
+
+
+def set_beat_listener(fn) -> None:
+    """Install ``fn(rec)``, called after every beat of every heartbeat in
+    this process, whichever thread beat (``rec`` is None when the write
+    failed: progress still happened). The sweep service refreshes a
+    tenant's lease and its own registration from it. It must be cheap;
+    an exception from it is contained, never raised into the sweep."""
+    global _LISTENER
+    _LISTENER = fn
+
+
+def clear_beat_listener() -> None:
+    set_beat_listener(None)
+
+
+def _notify_listener(rec) -> None:
+    if _LISTENER is None:
+        return
+    try:
+        _LISTENER(rec)
+    except Exception:
+        pass  # contained: a listener bug must not kill the sweep
 
 
 def configure(path: str) -> Heartbeat:

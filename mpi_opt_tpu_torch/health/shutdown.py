@@ -14,11 +14,15 @@
 A second SIGINT after a real signal escalates to ``KeyboardInterrupt``
 (first Ctrl-C drains, second aborts). Repeated SIGTERM stays graceful.
 
-``request`` and the per-boundary slice hook are the JAX package's
-programmatic drain; in the port their one user is the multi-process
-coord plane (``parallel/coord.py``), which chains its drain agreement
-onto the hook and raises the flag on every rank once any rank saw a
-signal. The port has no sweep service.
+``request`` and the per-boundary slice hook are the programmatic drain.
+The sweep service (``service/scheduler.py``) preempts a tenant with
+them: its hook counts boundaries and, at the slice budget, raises the
+same flag a SIGTERM raises, labelled ``SLICE``, so a time-sliced sweep
+leaves exactly the durable state a preempted one does. The request is
+scoped to the active guard and dies with it. The multi-process coord
+plane (``parallel/coord.py``) chains its drain agreement onto the same
+hook. ``delivered_signal`` survives guard exit, so the server can tell
+its own slice expiry from a real signal after a slice returns.
 """
 
 from __future__ import annotations
@@ -60,12 +64,18 @@ class ShutdownGuard:
         self._signal_seen = False
 
     def _handle(self, signum, frame):
+        global _DELIVERED
         name = signal.Signals(signum).name
+        # every real delivery is recorded at module level: a tenant
+        # slice's guard consumes the flag, and the server reads this
+        # after the slice returns
+        _DELIVERED = name
         if self._signal_seen and signum == signal.SIGINT:
             raise KeyboardInterrupt
         self._signal_seen = True
         self.requested = True
-        if self.signal_name is None:
+        # a real signal outranks a slice request's label
+        if self.signal_name is None or self.signal_name == SLICE:
             self.signal_name = name
 
     def __enter__(self) -> "ShutdownGuard":
@@ -97,11 +107,21 @@ def active_signal() -> Optional[str]:
     return None if _ACTIVE is None else _ACTIVE.signal_name
 
 
+#: the pseudo-signal name a cooperative time-slice drain reports
+SLICE = "SLICE"
+
+#: the most recent real signal a guard's handler received in this
+#: process (None until one arrives). Written from the signal handler, so
+#: it stays a bare store: a lock taken in a handler can deadlock against
+#: its interrupted holder on the same thread
+# sweeplint: disable=guarded-by -- signal handlers may only flag-set; a lock in a handler can self-deadlock against its interrupted holder
+_DELIVERED: Optional[str] = None
+
 #: per-boundary callback (``set_slice_hook``); None without one
 _SLICE_HOOK: Optional[Callable[[str], None]] = None
 
 
-def request(source: str = "SIGTERM") -> bool:
+def request(source: str = SLICE) -> bool:
     """Raise the active guard's drain flag without a signal; False (a
     no-op) when no guard is active. A real signal name already recorded
     is never overwritten."""
@@ -111,6 +131,18 @@ def request(source: str = "SIGTERM") -> bool:
         _ACTIVE.signal_name = source
     _ACTIVE.requested = True
     return True
+
+
+def delivered_signal() -> Optional[str]:
+    """The most recent real signal a guard's handler received in this
+    process, or None. It survives guard exit; ``clear_delivered`` opens
+    a new observation window."""
+    return _DELIVERED
+
+
+def clear_delivered() -> None:
+    global _DELIVERED
+    _DELIVERED = None
 
 
 def set_slice_hook(fn: Optional[Callable[[str], None]]) -> None:
@@ -128,6 +160,10 @@ def get_slice_hook() -> Optional[Callable[[str], None]]:
     """The installed hook (None without one), for wrappers that chain
     onto it."""
     return _SLICE_HOOK
+
+
+def clear_slice_hook() -> None:
+    set_slice_hook(None)
 
 
 def poll_slice(stage: str) -> None:

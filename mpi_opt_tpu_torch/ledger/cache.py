@@ -5,8 +5,9 @@ An evaluation whose params match a journaled ok record to the canonical
 byte, at the same budget, is the same deterministic computation: skip it
 and serve the recorded result. Only ``ok`` results are cached: a failure
 may be transient, and serving it would make one unlucky evaluation
-permanent for those params. The corpus-backed ``CorpusCache`` waits for
-the port of ``corpus/``.
+permanent for those params. The corpus-backed ``CorpusCache`` comes with
+the suggestion service, the next slice of the port (ROADMAP.md, Queue 1);
+``corpus/``'s index and resolution are ported already.
 """
 
 from __future__ import annotations

@@ -13,8 +13,8 @@ A TARGET may be a DIRECTORY: every ledger underneath is discovered
 pointed at a service ``--state-dir``, one command audits every
 tenant's best/status/throughput, with each tenant's service state
 (done/parked/cancelled, slices) read from the sibling ``status.json``
-the scheduler maintains (``_live_phase``: a copy of the JAX package's
-``service/spool.py::live_phase`` until the service is ported).
+the scheduler maintains, and a running tenant's live phase from
+``service/spool.py::live_phase``.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from mpi_opt_tpu_torch.ledger.store import (
     sniff_header,
     validate_ledger,
 )
+from mpi_opt_tpu_torch.service.spool import live_phase
 
 # score trajectory rendered as a coarse unicode sparkline: enough to see
 # "when did the sweep stop improving" in a terminal without plotting
@@ -104,34 +105,10 @@ def _service_status(path: str) -> Optional[dict]:
         "takeovers": s.get("takeovers"),
     }
     # an ACTIVE tenant also reports what it is doing right now (phase
-    # from its heartbeat's active-span field + current slice elapsed) —
-    live = _live_phase(os.path.dirname(path), s)
+    # from its heartbeat's active-span field + current slice elapsed)
+    live = live_phase(os.path.dirname(path), s)
     if live is not None:
         out.update(live)
-    return out
-
-
-def _live_phase(tenant_dir: str, status: dict) -> Optional[dict]:
-    """An ACTIVE tenant's live phase + slice-elapsed:
-    ``{"phase": ..., "slice_elapsed_s": ...}`` when the status says
-    ``running``, else None. The phase comes from the tenant's heartbeat
-    file (the beat's active span, its progress ``stage`` as fallback);
-    slice elapsed is against the status's ``slice_started_ts``.
-    Best-effort: a beat-less slice reports None fields, never an error."""
-    import time
-
-    if status.get("state") != "running":
-        return None
-    from mpi_opt_tpu_torch.health.heartbeat import read_beat
-
-    rec = read_beat(os.path.join(tenant_dir, "heartbeat.json")) or {}
-    out = {
-        "phase": rec.get("phase") or (rec.get("progress") or {}).get("stage"),
-        "slice_elapsed_s": None,
-    }
-    started = status.get("slice_started_ts")
-    if started is not None:
-        out["slice_elapsed_s"] = round(max(0.0, time.time() - float(started)), 3)
     return out
 
 

@@ -17,9 +17,9 @@ port imports nothing of the JAX package).
   (``--peak-tflops``, else ``CALIBRATED_PEAK_TFLOPS`` by the device kind
   the setup span recorded). The name ``mxu_frac`` is the JAX package's
   record key; on the card it is the share of the tensor cores' peak.
-
-The JAX package's service surface (``stream_idle_frac``,
-``StreamIdleTracker``) waits for the port's sweep service.
+- **The service surface**: ``stream_idle_frac`` (one parse) and
+  ``StreamIdleTracker`` (incremental), the idle fraction the sweep
+  service writes into a traced tenant's status at every slice end.
 """
 
 from __future__ import annotations
@@ -383,3 +383,95 @@ def roofline(
         "bound": bound,
         "per_launch": per_launch,
     }
+
+
+# -- service surface -------------------------------------------------------
+
+
+def stream_idle_frac(path: str) -> Optional[float]:
+    """One-shot idle fraction of a metrics stream; None when the stream
+    is unreadable or carries no spans — never an exception, a telemetry
+    read must not kill its caller. The resident scheduler uses
+    :class:`StreamIdleTracker` instead: this re-parses the whole file
+    every call, which is O(n^2) over a long-lived tenant's slices."""
+    try:
+        from mpi_opt_tpu_torch.obs.report import _is_span, load_stream
+
+        spans = [r for r in load_stream(path) if _is_span(r)]
+        rep = analyze(spans)
+    except (OSError, ValueError, KeyError):
+        return None
+    return None if rep is None else rep["idle_frac"]
+
+
+class StreamIdleTracker:
+    """Incremental idle fraction over a GROWING metrics stream.
+
+    The scheduler refreshes a tenant's ``idle_frac`` at every slice end;
+    re-parsing the whole stream each time would make cumulative status
+    cost quadratic in stream length over a resident tenant's lifetime.
+    This tracker remembers its byte offset (complete lines only — the
+    tenant may be mid-append), folds new busy spans into per-group
+    merged interval unions, and derives idle as window minus busy union
+    — the same accounting ``analyze`` does, minus cause attribution,
+    which the per-slice status field doesn't need. ``poll()`` never
+    raises and tolerates a stream that doesn't exist yet."""
+
+    #: compact the per-group interval list once it grows past this — a
+    #: merge is O(k log k) and busy spans mostly coalesce, so the list
+    #: stays proportional to genuine gaps, not span count
+    _COMPACT_AT = 64
+
+    def __init__(self, path: str):
+        self.path = path
+        self._offset = 0
+        self._groups: dict = {}  # group key -> [lo, hi, busy intervals]
+
+    def poll(self) -> Optional[float]:
+        import json as _json
+
+        try:
+            with open(self.path, "rb") as f:
+                f.seek(self._offset)
+                data = f.read()
+        except OSError:
+            return self.idle_frac()
+        end = data.rfind(b"\n")
+        if end >= 0:
+            self._offset += end + 1
+            for raw in data[:end].splitlines():
+                line = raw.decode("utf-8", "replace").strip()
+                if not line.startswith("{"):
+                    continue
+                try:
+                    rec = _json.loads(line)
+                except ValueError:
+                    continue
+                if not (
+                    isinstance(rec, dict)
+                    and rec.get("event") == "span"
+                    and isinstance(rec.get("span"), str)
+                    and isinstance(rec.get("dur_s"), (int, float))
+                    and isinstance(rec.get("ts"), (int, float))
+                ):
+                    continue
+                b, e = _span_interval(rec)
+                g = self._groups.setdefault(_group_key(rec), [b, e, []])
+                g[0], g[1] = min(g[0], b), max(g[1], e)
+                if rec["span"] in BUSY_SPANS:
+                    g[2].append((b, e))
+                    if len(g[2]) > self._COMPACT_AT:
+                        g[2] = _merge(g[2])
+        return self.idle_frac()
+
+    def idle_frac(self) -> Optional[float]:
+        wall = busy = 0.0
+        for lo, hi, ivs in self._groups.values():
+            w = hi - lo
+            if w <= 0:
+                continue
+            wall += w
+            busy += min(w, sum(e - b for b, e in _merge(ivs)))
+        if wall <= 0:
+            return None
+        return round(max(0.0, wall - busy) / wall, 4)

@@ -13,9 +13,9 @@ its peers and wedges the mesh forever; the reference's MPI world has
 ``MPI_Allreduce`` for exactly this. This module is the filesystem
 equivalent: a vote/decide barrier at every launch/rung/generation
 boundary, built from the same atomic primitives as the fleet spool
-(the JAX package's ``service/spool.py``: O_EXCL fsync'd creates,
-tmp+rename JSON, transient-I/O retry), so every rank-divergent
-decision becomes unanimous BEFORE the next collective.
+(``service/spool.py``: O_EXCL fsync'd creates, tmp+rename JSON,
+transient-I/O retry), so every rank-divergent decision becomes
+unanimous BEFORE the next collective.
 
 Protocol (per agreement kind, per boundary ordinal):
 
@@ -59,71 +59,8 @@ import os
 import time
 from typing import Callable, Optional
 
-import json
-import random
-
+from mpi_opt_tpu_torch.service.spool import _read_json, excl_write_json, retry_io
 from mpi_opt_tpu_torch.utils import resources
-
-# -- the spool primitives the plane is built from (the port has no
-# ``service/spool.py``: these are copies of its ``retry_io``,
-# ``_read_json`` and ``excl_write_json``, without the spool's fault seam)
-
-#: answers, not faults: the retry layer never spins on a path that is
-#: genuinely absent/present/misshaped (an O_EXCL create losing its race)
-_NON_TRANSIENT_OS = (
-    FileNotFoundError,
-    FileExistsError,
-    IsADirectoryError,
-    NotADirectoryError,
-    PermissionError,
-)
-
-
-def retry_io(fn, attempts: int = 4, base_s: float = 0.02, sleep=time.sleep):
-    """Run ``fn`` with bounded retry-with-jittered-backoff on transient
-    ``OSError``. Non-transient shapes and storage exhaustion raise at
-    once; the last attempt's error propagates raw."""
-    for i in range(attempts):
-        try:
-            return fn()
-        except _NON_TRANSIENT_OS:
-            raise
-        except OSError as e:
-            if resources.is_storage_full(e) or i == attempts - 1:
-                raise
-            sleep(base_s * (2**i) * (0.5 + random.random()))
-
-
-def _read_json(path: str) -> Optional[dict]:
-    """The JSON record at ``path``, or None (missing, torn, or
-    persistently unreadable)."""
-    def _go():
-        try:
-            with open(path) as f:
-                return json.load(f)
-        except (FileNotFoundError, json.JSONDecodeError):
-            return None
-
-    try:
-        return retry_io(_go)
-    except OSError:
-        return None
-
-
-def excl_write_json(path: str, record: dict) -> bool:
-    """Atomically create ``path`` holding ``record`` iff absent
-    (``O_EXCL``, fsync'd). False = the path exists (the caller lost the
-    race and must concede)."""
-    try:
-        fd = retry_io(lambda: os.open(path, os.O_CREAT | os.O_EXCL | os.O_WRONLY))
-    except FileExistsError:
-        return False
-    with os.fdopen(fd, "w") as f:
-        json.dump(record, f)
-        f.flush()
-        os.fsync(f.fileno())
-    return True
-
 
 #: marker rank 0 publishes once its epoch directory is ready; peers
 #: wait for it before voting so they can never observe a half-created

@@ -190,8 +190,9 @@ def launch_boundary(stage: str, *, final: bool, snapshot=None, **progress) -> No
     instead of draining half the world. The stage is then labelled
     ``boundary:<stage>``: a rank frozen here waits in the agreement
     barrier, the last-beat shape ``launch.py`` reads as a collective
-    wedge. The port has no sweep service, so nothing else uses the
-    hook."""
+    wedge. The sweep service's slice hook (``service/scheduler.py``)
+    is the hook's other user: it counts the boundaries of a tenant's
+    slice and requests the drain at the slice's budget."""
     from mpi_opt_tpu_torch.health import heartbeat, shutdown
     from mpi_opt_tpu_torch.parallel import coord
     from mpi_opt_tpu_torch.utils import resources

@@ -52,6 +52,14 @@ class MetricsLogger:
         # device-OOM wave halvings absorbed, and pre-launch wave clamps
         self.oom_backoffs = 0
         self.wave_resized = 0
+        # the sweep service's server: slices run, tenants finished, the
+        # program cache's hits and misses (a slice whose program key was
+        # already built in this server is a hit), lease takeovers
+        self.slices = 0
+        self.tenants_done = 0
+        self.program_cache_hits = 0
+        self.program_cache_misses = 0
+        self.takeovers = 0
 
     def log(self, event: str, **fields) -> dict:
         # ``t`` is this process's clock; ``ts`` the absolute epoch
@@ -120,6 +128,23 @@ class MetricsLogger:
         """Pre-launch wave-size clamps (estimate against budget)."""
         self.wave_resized += int(n)
 
+    def count_slices(self, n: int = 1):
+        """Service scheduling quanta (tenant slices) run."""
+        self.slices += int(n)
+
+    def count_tenants_done(self, n: int = 1):
+        """Service tenants that finished (state done)."""
+        self.tenants_done += int(n)
+
+    def count_program_cache(self, hits: int = 0, misses: int = 0):
+        """Service slices by whether their program key was already built."""
+        self.program_cache_hits += int(hits)
+        self.program_cache_misses += int(misses)
+
+    def count_takeovers(self, n: int = 1):
+        """Expired-lease tenant takeovers this server performed."""
+        self.takeovers += int(n)
+
     @property
     def wall(self) -> float:
         return time.perf_counter() - self.t_start
@@ -142,6 +167,11 @@ class MetricsLogger:
             staged_bytes=self.staged_bytes,
             stage_overlap_s=round(self.stage_overlap_s, 3),
             members_journaled=self.members_journaled,
+            slices=self.slices,
+            tenants_done=self.tenants_done,
+            program_cache_hits=self.program_cache_hits,
+            program_cache_misses=self.program_cache_misses,
+            takeovers=self.takeovers,
             oom_backoffs=self.oom_backoffs,
             wave_resized=self.wave_resized,
             snapshots_pruned=self.snapshots_pruned,

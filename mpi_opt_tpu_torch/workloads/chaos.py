@@ -37,7 +37,9 @@ and ``inject_corrupt_save`` mangle a committed snapshot step (what
 schedule on the snapshot-save and ledger-fsync seam, ``inject_oom``
 a device OOM at a chosen guarded launch (``utils/resources.py``), and
 ``inject_rank_kill`` (``--rank-kill``) a hard rank death at a chosen
-boundary of a multi-process sweep.
+boundary of a multi-process sweep, and ``inject_spool_faults`` delayed
+or failed replaces and EIO status reads on the sweep service's spool
+(``service/spool.py``'s fault seam).
 """
 
 from __future__ import annotations
@@ -351,6 +353,62 @@ def inject_rank_kill(rank: int = 0, at_boundary: int = 1, n: int = 1,
 
     def uninstall() -> None:
         resources.set_boundary_fault_injector(None)
+
+    return injector, uninstall
+
+
+class SpoolFaultInjector:
+    """The schedule ``inject_spool_faults`` installs on ``service.spool``'s
+    fault seam: counts every op a kind ("replace" / "read" / "list") and
+    raises ``OSError(EIO)`` on the scheduled ordinals (``_schedule``,
+    the JAX package's draw). Read faults strike status.json reads only,
+    so job-spec parsing stays out of scope; ``replace_delay_s`` sleeps
+    before every replace while installed (the slow shared filesystem).
+    Thread-safe: the server's heartbeat-riding refreshes share the seam."""
+
+    def __init__(self, replace_fail: int = 0, read_fail: int = 0,
+                 replace_delay_s: float = 0.0, seed: int = 0, ops_window: int | None = None):
+        self.replace_delay_s = float(replace_delay_s)
+        self._lock = threading.Lock()
+        self._counts = {"replace": 0, "read": 0, "list": 0}
+        self._fail = {
+            "replace": _schedule("replace", replace_fail, seed, ops_window),
+            "read": _schedule("read", read_fail, seed, ops_window),
+        }
+        self.faults_fired = {"replace": 0, "read": 0}
+
+    def __call__(self, op: str, path: str) -> None:
+        import errno
+
+        if op == "replace" and self.replace_delay_s > 0:
+            time.sleep(self.replace_delay_s)
+        if op == "read" and not path.endswith("status.json"):
+            return
+        with self._lock:
+            ordinal = self._counts.get(op, 0)
+            self._counts[op] = ordinal + 1
+            fire = ordinal in self._fail.get(op, ())
+            if fire:
+                self.faults_fired[op] += 1
+        if fire:
+            raise OSError(errno.EIO, f"chaos: injected spool {op} fault (op {ordinal})", path)
+
+
+def inject_spool_faults(replace_fail: int = 0, read_fail: int = 0, replace_delay_s: float = 0.0,
+                        seed: int = 0, ops_window: int | None = None):
+    """Install a seeded fault schedule on the service spool's metadata
+    ops. Returns ``(injector, uninstall)``. The spool's bounded retry
+    (``spool.retry_io``) absorbs schedules shorter than its attempt
+    budget; a longer one surfaces the ``OSError``."""
+    from mpi_opt_tpu_torch.service import spool as spool_mod
+
+    injector = SpoolFaultInjector(replace_fail=replace_fail, read_fail=read_fail,
+                                  replace_delay_s=replace_delay_s, seed=seed,
+                                  ops_window=ops_window)
+    spool_mod.set_fault_injector(injector)
+
+    def uninstall() -> None:
+        spool_mod.set_fault_injector(None)
 
     return injector, uninstall
 

@@ -224,7 +224,10 @@ def test_cli_flags_not_ported_are_usage_errors(tmp_path, flag, capsys):
     # the subcommands still refused keep the cases' ids
     pytest.param(["lint", "mpi_opt_tpu_torch"], "'lint' subcommand is not ported yet",
                  id="argv0-'report' subcommand is not ported yet"),
-    pytest.param(["serve", "--state-dir", "sd"], "'serve' subcommand is not ported yet",
+    # the sweep service's subcommands run now (test_torch_service.py);
+    # suggest-client is still refused (the case keeps its id)
+    pytest.param(["suggest-client", "--state-dir", "sd"],
+                 "'suggest-client' subcommand is not ported yet",
                  id="argv1-'fsck' subcommand is not ported yet"),
     # the driver path runs on the gpu and cpu backends now
     # (test_torch_driver.py, test_torch_backend_cpu.py); the JAX package's
@@ -238,10 +241,11 @@ def test_cli_flags_not_ported_are_usage_errors(tmp_path, flag, capsys):
     # as a mesh that needs more devices (the case keeps its id)
     pytest.param(["--workload", "fashion_mlp", "--algorithm", "bohb", "--fused", "--n-pop", "2"],
                  "mesh 2x1 needs 2 devices, have 1", id="argv3---n-pop is not ported yet"),
-    # --warm-start PATH runs now (test_torch_report.py); the corpus's
-    # auto:DIR is refused (the case keeps its id)
+    # --warm-start PATH and auto:DIR run now (test_torch_report.py,
+    # test_torch_corpus.py); auto: of a directory that is not there is
+    # refused (the case keeps its id)
     pytest.param(["--workload", "fashion_mlp", "--algorithm", "tpe", "--fused", "--warm-start",
-                  "auto:corpus"], "the sweep corpus, which is not ported yet",
+                  "auto:no-such-corpus"], "--warm-start auto: 'no-such-corpus' is not a directory",
                  id="argv4---warm-start is not ported yet"),
     (["--workload", "fashion_mlp", "--algorithm", "pbt", "--fused", "--resume"],
      "--resume requires --checkpoint-dir or --ledger"),
@@ -256,6 +260,53 @@ def test_cli_flags_not_ported_are_usage_errors(tmp_path, flag, capsys):
 def test_cli_refusals_are_usage_errors(argv, message, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.main(argv)
+    assert exc.value.code == 2
+    assert message in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [
+    ["lint"], ["lint", "mpi_opt_tpu_torch"], ["suggest-client"], ["suggest-client", "bench"],
+])
+def test_cli_subcommands_not_ported_are_usage_errors(argv, capsys):
+    with pytest.raises(SystemExit) as exc:
+        cli.main(argv)
+    assert exc.value.code == 2
+    assert f"the {argv[0]!r} subcommand is not ported yet" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv,rc,out", [
+    (["submit", "--state-dir", "{sd}", "--", "--workload", "fashion_mlp", "--fused"], 0,
+     '"state": "queued"'),
+    (["status", "--state-dir", "{sd}"], 0, "server down"),
+    (["status", "--state-dir", "{sd}", "--json"], 0, '"jobs": []'),
+    (["drain", "--state-dir", "{sd}"], 0, '"drain": true'),
+    (["corpus", "index", "{sd}"], 0, "0 ledger(s) indexed"),
+    (["corpus", "resolve", "{sd}", "--workload", "fashion_mlp"], 0, "0 observation(s)"),
+])
+def test_cli_service_and_corpus_subcommands_run(tmp_path, argv, rc, out, capsys):
+    """The sweep service's clients and the corpus subcommands run through
+    the CLI's dispatch (their parity with the JAX package is
+    test_torch_service.py's and test_torch_corpus.py's)."""
+    from mpi_opt_tpu_torch.service.spool import Spool
+
+    Spool(str(tmp_path))
+    assert cli.main([a.format(sd=tmp_path) for a in argv]) == rc
+    assert out in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["status", "--state-dir", "{sd}/nope"], "not a service spool"),
+    (["cancel", "--state-dir", "{sd}", "job-0"], "unknown job"),
+    (["submit", "--state-dir", "{sd}", "--", "--workload", "fashion_mlp", "--ledger", "x"],
+     "server-owned --ledger"),
+    (["serve", "--state-dir", "{sd}", "--slice-boundaries", "0"], "--slice-boundaries must be >= 1"),
+])
+def test_cli_service_usage_errors(tmp_path, argv, message, capsys):
+    from mpi_opt_tpu_torch.service.spool import Spool
+
+    Spool(str(tmp_path))
+    with pytest.raises(SystemExit) as exc:
+        cli.main([a.format(sd=tmp_path) for a in argv])
     assert exc.value.code == 2
     assert message in capsys.readouterr().err
 

@@ -4,6 +4,7 @@ in one directory and reach the same decisions; the pure reducers on
 drawn votes; the protocol's refusals (a reused epoch, a missing peer);
 and the drain agreement through ``launch_boundary``."""
 
+import errno
 import os
 import threading
 
@@ -12,11 +13,14 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from mpi_opt_tpu.parallel import coord as jcoord
+from mpi_opt_tpu.service import spool as jspool
 from mpi_opt_tpu_torch.health import shutdown
 from mpi_opt_tpu_torch.parallel import coord as tcoord
+from mpi_opt_tpu_torch.service import spool as tspool
 from mpi_opt_tpu_torch.train.common import launch_boundary
 
 PACKAGES = {"port": tcoord, "jax": jcoord}
+SPOOLS = {"port": tspool, "jax": jspool}
 
 
 def _vote_together(root, first, second, script):
@@ -149,3 +153,26 @@ def test_a_signal_after_the_vote_waits_for_the_next_boundary(tmp_path):
     finally:
         shutdown.set_slice_hook(tick)
         uninstall()
+
+
+@pytest.mark.parametrize("pkg", ["port", "jax"])
+def test_the_spool_fault_seam_reaches_the_plane(tmp_path, pkg):
+    """The plane's reads are the spool's own primitives: a transient
+    fault the spool's injector plants on a control-plane read is seen
+    and retried, in both packages alike."""
+    seen = []
+
+    def fault(op, path):
+        seen.append((op, os.path.basename(path)))
+        if len(seen) == 1:
+            raise OSError(errno.EIO, "injected")
+
+    SPOOLS[pkg].set_fault_injector(fault)
+    try:
+        plane = PACKAGES[pkg].CoordPlane(str(tmp_path), 0, 1, epoch=0, timeout_s=5.0, poll_s=0.002)
+        cap = plane.agree_cap("wave_cap", 8)
+    finally:
+        SPOOLS[pkg].set_fault_injector(None)
+    # the faulted read (rank 0's own vote, read back) was tried again
+    assert seen[:2] == [("read", "wave_cap.000000.r0.vote.json")] * 2
+    assert cap == 8

@@ -42,7 +42,10 @@ def test_no_jax_imports(path):
     "ledger/warmstart.py", "ledger/report.py", "utils/integrity.py", "workloads/base.py",
     "workloads/synthetic.py", "workloads/chaos.py", "backends/cpu.py", "utils/profiling.py",
     "obs/diff.py", "obs/timeline.py", "parallel/__init__.py", "parallel/mesh.py", "parallel/coord.py",
-    "launch.py", "health/watchdog.py",
+    "launch.py", "health/watchdog.py", "service/__init__.py", "service/spool.py",
+    "service/tenants.py", "service/leases.py", "service/programs.py", "service/scheduler.py",
+    "service/client.py", "corpus/__init__.py", "corpus/match.py", "corpus/index.py",
+    "corpus/resolve.py", "corpus/cli.py",
 ])
 def test_wave_engine_modules_are_scanned(module):
     assert ROOT / "mpi_opt_tpu_torch" / module in FILES

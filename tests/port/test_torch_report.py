@@ -13,7 +13,8 @@ package's, on ledgers the port's CLI writes on the CPU.
   event carries the payload the JAX CLI's resolution gives (on the
   driver path, the count the JAX algorithm ingests), and the ledger
   header names the prior; this run's own ledger, a ledger of another
-  space and ``auto:`` are usage errors that leave no ledger header; a
+  space and ``auto`` without a corpus root are usage errors that leave
+  no ledger header; a
   driver sweep resumed from its snapshot does not ingest again.
 """
 
@@ -164,13 +165,15 @@ def test_warm_start_event_equals_jax(ledgers, tmp_path, path, capsys):
 @pytest.mark.parametrize("case,message", [
     ("self", "must name a PRIOR sweep's ledger"),
     ("other_space", "space hash"),
-    ("auto", "not ported yet"),
+    # auto:DIR runs now (test_torch_corpus.py); auto without a corpus
+    # root is refused (the case keeps its id)
+    pytest.param("auto", "needs a corpus root: --warm-start auto:DIR", id="auto-not ported yet"),
 ])
 def test_warm_start_refusals_leave_no_header(ledgers, tmp_path, case, message, capsys):
     own = tmp_path / "own.jsonl"
     warm = {"self": os.path.join(str(tmp_path), ".", "own.jsonl"),
             "other_space": str(ledgers / "driver.jsonl"),
-            "auto": f"auto:{ledgers}"}[case]
+            "auto": "auto"}[case]
     with pytest.raises(SystemExit) as exc:
         cli.main([*TPE, "--fused", "--warm-start", warm, "--ledger", str(own)])
     assert exc.value.code == 2 and message in capsys.readouterr().err
