@@ -28,7 +28,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    full-width SmallCNN members on CIFAR-10, member chunk 32, one
    generation a launch) at 2 generations x 20 steps, traced (the bench's
    default); its record. Then the same run with
-   ``torch.backends.cudnn.deterministic`` on, and off again, for the
+   ``torch.backends.cudnn.deterministic`` on, for the
    member-generations/s with and without it (measurement only: phase 9
    checks determinism with the defaults);
 7. profile of 3 steady north-star steps, as phase 5;
@@ -126,7 +126,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``least_violation`` with an ``objective_degraded`` event;
    ``--wave-size``/``--step-chunk`` with ``--objectives`` exit 2; (c)
    the north star's width and population (cifar10_cnn, 256 members,
-   chunk 32, 2 x 10) scalar and multi-objective in turns: both GN
+   chunk 32, 2 x 5) scalar and multi-objective in turns: both GN
    kernels in every generation at the scalar run's counts and the plain
    versions never, the rates side by side, then ``pareto_score`` (m=2,
    3), ``member_effective_params``, the MO exploit and the MO eval at
@@ -248,21 +248,51 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``corpus resolve --json`` names the ledger. (a)'s server runs alone
    on the card; (b) and (c) then run while (a)'s solo references and (d)
    run in this process;
-21. processes: none of the phases' may be left running (the script is
+21. the suggestion service (``--phases suggest``, the 22nd of
+   ``PHASES``): (a) BENCH_ALL.json config 6 at full size: a
+   ``--suggest-serve`` server subprocess on tabular_mlp (the card, a
+   ledger, ``--suggest-idle-timeout 120``) driven over its filesystem
+   spool by ``corpus/client.py::bench``, 8 rounds of a 32-point
+   suggestion with its 32 reports: suggestions/s, round-trip p50 and
+   p95, and the ledger's 256 reports, each journaled once; (b) config 7
+   at full size: the same server behind ``--http-port 0 --http-queue
+   64`` driven by ``bench_http``, 4 concurrent clients x 12 rounds x 32:
+   suggestions/s, round-trip and queue-wait p50/p95, the server's
+   shed/replayed/expired counters, every acked report journaled once
+   ((a) and (b) each run alone; their servers start together); (c) the
+   exactly-once drill: a front door on the card, the client under seeded
+   ``inject_net`` faults (refused, torn, delayed), the server SIGKILLed
+   after journaling a report batch and before its reply, restarted with
+   ``--resume``, the client retrying the same envelope into the
+   restart: every acked (idem_key, idem_op) journaled exactly once, the
+   retried batch answered ``journal_replayed``; (d) one
+   ``SuggestServer.suggest(32)`` over a full ring (512 rows of
+   tabular_mlp's space) in this process, timed by CUDA events, against
+   the same draws on the CPU: equal picks (or, where the greedy picks
+   part, a near-tie in both devices' acquisition), units within
+   ``SUG_UNIT_TOL``, the ring's acquisition tensors on cuda, and the CPU
+   call's time beside the card's; (e) a suggestion tenant under
+   ``serve`` on the card: submitted, fed 24 requests, ``drain``ed after
+   14 (parked, the server exits 0), resumed by a restarted server,
+   completed by ``suggest-client stop`` (done): its records equal those
+   of one unparked server fed the same requests. (c) and (e) run
+   together;
+22. processes: none of the phases' may be left running (the script is
    its descendants' subreaper, so an orphan counts too); the fork
    server the CPU backend's pools share is stopped and waited for, and
    the port stops multiprocessing's resource tracker at exit. Whatever
    was left is killed, and the run fails;
-22. the script's wall, the ``kernels`` line (JSON), then the device line
+23. the script's wall, the ``kernels`` line (JSON), then the device line
    (JSON, last).
 
-Each path (4, 6, 8, 9, 10a, 10d, 11b, 12b, 13b, 14c, 15b, 15d, 16c, 17d, 18a, 18d, 19, 20a) runs
-through the entry points a user calls, with the launch counts zeroed
-just before and read just after (in phase 9, its runs in this process;
-in 10a, each run; in 11b, 12b, 13b and 14c, read at each bracket or
-generation boundary too):
+Each path (4, 6, 8, 9, 10a, 10d, 11b, 12b, 13b, 14c, 15b, 15d, 16c, 17d, 18a, 18d, 19, 20a,
+21) runs through the entry points a user calls, with the launch counts
+zeroed just before and read just after (in phase 9, its runs in this
+process; in 10a, each run; in 11b, 12b, 13b and 14c, read at each
+bracket or generation boundary too):
 where the model has GroupNorm both kernels must have run, the plain
 versions never; the best score must be finite and the curves in [0, 1].
+Phase 21 runs no GroupNorm: its counts are recorded as read.
 
 Run from the repo root: ``python3 chip_smoke.py``. Details also go to
 chiprun_out/chip_smoke.json, written after each phase, with the seconds
@@ -1151,7 +1181,7 @@ C5_P = 1024  # BASELINE.json config 5: PBT over 1024 ResNet-18 members
 # the phases after the build, in order (``--phases`` picks some)
 PHASES = ("kernels", "slice", "north_star", "mlp", "durability", "waves", "oom", "oom_chunk", "drain",
           "sha", "config5", "hyperband", "tpe", "bohb", "mo", "driver", "warm", "cpu", "windows", "mesh",
-          "service")
+          "service", "suggest")
 
 # a launcher for the port's CLI: caps this process's CUDA allocator at a
 # fraction of the card (0: no cap), runs the CLI, and writes the
@@ -1989,10 +2019,10 @@ def tpe_cli_phase(smi):
 # size, nothing cut; the CLI drill runs config 8's members and steps for
 # more generations, so a kill after generation 1 lands mid-run
 MO_SPEC = "accuracy:max,params:min"
-# (c)'s depth: half of NS_STEPS, which leaves room in the run's time
-# limit for the CPU path's phase (the MO-over-scalar ratio is taken in
-# turns at one depth either way)
-MO_NS_STEPS = 10
+# (c)'s depth: a quarter of NS_STEPS, which leaves room in the run's time
+# limit for the CPU path's and the suggestion service's phases (the
+# MO-over-scalar ratio is taken in turns at one depth either way)
+MO_NS_STEPS = 5
 C8_P, C8_GENS, C8_STEPS = 8, 3, 40
 MO_CLI_GENS = 12
 MO_SHA_SPEC = "accuracy:max,latency:min"
@@ -4170,6 +4200,373 @@ def service_phase(gn, smi):
     return out, launches, errs, None
 
 
+# phase 22, the suggestion service: BENCH_ALL.json config 6 (a real
+# --suggest-serve server on tabular_mlp driven over its filesystem spool,
+# 8 rounds of a 32-point suggestion and its 32 reports) and config 7 (the
+# same server behind --http-port 0 --http-queue 64, 4 concurrent clients
+# x 12 rounds of a batched suggestion and its batched reports), at full
+# size (bench_all.py's bench_config6/bench_config7)
+SUG_ROUNDS, SUG_BATCH = 8, 32
+HTTP_ROUNDS, HTTP_BURST, HTTP_QUEUE = 12, 4, 64
+SUG_RING = 512  # the server's ring (SuggestServer's default buffer)
+SUG_UNIT_TOL = 1e-5  # card against CPU units of one acquisition on the same draws
+# the exactly-once drill: rounds of an 8-point suggestion and its reports,
+# seeded net faults over the first DRILL_WINDOW transport ops of each
+# stage, and the server SIGKILLed after journaling round DRILL_KILL's reports
+DRILL_ROUNDS, DRILL_BATCH, DRILL_KILL, DRILL_WINDOW = 6, 8, 3, 12
+# the tenant drill: 12 suggestions, each followed by a report of a fixed
+# point (the records do not depend on what was suggested); the drain after
+# the first TENANT_DRAIN of those 24 requests
+TENANT_REQUESTS, TENANT_DRAIN = 12, 13
+
+
+def _suggest_serve(tmp, name, *extra):
+    """A ``--suggest-serve`` server on tabular_mlp (the card) in a
+    subprocess, its output to a file; returns (process, log file, spool,
+    ledger, log path)."""
+    d = os.path.join(tmp, name)
+    os.makedirs(d, exist_ok=True)
+    spool, led, log = (os.path.join(d, x) for x in ("spool", "l.jsonl", "out.log"))
+    f = open(log, "a")
+    argv = [sys.executable, "-m", "mpi_opt_tpu_torch", "--workload", "tabular_mlp", "--suggest-serve",
+            spool, "--suggest-idle-timeout", "120", "--seed", "0", "--ledger", led, *extra]
+    return subprocess.Popen(argv, cwd=ROOT, stdout=f, stderr=subprocess.STDOUT, text=True), f, spool, led, log
+
+
+def _last_json(path):
+    with open(path) as f:
+        lines = [x for x in f.read().splitlines() if x.startswith("{")]
+    return json.loads(lines[-1]) if lines else {}
+
+
+def _spool_ready(client, spool, proc):
+    """The first answered suggestion (import, CUDA, data): set-up, outside
+    any timed window."""
+    end = time.monotonic() + 300
+    while time.monotonic() < end:
+        try:
+            return client.round_trip(spool, {"op": "suggest", "n": SUG_BATCH}, timeout=10)
+        except TimeoutError:
+            if proc.poll() is not None:
+                break
+    raise AssertionError(f"the suggestion server never answered (rc {proc.poll()})")
+
+
+def _http_ready(client, transport, spool, proc, pid=None):
+    """The front door's URL once it is bound (its endpoint file names
+    ``pid`` when given: a restart overwrites a killed server's) and its
+    first answered suggestion."""
+    end = time.monotonic() + 300
+    path = os.path.join(spool, "control", "http.json")
+    while time.monotonic() < end and proc.poll() is None:
+        try:
+            with open(path) as f:
+                doc = json.load(f)
+        except (OSError, ValueError):
+            doc = {}
+        if doc.get("url") and (pid is None or doc.get("pid") == pid):
+            env = transport.envelope([{"op": "suggest", "n": SUG_BATCH}])
+            transport.call_with_retries(transport.HttpTransport(doc["url"], timeout=60), "/v1/batch",
+                                        env, retries=8)
+            return doc["url"]
+        time.sleep(0.05)
+    raise AssertionError(f"the front door never answered (rc {proc.poll()})")
+
+
+def _idem_pairs(path):
+    return [(r.get("idem_key"), r.get("idem_op")) for r in _records(path)]
+
+
+def _journaled_reports(path) -> int:
+    """Records a ledger holds whole (a line the server is still writing
+    is not counted)."""
+    with open(path) as f:
+        return max(0, f.read().count("\n") - 1)
+
+
+def suggest_phase(gn, smi):
+    """The suggestion service (``--suggest-serve``, ``suggest-client``,
+    the HTTP front door) on the card. (a) BENCH config 6 at full size: a
+    server subprocess on tabular_mlp driven by ``client.bench`` over its
+    spool, 8 rounds x 32, every suggestion reported: suggestions/s,
+    round-trip p50/p95, and the ledger's 256 reports, each once. (b)
+    BENCH config 7 at full size: a server behind ``--http-port 0
+    --http-queue 64`` driven by ``bench_http`` with 4 clients x 12 rounds
+    x 32: suggestions/s, round-trip and queue-wait p50/p95, the server's
+    shed/replayed/expired counters, every report once. (c) The
+    exactly-once drill: a front door on the card, the client under seeded
+    ``inject_net`` faults (refused, torn, delayed), the server SIGKILLed
+    after journaling a report batch and before its reply, restarted with
+    ``--resume`` on a new port, the client retrying the same envelope into
+    it: every acked (idem_key, idem_op) journaled once, the retried batch
+    answered ``journal_replayed``. (d) One ``SuggestServer.suggest(32)``
+    over a full ring (512 rows of tabular_mlp's space) in this process on
+    the card, timed by CUDA events, against the same draws on the CPU
+    (equal picks, units within SUG_UNIT_TOL, a near-tie named where the
+    greedy picks part) with the CPU call's time beside it, the ring's
+    acquisition tensors on cuda. (e) A suggestion tenant under ``serve``
+    on the card: submitted, fed fixed-point requests, ``drain`` parks it
+    (the server exits 0), a restarted server resumes it, the stop flag
+    completes it (done): its records equal those of one unparked server
+    fed the same requests. (a) and (b) each run alone; their servers
+    start together. (c) and (e) run together.
+    Returns (record, GN launches, problem)."""
+    import shutil
+
+    from mpi_opt_tpu_torch.algorithms import tpe as atpe
+    from mpi_opt_tpu_torch.algorithms.base import Observation
+    from mpi_opt_tpu_torch.corpus import client, transport
+    from mpi_opt_tpu_torch.corpus.serve import SuggestServer
+    from mpi_opt_tpu_torch.ops.tpe import TPEDraws, pick_components, tpe_apply, tpe_fit
+    from mpi_opt_tpu_torch.service.spool import Spool
+    from mpi_opt_tpu_torch.workloads import get_workload
+    from mpi_opt_tpu_torch.workloads.chaos import NetFaultInjector
+
+    tmp = os.path.join(ROOT, "build", "chip_smoke_suggest")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    t_phase = time.perf_counter()
+    out = {"card": smi}
+    servers = []
+    gn.reset_launches()
+    try:
+        # (a) and (b): both servers start at once; each bench runs alone
+        c6 = _suggest_serve(tmp, "c6")
+        c7 = _suggest_serve(tmp, "c7", "--http-port", "0", "--http-queue", str(HTTP_QUEUE))
+        servers += [c6[:2], c7[:2]]
+        _spool_ready(client, c6[2], c6[0])
+        url = _http_ready(client, transport, c7[2], c7[0])
+        rec = client.bench(c6[2], rounds=SUG_ROUNDS, batch=SUG_BATCH)
+        client.request_stop(c6[2])
+        rc = c6[0].wait(timeout=120)
+        recs = _records(c6[3])
+        rec.update(card=smi, rc=rc, ledger_records=len(recs),
+                   ledger_ok=sum(r["status"] == "ok" for r in recs))
+        print("suggest-config6 " + json.dumps(rec))
+        out["config6"] = rec
+        if rc != 0 or [r["trial_id"] for r in recs] != list(range(SUG_ROUNDS * SUG_BATCH)) or \
+                rec["ledger_ok"] != SUG_ROUNDS * SUG_BATCH:
+            return out, {}, f"suggest (a): rc {rc}, {len(recs)} records, {rec['ledger_ok']} ok"
+        rec = client.bench_http(url, rounds=HTTP_ROUNDS, batch=SUG_BATCH, burst=HTTP_BURST)
+        transport.HttpTransport(url, timeout=30).call("/v1/stop", {})
+        rc = c7[0].wait(timeout=120)
+        summary = _last_json(c7[4])
+        pairs = _idem_pairs(c7[3])
+        want = SUG_BATCH * (1 + HTTP_ROUNDS * HTTP_BURST)  # bench_http's warm-up batch too
+        rec.update(card=smi, rc=rc, ledger_records=len(pairs), server={
+            k: summary.get(k) for k in ("served", "ops", "suggestions", "reports", "shed", "replayed",
+                                        "expired", "breaker_trips")})
+        print("suggest-config7 " + json.dumps(rec))
+        out["config7"] = rec
+        if rc != 0 or len(pairs) != want or len(set(pairs)) != want:
+            return out, {}, f"suggest (b): rc {rc}, {len(pairs)} records ({len(set(pairs))} distinct)" \
+                            f" of {want}"
+
+        # (d) the acquisition in this process: card against CPU, one ring
+        space = get_workload("tabular_mlp").default_space()
+        rng = np.random.default_rng(22)
+        obs = [Observation(unit=rng.random(space.dim, dtype=np.float32), score=float(s), budget=1)
+               for s in rng.normal(size=SUG_RING)]
+
+        def server(device):
+            s = SuggestServer(space, seed=0, device=device)
+            s.ingest(obs)
+            return s
+
+        seen = []
+        real_fit = atpe.tpe_fit
+        atpe.tpe_fit = lambda u, *a: (seen.append(str(u.device.type)), real_fit(u, *a))[1]
+        try:
+            card, host = server("cuda"), server("cpu")
+            got, want_u = card.suggest(SUG_BATCH)["units"], host.suggest(SUG_BATCH)["units"]
+        finally:
+            atpe.tpe_fit = real_fit
+        diff = np.abs(np.float32(got) - np.float32(want_u)).max(axis=1)
+        parted = next((i for i, d in enumerate(diff) if d > SUG_UNIT_TOL), None)
+        acq = {}
+        if parted is not None:
+            # where the greedy picks part, both devices' picked candidates
+            # must score alike (a near-tie), else the acquisition is wrong
+            draws = card._draw_tpe((0, 0), SUG_RING, space.dim)
+            for dev in ("cuda", "cpu"):
+                ring = [torch.from_numpy(a).to(dev) for a in (card._obs_unit, card._obs_score, card._valid)]
+                dr = TPEDraws(*(x.to(dev) for x in draws))
+                model = tpe_fit(*ring, card.config)
+                comp = pick_components(dr.u_pick, model.probs)
+                acq[dev] = tpe_apply(ring[0], model, comp, dr.jitter, dr.uni, SUG_BATCH, card.config)[1].cpu()
+        warm = server("cuda")
+        for _ in range(3):
+            warm.suggest(SUG_BATCH)
+        card_ms = []
+        for _ in range(10):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            warm.suggest(SUG_BATCH)
+            e1.record()
+            torch.cuda.synchronize()
+            card_ms.append(e0.elapsed_time(e1))
+        cpu = server("cpu")
+        cpu.suggest(SUG_BATCH)
+        cpu_ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            cpu.suggest(SUG_BATCH)
+            cpu_ms.append((time.perf_counter() - t0) * 1e3)
+        rec = {"card": smi, "ring": SUG_RING, "dim": space.dim, "candidates": card.config.n_candidates,
+               "n": SUG_BATCH, "ring_devices": seen, "max_unit_diff": float(diff.max()),
+               "picks_equal": SUG_BATCH if parted is None else parted,
+               "card_ms": card_ms, "card_ms_median": float(np.median(card_ms)),
+               "cpu_ms": cpu_ms, "cpu_ms_median": float(np.median(cpu_ms))}
+        if parted is not None:
+            rec["near_tie"] = [float(acq["cuda"][parted]), float(acq["cpu"][parted])]
+        print("suggest-acquisition " + json.dumps(rec))
+        out["acquisition"] = rec
+        if seen != ["cuda", "cpu"]:
+            return out, {}, f"suggest (d): the ring's acquisition tensors were on {seen}"
+        if parted is not None and (parted < 8 or not np.isclose(*rec["near_tie"], rtol=1e-5, atol=1e-5)):
+            return out, {}, f"suggest (d): card and CPU picks part at {parted} without a near-tie"
+
+        def drill():
+            """(c) exactly once across seeded net faults and a SIGKILL."""
+            proc, f, spool, led, log = _suggest_serve(tmp, "drill", "--http-port", "0")
+            servers.append((proc, f))
+            state = {"armed": None, "killed": False, "restarted": None}
+            injector = NetFaultInjector(refuse=3, torn=3, delay=3, delay_s=0.05, seed=15,
+                                        ops_window=DRILL_WINDOW)
+
+            def seam(stage, at):
+                if state["armed"] is not None and stage == "read":
+                    expect, state["armed"] = state["armed"], None
+                    end = time.monotonic() + 60  # the batch is written: wait until it is journaled
+                    while _journaled_reports(led) < expect and time.monotonic() < end:
+                        time.sleep(0.005)
+                    proc.kill()
+                    proc.wait()
+                    state["killed"] = True
+                    raise transport.TornResponse(f"drill: {at} SIGKILLed before its reply")
+                injector(stage, at)
+
+            def sleep(s):
+                if state["killed"] and state["restarted"] is None:
+                    p2, f2 = _suggest_serve(tmp, "drill", "--http-port", "0", "--resume")[:2]
+                    servers.append((p2, f2))
+                    state["restarted"] = p2
+                    new = transport.HttpTransport(_http_ready(client, transport, spool, p2, pid=p2.pid))
+                    cli.transport.host, cli.transport.port = new.host, new.port
+                    cli.transport.base_url = new.base_url
+                time.sleep(min(s, 0.05))
+
+            cli = client.SuggestHttpClient(_http_ready(client, transport, spool, proc), client_id="drill",
+                                           timeout=60, retries=10, backoff_s=0.02, sleep=sleep)
+            acked, replayed = [], None
+            transport.set_net_fault_injector(seam)
+            try:
+                for r in range(DRILL_ROUNDS):
+                    params = cli.suggest(DRILL_BATCH)["params"]
+                    ops = [{"op": "report", "params": p, "score": client._synthetic_score(p), "budget": 1}
+                           for p in params]
+                    if r == DRILL_KILL:
+                        state["armed"] = _journaled_reports(led) + len(ops)
+                    env = transport.envelope(ops, client="drill")
+                    ans = transport.call_with_retries(cli.transport, "/v1/batch", env, retries=10,
+                                                      backoff_s=0.02, sleep=sleep)
+                    if any(x.get("error") for x in ans["results"]):
+                        raise AssertionError(f"drill: round {r} refused: {ans['results'][:2]}")
+                    acked += [(env["key"], i) for i in range(len(ops))]
+                    if r == DRILL_KILL:
+                        replayed = [bool(x.get("journal_replayed")) for x in ans["results"]]
+            finally:
+                transport.set_net_fault_injector(None)
+            cli.stop()
+            p2 = state["restarted"]
+            rc2 = p2.wait(timeout=120) if p2 is not None else None
+            pairs = _idem_pairs(led)
+            rec = {"card": smi, "rounds": DRILL_ROUNDS, "batch": DRILL_BATCH, "killed_at_round": DRILL_KILL,
+                   "faults_fired": dict(injector.faults_fired), "killed_rc": proc.returncode,
+                   "restarted_rc": rc2, "acked": len(acked), "ledger_records": len(pairs),
+                   "distinct": len(set(pairs)), "journal_replayed": replayed}
+            bad = None
+            if not state["killed"] or rc2 != 0:
+                bad = f"suggest (c): killed {state['killed']}, the restart exited {rc2}"
+            elif sorted(pairs) != sorted(acked) or len(set(pairs)) != len(pairs):
+                bad = "suggest (c): the ledger does not hold every acked report exactly once"
+            elif not replayed or not all(replayed):
+                bad = f"suggest (c): the retried batch was not answered from the journal: {replayed}"
+            elif min(injector.faults_fired.values()) < 1:
+                bad = f"suggest (c): a net fault never fired: {injector.faults_fired}"
+            return rec, bad
+
+        # the tenant's requests: a suggestion, then a report of a fixed point
+        ops = []
+        for i in range(TENANT_REQUESTS):
+            ops += [{"op": "suggest", "n": 4},
+                    {"op": "report", "params": {"lr": 0.001 * (i + 1), "momentum": 0.05 * i,
+                                                "weight_decay": 1e-5 * (i + 1)},
+                     "score": 0.01 * i, "budget": 2}]
+
+        def feed(spool, part):
+            for op in part:
+                ans = client.round_trip(spool, op, timeout=300)
+                if ans.get("error"):
+                    raise AssertionError(f"tenant: {op['op']} refused: {ans['error']}")
+
+        def tenant():
+            """(e) parked by a drain, resumed, stopped: the unparked records."""
+            sd, spool = os.path.join(tmp, "e", "state"), os.path.join(tmp, "e", "spool")
+            ref = _suggest_serve(tmp, "e-ref")
+            servers.append(ref[:2])
+            p1 = _serve(sd, os.path.join(tmp, "e1.log"), "--slice-boundaries", "3")
+            servers.append(p1)
+            rc_sub, o = _spool_client("submit", "--state-dir", sd, "--tenant", "ext", "--", "--workload",
+                                      "tabular_mlp", "--suggest-serve", spool, "--suggest-idle-timeout",
+                                      "120", "--seed", "0")
+            job = json.loads(o)["job"]
+            feed(ref[2], ops)
+            client.request_stop(ref[2])
+            feed(spool, ops[:TENANT_DRAIN])
+            _spool_client("drain", "--state-dir", sd)
+            feed(spool, ops[TENANT_DRAIN:TENANT_DRAIN + 1])  # served, then the slice parks
+            rc1 = p1[0].wait(timeout=120)
+            parked = Spool(sd).tenant(job).status
+            p2 = _serve(sd, os.path.join(tmp, "e2.log"), "--slice-boundaries", "3", "--drain-on-empty")
+            servers.append(p2)
+            feed(spool, ops[TENANT_DRAIN + 1:])
+            rc_stop, _ = _spool_client("suggest-client", "--dir", spool, "stop")
+            rc2 = p2[0].wait(timeout=120)
+            rc_ref = ref[0].wait(timeout=120)
+            st = Spool(sd).tenant(job).status
+            got, want = _records(Spool(sd).tenant(job).ledger), _records(ref[3])
+            keep = ("trial_id", "params", "status", "score", "step")
+            same = [{k: r[k] for k in keep} for r in got] == [{k: r[k] for k in keep} for r in want]
+            rec = {"card": smi, "requests": len(ops), "drained_after": TENANT_DRAIN + 1,
+                   "server_rcs": [rc1, rc2], "parked_state": parked.get("state"),
+                   "state": st.get("state"), "slices": st.get("slices"), "records": len(got),
+                   "reference_rc": rc_ref, "records_equal_unparked": same, "submit_rc": rc_sub,
+                   "stop_rc": rc_stop}
+            bad = None
+            if rc1 != 0 or rc2 != 0 or rc_ref != 0 or parked.get("state") != "parked":
+                bad = f"suggest (e): servers {rc1}, {rc2}, reference {rc_ref}, parked {parked.get('state')}"
+            elif st.get("state") != "done" or not same or len(got) != TENANT_REQUESTS:
+                bad = f"suggest (e): state {st.get('state')}, {len(got)} records, equal {same}"
+            return rec, bad
+
+        (drill_rec, bad_c), (tenant_rec, bad_e) = _together(drill, tenant)
+        print("suggest-drill " + json.dumps(drill_rec))
+        print("suggest-tenant " + json.dumps(tenant_rec))
+        out.update(drill=drill_rec, tenant=tenant_rec)
+        if bad_c or bad_e:
+            return out, {}, bad_c or bad_e
+    except Exception as e:  # noqa: BLE001 - a phase's failure fails the run
+        return out, {}, f"suggest: {type(e).__name__}: {e}"
+    finally:
+        _stop(servers)
+    launches = {"suggest": dict(gn.LAUNCHES)}  # no GN on this path
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"suggest phase wall: {out['wall_s']} s")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out, launches, None
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline-cu", default=None,
@@ -4297,18 +4694,18 @@ def main() -> int:
         record["launches"] = launches["smallcnn_p256"]
         print("north-star " + json.dumps(record))
         done("north_star", record)
-        # the same run with cuDNN's deterministic algorithms, in turns with
-        # the defaults: default (above), deterministic, default
+        # the same run with cuDNN's deterministic algorithms, after the
+        # default one above (a second default run after it was cut to make
+        # room for phase 22)
         det = {"card": smi, "default": [record["value"]], "deterministic": [], "same_curve": []}
-        for on in (True, False):
-            torch.backends.cudnn.deterministic = on
-            try:
-                r, _ = bench.run(population=CNN_P, generations=NS_GENS, steps=NS_STEPS, seed=0,
-                                 member_chunk=CNN_CHUNK, gen_chunk=1)
-            finally:
-                torch.backends.cudnn.deterministic = False
-            det["deterministic" if on else "default"].append(r["value"])
-            det["same_curve"].append(r["best_curve"] == record["best_curve"])
+        torch.backends.cudnn.deterministic = True
+        try:
+            r, _ = bench.run(population=CNN_P, generations=NS_GENS, steps=NS_STEPS, seed=0,
+                             member_chunk=CNN_CHUNK, gen_chunk=1)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        det["deterministic"].append(r["value"])
+        det["same_curve"].append(r["best_curve"] == record["best_curve"])
         print("determinism-cost " + json.dumps(det))
         done("determinism_cost", det)
         # 7. where a steady north-star step's device time goes
@@ -4489,7 +4886,17 @@ def main() -> int:
         if bad:
             return fail(bad)
 
-    # 21. no process left running
+    if "suggest" in phases:
+        # 21. the suggestion service: configs 6 and 7 at full size, the
+        # exactly-once drill, the acquisition card against CPU, a tenant
+        # parked and resumed under serve
+        sug_out, sug_launches, bad = suggest_phase(gn, smi)
+        launches.update(sug_launches)
+        done("suggest", sug_out)
+        if bad:
+            return fail(bad)
+
+    # 22. no process left running
     left = stop_processes()
     if left:
         return fail(f"processes left running after the phases (killed now): {left}")
@@ -4498,7 +4905,7 @@ def main() -> int:
         print(f"chip_smoke: partial run ({','.join(phases)}): no result line")
         return 0
 
-    # 22. the kernels line (a population step of each path, summed; launches
+    # 23. the kernels line (a population step of each path, summed; launches
     # summed over every path), then the device line
     src = "mpi_opt_tpu_torch/csrc/group_norm.cu"
     kernels = []

@@ -1,9 +1,11 @@
 """Command line of the port (port of ``mpi_opt_tpu/cli.py``: the driver
 path on the gpu and cpu backends, the fused ``--algorithm
 pbt|asha|random|hyperband|tpe|bohb`` paths, ``--warm-start`` on both, and
-the ``trace``, ``report``, ``fsck`` and ``corpus`` subcommands, and the
+the ``trace``, ``report``, ``fsck`` and ``corpus`` subcommands, the
 sweep service's ``serve``, ``submit``, ``status``, ``cancel`` and
-``drain``).
+``drain``, and the suggestion service: ``--suggest-serve`` behind its
+filesystem spool or, with ``--http-port``, the HTTP front door, and
+``suggest-client``).
 
     python -m mpi_opt_tpu_torch --workload fashion_mlp --algorithm asha \\
         --trials 64 --min-budget 10 --max-budget 270 --eta 3 --population 64 \\
@@ -41,6 +43,10 @@ sweep service's ``serve``, ``submit``, ``status``, ``cancel`` and
     python -m mpi_opt_tpu_torch.launch --n-proc 2 -- --workload cifar100_resnet18 \
         --algorithm pbt --fused --n-pop 2 --population 16 --generations 3 \
         --steps-per-generation 5 [--checkpoint-dir ck --ledger sweep.jsonl]
+    python -m mpi_opt_tpu_torch --workload tabular_mlp --suggest-serve SDIR \
+        [--http-port 0 [--http-queue 64] [--http-state-dir SD]] [--ledger L [--resume]] \
+        [--suggest-idle-timeout S] [--warm-start auto:DIR] [--device cpu]
+    python -m mpi_opt_tpu_torch suggest-client --dir SDIR suggest -n 8   # or --url URL
 
 Multi-process SPMD: ``--coordinator HOST:PORT --num-processes N
 --process-id R`` (which ``launch.py`` passes to each rank) brings up a
@@ -70,9 +76,8 @@ events), and so are the exit codes: 0 done; 1 the driver's failure-rate
 breaker tripped; 2 usage; 65 a data dead-end (no verified snapshot, or a ledger
 that diverges from or lags the sweep); 74 a device OOM or a full disk;
 75 a graceful drain on SIGTERM/SIGINT, with the snapshot flushed: rerun
-with ``--resume``. A flag or subcommand of the JAX CLI
-that the port does not take yet is a usage error that says so; none is
-silently ignored.
+with ``--resume``. The one subcommand of the JAX CLI that the port
+does not take yet, ``lint``, is a usage error that says so.
 """
 
 from __future__ import annotations
@@ -98,27 +103,12 @@ from mpi_opt_tpu_torch.workloads import _REGISTRY, get_workload
 
 # the JAX CLI's algorithms; the port runs every one, fused and driver
 ALGORITHMS = ("asha", "bohb", "hyperband", "pbt", "random", "tpe")
-# the JAX CLI's subcommands that the port does not run yet
-_SUBCOMMANDS = ("lint", "suggest-client")
+# the JAX CLI's subcommand that the port does not run yet
+_SUBCOMMANDS = ("lint",)
 #: the environment variable the sweep service sets around a traced
 #: slice: the tenant tag stamped into the slice's span records (env, not
 #: a flag, so the argv the tenant submitted stays exactly its own)
 TRACE_TAG_ENV = "MPI_OPT_TPU_TRACE_TAG"
-# the JAX CLI's flags that the port does not take yet: valued, then boolean
-_NOT_PORTED_FLAGS = (
-    "--suggest-serve", "--suggest-idle-timeout", "--http-port", "--http-queue",
-    "--http-state-dir",
-)
-_NOT_PORTED_SWITCHES = ()
-
-
-class _NotPorted(argparse.Action):
-    """A JAX CLI flag the port does not take yet: a usage error."""
-
-    def __call__(self, parser, namespace, values, option_string=None):
-        parser.error(f"{option_string} is not ported yet (mpi_opt_tpu_torch runs the driver "
-                     "path on the gpu and cpu backends and the --fused sweeps)")
-
 
 def _wire_integrity_observer(metrics):
     """Snapshot-corruption events into this run's metrics stream; each
@@ -332,10 +322,32 @@ def build_parser() -> argparse.ArgumentParser:
                    help="chaos drill: 'rank=R,at=K[,n=N][,marker=PATH]' SIGKILLs the rank R "
                    "process at the K-th (1-based) launch/rung/generation boundary; marker "
                    "makes the kill fire once across coordinated restarts")
-    for flag in _NOT_PORTED_FLAGS:
-        p.add_argument(flag, nargs="?", action=_NotPorted, help=argparse.SUPPRESS)
-    for flag in _NOT_PORTED_SWITCHES:
-        p.add_argument(flag, nargs=0, action=_NotPorted, help=argparse.SUPPRESS)
+    # the suggestion service (corpus/serve.py): instead of sweeping,
+    # answer suggest/report/lookup traffic for outside sweeps
+    p.add_argument("--suggest-serve", default=None, metavar="DIR",
+                   help="run as a resident suggestion server over this filesystem spool instead "
+                   "of sweeping: answers suggest/report/lookup requests (`suggest-client`) from "
+                   "the batched TPE acquisition, on the card unless --device cpu, over "
+                   "--workload's space, warm-started by --warm-start (auto:DIR too). Submittable "
+                   "to the sweep service unchanged: every served request is a boundary, so "
+                   "`serve` time-slices it like a sweep; with --ledger every report journals and "
+                   "--resume rebuilds the ring")
+    p.add_argument("--suggest-idle-timeout", type=float, default=None, metavar="S",
+                   help="with --suggest-serve: exit 0 (done) after S seconds with no requests "
+                   "(unset: stay resident until `suggest-client stop` or a drain)")
+    # the HTTP front door (service/http.py) in front of the suggestion server
+    p.add_argument("--http-port", type=int, default=None, metavar="PORT",
+                   help="with --suggest-serve: serve the HTTP front door on this port instead "
+                   "of the filesystem request spool (0: an ephemeral port, published atomically "
+                   "to DIR/control/http.json). Batched ops share one journal fsync; overload "
+                   "sheds with typed 503s; idempotency keys make client retries exactly-once")
+    p.add_argument("--http-queue", type=int, default=64, metavar="N",
+                   help="with --http-port: the admission queue's bound; requests beyond it shed "
+                   "with 503 and Retry-After instead of queueing without bound")
+    p.add_argument("--http-state-dir", default=None, metavar="DIR",
+                   help="with --http-port: also expose the sweep service's submit/status/cancel "
+                   "ops over HTTP against this service state dir (the spool stays the "
+                   "durability layer; fencing tokens stay the authority)")
     return p
 
 
@@ -626,6 +638,110 @@ def run_fused(args, parser, workload) -> int:
         if ledger is not None:
             ledger.close()
         metrics.close()
+
+
+def run_suggest_serve(args, parser, workload) -> int:
+    """--suggest-serve DIR: the suggestion-service tenant
+    (``corpus/serve.py``). Instead of sweeping, this process answers
+    suggest/report/lookup traffic over DIR (or, with ``--http-port``,
+    through the HTTP front door), the acquisition on ``--device``. Its
+    lifecycle is a sweep's, so the sweep service can own it: a drain
+    (slice budget, SIGTERM, cancel) parks it with exit 75, every acked
+    report already fsync-journaled, and ``--ledger --resume`` rebuilds
+    the ring on the next slice; the stop flag or the idle timeout
+    completes it (exit 0)."""
+    from mpi_opt_tpu_torch.corpus.serve import SuggestServer, serve_loop
+    from mpi_opt_tpu_torch.ledger import LedgerError, SweepLedger
+
+    space = workload.default_space()
+    metrics = stdout_logger(path=args.metrics_file, n_chips=1)
+    if args.trace:  # main restores the entry state on the way out
+        _trace.configure(metrics, tenant=os.environ.get(TRACE_TAG_ENV))
+    server = SuggestServer(space, seed=args.seed, device=args.device)
+    # the corpus warm start resolves BEFORE the ledger header commits, as
+    # on the sweep paths
+    warm_obs = warm_info = None
+    if args.warm_start:
+        warm_obs, warm_info = _resolve_warm_start(args, space, parser, metrics)
+    ledger = None
+    if args.ledger:
+        try:
+            # one process owns its spool directory: the ledger is writable
+            ledger = SweepLedger(args.ledger, read_only=False)
+        except LedgerError as e:
+            parser.error(f"--ledger: {e}")
+        if ledger.records and not args.resume:
+            ledger.close()
+            parser.error(
+                f"--ledger {args.ledger!r} already holds {len(ledger.records)} report records; "
+                "pass --resume to rebuild the ring from them, or point at a fresh path"
+            )
+        try:
+            ledger.ensure_header(
+                {
+                    "mode": "suggest",
+                    "algorithm": "tpe",
+                    "workload": args.workload,
+                    "backend": "suggest",
+                    "seed": args.seed,
+                    "space_hash": space.space_hash(),
+                    "warm_start": args.warm_start,
+                },
+                space_spec=space.spec(),
+            )
+        except LedgerError as e:
+            ledger.close()
+            parser.error(f"--ledger: {e}")
+        if ledger.n_torn:
+            metrics.log("ledger_torn_tail_dropped", path=args.ledger)
+        if ledger.records:
+            # resume: the server's own journaled reports rebuild the ring
+            # and the cache, and the report serial continues past them
+            server.seed_from_ledger(ledger.records)
+            metrics.log("ledger_replay", completed=len(ledger.records))
+    if warm_obs is not None:
+        n_warm = server.ingest(warm_obs)
+        _log_warm_start(metrics, args, warm_info, n_warm)
+    metrics.log("suggest_serve", workload=args.workload, n_obs=server._n_obs)
+    try:
+        if args.http_port is not None:
+            # the HTTP front door: handler threads admit, THIS thread runs
+            # the acquisition and the journal (the drain and the heartbeat
+            # stay serve_loop's); the spool dir still hosts the stop flag
+            # and the endpoint file
+            from mpi_opt_tpu_torch.service.http import FrontDoor, serve_http
+
+            spool = None
+            if args.http_state_dir:
+                from mpi_opt_tpu_torch.service.spool import Spool
+
+                spool = Spool(args.http_state_dir)
+            front = FrontDoor(suggest=server, ledger=ledger, spool=spool, metrics=metrics,
+                              queue_depth=args.http_queue)
+            summary = serve_http(front, args.suggest_serve, metrics, port=args.http_port,
+                                 idle_timeout=args.suggest_idle_timeout)
+        else:
+            summary = serve_loop(server, args.suggest_serve, metrics, ledger=ledger,
+                                 idle_timeout=args.suggest_idle_timeout)
+    except SweepInterrupted as e:
+        # the drain park: every acked report is fsync-journaled already,
+        # so the park loses nothing; 75 tells the scheduler "resume me"
+        metrics.count_preempted()
+        metrics.summary(final=True)
+        print(json.dumps({"preempted": True, "signal": e.signal, "at": e.at,
+                          "workload": args.workload, "backend": "suggest"}))
+        print(f"graceful shutdown ({e.signal}) at {e.at}: reports journaled; "
+              f"relaunch with --resume to continue (exit {EX_TEMPFAIL})", file=sys.stderr)
+        metrics.close()
+        return EX_TEMPFAIL
+    finally:
+        if ledger is not None:
+            ledger.close()
+    metrics.summary(final=True)
+    print(json.dumps(_finite_or_null({"workload": args.workload, "algorithm": "suggest",
+                                      "backend": "suggest", **summary})))
+    metrics.close()
+    return 0
 
 
 def _open_fused_ledger(args, parser, space, metrics):
@@ -1127,6 +1243,12 @@ def main(argv=None, *, _workload=None) -> int:
         from mpi_opt_tpu_torch.corpus.cli import corpus_main
 
         return corpus_main(argv[1:])
+    # `suggest-client` drives a --suggest-serve server over its spool or
+    # its HTTP front door; torch-free, like every service client
+    if argv and argv[0] == "suggest-client":
+        from mpi_opt_tpu_torch.corpus.client import client_main
+
+        return client_main(argv[1:])
     parser = build_parser()
     if argv and argv[0] in _SUBCOMMANDS:
         parser.error(f"the {argv[0]!r} subcommand is not ported yet")
@@ -1177,6 +1299,28 @@ def main(argv=None, *, _workload=None) -> int:
     if args.isolate_stateful and (args.fused or args.backend != "cpu"):
         parser.error("--isolate-stateful moves the cpu backend's in-parent stateful path into a "
                      "worker process; fused/gpu sweeps have no such path")
+    # the suggestion service's flags, with the JAX CLI's usage errors
+    if args.suggest_serve:
+        if args.fused:
+            parser.error("--suggest-serve answers suggestion traffic instead of sweeping; it "
+                         "cannot combine with --fused")
+        if args.chaos is not None:
+            parser.error("--chaos injects faults into trial evaluation; a --suggest-serve server "
+                         "evaluates nothing")
+    if args.suggest_idle_timeout is not None:
+        if not args.suggest_serve:
+            parser.error("--suggest-idle-timeout requires --suggest-serve")
+        if args.suggest_idle_timeout <= 0:
+            parser.error(f"--suggest-idle-timeout must be > 0, got {args.suggest_idle_timeout}")
+    if args.http_port is not None:
+        if not args.suggest_serve:
+            parser.error("--http-port requires --suggest-serve DIR")
+        if not 0 <= args.http_port <= 65535:
+            parser.error(f"--http-port must be in [0, 65535], got {args.http_port}")
+        if args.http_queue < 1:
+            parser.error(f"--http-queue must be >= 1, got {args.http_queue}")
+    elif args.http_state_dir is not None:
+        parser.error("--http-state-dir requires --http-port")
     if args.trial_retries < 0:
         parser.error(f"--trial-retries must be >= 0, got {args.trial_retries}")
     if not 0.0 < args.max_failure_rate <= 1.0:
@@ -1235,7 +1379,8 @@ def main(argv=None, *, _workload=None) -> int:
         with _shutdown.ShutdownGuard():
             if args.heartbeat_file:
                 _heartbeat.configure(args.heartbeat_file)
-            run = run_fused if args.fused else run_driver
+            run = (run_suggest_serve if args.suggest_serve
+                   else run_fused if args.fused else run_driver)
             return run(args, parser, _make_workload(args, parser, _workload))
     finally:
         _heartbeat.deconfigure()

@@ -1,6 +1,6 @@
 """Cross-sweep knowledge corpus: the ledger archive as a queryable prior
-(port of ``mpi_opt_tpu/corpus``: its index, matching and resolution,
-which import no JAX; the index file is the JAX package's).
+(port of ``mpi_opt_tpu/corpus``; the index file, the spool and the wire
+are the JAX package's).
 
 Every sweep journals its trial history durably (ledger/), every service
 tenant keeps a per-job ledger (service/), and the fused mode journals
@@ -19,21 +19,30 @@ read it without a human naming one file:
 - ``resolve`` — ``--warm-start auto[:DIR]``: exact-hash sources merge
   (dedup by canonical params, newest wins), fuzzy sources enter
   down-weighted at budget 0, stale/corrupt index entries degrade to
-  ``corpus_skip`` events — a deleted ledger never kills a sweep.
+  ``corpus_skip`` events — a deleted ledger never kills a sweep;
+- ``serve``   — ``--suggest-serve DIR``: the suggestion service, one
+  resident process answering suggest/report/lookup traffic over a
+  filesystem spool (or, with ``--http-port``, behind the HTTP front door
+  of ``service/http.py``), its acquisition on the card;
+- ``transport`` and ``client`` — the front door's wire protocol and
+  ``suggest-client``, torch-free (and jax-free), so they start fast and
+  ride in any outside sweep.
 
-The JAX package's suggestion service (``serve``, ``transport``,
-``client``: ``--suggest-serve`` and ``suggest-client``) is not ported
-yet.
+The exports below load on first use: ``suggest-client`` imports this
+package without torch.
 """
 
 from __future__ import annotations
 
-from mpi_opt_tpu_torch.corpus.index import (  # noqa: F401
-    INDEX_NAME,
-    INDEX_VERSION,
-    build_index,
-    index_corpus,
-    index_path,
-    read_index,
-    write_index,
-)
+import importlib
+
+_EXPORTS = ("INDEX_NAME", "INDEX_VERSION", "build_index", "index_corpus", "index_path",
+            "read_index", "write_index")
+
+__all__ = list(_EXPORTS)
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module 'mpi_opt_tpu_torch.corpus' has no attribute {name!r}")
+    return getattr(importlib.import_module("mpi_opt_tpu_torch.corpus.index"), name)

@@ -4,10 +4,10 @@ boundary-granular member view for fused sweeps (``fused``), and the
 driver path's exact-match cache (``cache``); ``warmstart`` feeds a
 prior sweep's ledger into a new search as observations, and ``report``
 renders ledgers for operators. The journals write the JAX package's
-schema byte for byte, so either package reads the other's ledgers. The
-corpus cache is not ported yet."""
+schema byte for byte, so either package reads the other's ledgers.
+``CorpusCache`` adds near-match priors for the suggestion service."""
 
-from mpi_opt_tpu_torch.ledger.cache import EvalCache
+from mpi_opt_tpu_torch.ledger.cache import CorpusCache, EvalCache
 from mpi_opt_tpu_torch.ledger.fused import FusedJournal, make_journal
 from mpi_opt_tpu_torch.ledger.store import (
     LEDGER_SCHEMA_VERSION,
@@ -20,6 +20,7 @@ from mpi_opt_tpu_torch.ledger.store import (
 from mpi_opt_tpu_torch.ledger.warmstart import warm_start
 
 __all__ = [
+    "CorpusCache",
     "EvalCache",
     "FusedJournal",
     "LEDGER_SCHEMA_VERSION",

@@ -5,9 +5,13 @@ An evaluation whose params match a journaled ok record to the canonical
 byte, at the same budget, is the same deterministic computation: skip it
 and serve the recorded result. Only ``ok`` results are cached: a failure
 may be transient, and serving it would make one unlucky evaluation
-permanent for those params. The corpus-backed ``CorpusCache`` comes with
-the suggestion service, the next slice of the port (ROADMAP.md, Queue 1);
-``corpus/``'s index and resolution are ported already.
+permanent for those params.
+
+``CorpusCache`` (port of the JAX class of the same name) keeps the exact
+hit of ``EvalCache`` to the byte and adds a second, separate lookup for
+near matches: the same params at another budget, or a fuzzy-matched
+record from a ledger of another space. A near match is low-fidelity
+evidence (``extra={"fidelity": "prior"}``), never a substitute result.
 """
 
 from __future__ import annotations
@@ -70,3 +74,99 @@ class EvalCache:
 
     def __len__(self) -> int:
         return len(self._memo)
+
+
+class CorpusCache(EvalCache):
+    """EvalCache plus a near-match prior view over corpus history.
+
+    Two stores, two truths: the inherited exact memo answers "this
+    exact computation already ran" (``get``, unchanged to the byte);
+    the prior store answers "this POINT has been seen at some budget"
+    (``get_prior``) — same-space/different-budget records, and
+    fuzzy-matched records another space's ledger contributed, keyed by
+    canonical params alone. A prior is evidence, not a result: it
+    carries ``extra={"fidelity": "prior"}`` and the budget it was
+    actually measured at, and callers (the suggestion service's
+    ``lookup`` op, acquisition warm starts) must treat it as a
+    low-fidelity hint, never journal it as this sweep's evaluation.
+    Highest-budget evidence wins when one point was seen at several
+    budgets — the closest thing the corpus holds to the truth.
+    """
+
+    def __init__(self, space: SearchSpace):
+        super().__init__(space)
+        self._prior: dict[str, dict] = {}
+        self.prior_hits = 0
+
+    def seed_prior(self, records: Sequence[dict], fuzzy: bool = False) -> int:
+        """Load ok records as near-match evidence; returns count added.
+
+        ``fuzzy=True`` marks records contributed by a different-hash
+        (fingerprint-matched) ledger — they never displace same-space
+        evidence for the same point, and the served extra says which
+        kind of prior the caller is leaning on."""
+        n = 0
+        for rec in records:
+            if rec.get("status") != "ok" or rec.get("score") is None:
+                continue
+            try:
+                key = self.space.params_key(rec["params"])
+            except KeyError:
+                continue  # fuzzy record missing a live dim: not evidence here
+            cur = self._prior.get(key)
+            if cur is not None and (
+                (cur["fuzzy"] is False and fuzzy)
+                or (cur["fuzzy"] == fuzzy and cur["step"] >= int(rec["step"]))
+            ):
+                continue
+            self._prior[key] = {
+                "score": float(rec["score"]),
+                "step": int(rec["step"]),
+                "fuzzy": bool(fuzzy),
+            }
+            n += 1
+        return n
+
+    def get_prior(self, params: dict, trial_id: int) -> Optional[TrialResult]:
+        """Near-match evidence for ``params`` at ANY budget, or None.
+
+        The result is deliberately NOT ok-shaped-for-substitution: the
+        score/step are the prior evaluation's, ``extra`` declares the
+        fidelity, and the caller decides what a low-fidelity fact is
+        worth. Exact hits are the exclusive business of ``get``."""
+        try:
+            found = self._prior.get(self.space.params_key(params))
+        except KeyError:
+            return None
+        if found is None:
+            return None
+        self.prior_hits += 1
+        return TrialResult(
+            trial_id=trial_id,
+            score=found["score"],
+            step=found["step"],
+            wall_time=0.0,
+            extra={
+                "fidelity": "prior",
+                "prior_kind": "fuzzy" if found["fuzzy"] else "budget",
+            },
+        )
+
+    def put(self, params: dict, result: TrialResult) -> None:
+        super().put(params, result)
+        if result.ok:
+            # a live ok result is same-space evidence for the prior
+            # view too (newer and never fuzzy, so it wins per the
+            # seed_prior rule applied directly)
+            key = self.space.params_key(params)
+            cur = self._prior.get(key)
+            if cur is None or cur["fuzzy"] or cur["step"] <= int(result.step):
+                self._prior[key] = {
+                    "score": float(result.score),
+                    "step": int(result.step),
+                    "fuzzy": False,
+                }
+
+    @property
+    def n_prior(self) -> int:
+        return len(self._prior)

@@ -19,6 +19,9 @@ Pieces:
 - ``programs`` — workload-instance reuse across shape-matching tenants
 - ``scheduler``— the server loop: admit, pick, slice, park
 - ``client``   — ``serve`` / ``submit`` / ``status`` / ``cancel`` / ``drain``
+- ``http``     — the HTTP front door of the suggestion service
+  (``--suggest-serve DIR --http-port N``), which also exposes
+  submit/status/cancel over this spool (``--http-state-dir``)
 
 Every mechanism the scheduler leans on already exists for robustness:
 preemption is the graceful-drain protocol, parking is exit 75, resume

@@ -37,9 +37,11 @@ and ``inject_corrupt_save`` mangle a committed snapshot step (what
 schedule on the snapshot-save and ledger-fsync seam, ``inject_oom``
 a device OOM at a chosen guarded launch (``utils/resources.py``), and
 ``inject_rank_kill`` (``--rank-kill``) a hard rank death at a chosen
-boundary of a multi-process sweep, and ``inject_spool_faults`` delayed
+boundary of a multi-process sweep, ``inject_spool_faults`` delayed
 or failed replaces and EIO status reads on the sweep service's spool
-(``service/spool.py``'s fault seam).
+(``service/spool.py``'s fault seam), and ``inject_net`` refused
+connections, torn replies and delays on the HTTP client transport
+(``corpus/transport.py``'s seam).
 """
 
 from __future__ import annotations
@@ -409,6 +411,84 @@ def inject_spool_faults(replace_fail: int = 0, read_fail: int = 0, replace_delay
 
     def uninstall() -> None:
         spool_mod.set_fault_injector(None)
+
+    return injector, uninstall
+
+
+# -- network-fault injectors (the HTTP front door) ---------------------------
+#
+# The spool injectors above strike filesystem metadata; this one strikes
+# the wire: the HTTP client transport's chaos seam
+# (``corpus/transport.py::net_fault``) fires at the three places a real
+# network fails: before the TCP connect ("connect": refused or reset),
+# before the request body is written ("send") and before the response is
+# read ("read": a torn reply, the did-it-execute ambiguity the
+# idempotency key exists for). Faults fire on exact per-stage op
+# ordinals from a seeded draw, never by wall clock.
+
+
+class NetFaultInjector:
+    """The schedule ``inject_net`` installs on ``corpus.transport``'s
+    net-fault seam. Counts every transport op a stage ("connect" /
+    "send" / "read") and fires the scheduled ordinals (``_schedule``,
+    the JAX package's draw, under its names ``net-refuse``, ``net-torn``
+    and ``net-delay``): connect ordinals raise ``transport.Unreachable``,
+    read ordinals ``transport.TornResponse`` (the request may have
+    executed), and the ``delay`` read ordinals sleep ``delay_s`` first.
+    Thread-safe: bench and drill clients retry from many threads through
+    one seam."""
+
+    def __init__(self, refuse: int = 0, torn: int = 0, delay: int = 0, delay_s: float = 0.05,
+                 seed: int = 0, ops_window: int | None = None):
+        self.delay_s = float(delay_s)
+        self._lock = threading.Lock()
+        self._counts = {"connect": 0, "send": 0, "read": 0}
+        self._fail = {
+            "connect": _schedule("net-refuse", refuse, seed, ops_window),
+            "read": _schedule("net-torn", torn, seed, ops_window),
+        }
+        self._delay = _schedule("net-delay", delay, seed, ops_window)
+        self.faults_fired = {"refuse": 0, "torn": 0, "delay": 0}
+
+    def __call__(self, stage: str, url: str) -> None:
+        from mpi_opt_tpu_torch.corpus.transport import TornResponse, Unreachable
+
+        with self._lock:
+            ordinal = self._counts.get(stage, 0)
+            self._counts[stage] = ordinal + 1
+            fire = ordinal in self._fail.get(stage, ())
+            delay = stage == "read" and ordinal in self._delay
+            if fire:
+                self.faults_fired["refuse" if stage == "connect" else "torn"] += 1
+            if delay:
+                self.faults_fired["delay"] += 1
+        if delay:
+            time.sleep(self.delay_s)
+        if not fire:
+            return
+        if stage == "connect":
+            raise Unreachable(f"chaos: injected connection refused (op {ordinal}) to {url}")
+        raise TornResponse(f"chaos: injected torn response (op {ordinal}) from {url}")
+
+
+def inject_net(refuse: int = 0, torn: int = 0, delay: int = 0, delay_s: float = 0.05,
+               seed: int = 0, ops_window: int | None = None):
+    """Install a seeded network-fault schedule on the HTTP transport
+    seam. Returns ``(injector, uninstall)``. ``refuse`` connect ordinals
+    are refused, ``torn`` read ordinals tear the reply, ``delay`` read
+    ordinals sleep ``delay_s`` first; with ``ops_window`` each schedule
+    is a seeded sample of that window instead of the first n. The
+    client's retry absorbs schedules shorter than its attempt budget, and
+    since every retry reuses its idempotency key, a torn but executed
+    request is answered from the server's dedup window."""
+    from mpi_opt_tpu_torch.corpus import transport
+
+    injector = NetFaultInjector(refuse=refuse, torn=torn, delay=delay, delay_s=delay_s, seed=seed,
+                                ops_window=ops_window)
+    transport.set_net_fault_injector(injector)
+
+    def uninstall() -> None:
+        transport.set_net_fault_injector(None)
 
     return injector, uninstall
 

@@ -209,13 +209,27 @@ def test_cli_full_disk_exits_74(tmp_path, capsys):
     assert rc == 74 and out[-1]["kind"] == "storage_full"
 
 
-@pytest.mark.parametrize("flag", cli._NOT_PORTED_FLAGS + cli._NOT_PORTED_SWITCHES)
-def test_cli_flags_not_ported_are_usage_errors(tmp_path, flag, capsys):
-    extra = [flag] if flag in cli._NOT_PORTED_SWITCHES else [flag, "2"]
+# the suggestion service's flags run now (test_torch_suggest.py,
+# test_torch_http.py); each case keeps its id and checks the JAX CLI's
+# usage error for the flag out of place
+@pytest.mark.parametrize("flag,extra,message", [
+    pytest.param("--suggest-serve", ["--suggest-serve", "sd"],
+                 "--suggest-serve answers suggestion traffic instead of sweeping; it cannot "
+                 "combine with --fused", id="--suggest-serve"),
+    pytest.param("--suggest-idle-timeout", ["--suggest-idle-timeout", "2"],
+                 "--suggest-idle-timeout requires --suggest-serve", id="--suggest-idle-timeout"),
+    pytest.param("--http-port", ["--http-port", "2"], "--http-port requires --suggest-serve DIR",
+                 id="--http-port"),
+    pytest.param("--http-queue", ["--http-port", "2", "--http-queue", "0"],
+                 "--http-port requires --suggest-serve DIR", id="--http-queue"),
+    pytest.param("--http-state-dir", ["--http-state-dir", "2"],
+                 "--http-state-dir requires --http-port", id="--http-state-dir"),
+])
+def test_cli_flags_not_ported_are_usage_errors(tmp_path, flag, extra, message, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.main(_argv(tmp_path, *extra))
     assert exc.value.code == 2
-    assert f"{flag} is not ported yet" in capsys.readouterr().err
+    assert message in capsys.readouterr().err
     assert not os.path.exists(tmp_path / "ck")  # refused before anything ran
 
 
@@ -224,10 +238,11 @@ def test_cli_flags_not_ported_are_usage_errors(tmp_path, flag, capsys):
     # the subcommands still refused keep the cases' ids
     pytest.param(["lint", "mpi_opt_tpu_torch"], "'lint' subcommand is not ported yet",
                  id="argv0-'report' subcommand is not ported yet"),
-    # the sweep service's subcommands run now (test_torch_service.py);
-    # suggest-client is still refused (the case keeps its id)
+    # the sweep service's subcommands and suggest-client run now
+    # (test_torch_service.py, test_torch_suggest.py); suggest-client's
+    # own parser refuses a flag it does not have (the case keeps its id)
     pytest.param(["suggest-client", "--state-dir", "sd"],
-                 "'suggest-client' subcommand is not ported yet",
+                 "argument op: invalid choice: 'sd'",
                  id="argv1-'fsck' subcommand is not ported yet"),
     # the driver path runs on the gpu and cpu backends now
     # (test_torch_driver.py, test_torch_backend_cpu.py); the JAX package's
@@ -264,14 +279,19 @@ def test_cli_refusals_are_usage_errors(argv, message, capsys):
     assert message in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("argv", [
-    ["lint"], ["lint", "mpi_opt_tpu_torch"], ["suggest-client"], ["suggest-client", "bench"],
-])
-def test_cli_subcommands_not_ported_are_usage_errors(argv, capsys):
+# lint is still refused; suggest-client runs now (test_torch_suggest.py),
+# and its cases keep their ids with the JAX client's usage errors
+@pytest.mark.parametrize("argv,message", [
+    (["lint"], "the 'lint' subcommand is not ported yet"),
+    (["lint", "mpi_opt_tpu_torch"], "the 'lint' subcommand is not ported yet"),
+    (["suggest-client"], "the following arguments are required: op"),
+    (["suggest-client", "bench"], "need --dir SDIR (filesystem spool) or --url URL (HTTP)"),
+], ids=["argv0", "argv1", "argv2", "argv3"])
+def test_cli_subcommands_not_ported_are_usage_errors(argv, message, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.main(argv)
     assert exc.value.code == 2
-    assert f"the {argv[0]!r} subcommand is not ported yet" in capsys.readouterr().err
+    assert message in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("argv,rc,out", [

@@ -3,7 +3,7 @@ decide from the same numbers. Not a test module (no ``test_`` prefix):
 the algorithm and driver parity tests import it.
 
 ``install(monkeypatch)`` replaces every ``_draw_*`` method of the port's
-algorithms with one that makes JAX's own draw for the same path
+algorithms (and of its suggestion server) with one that makes JAX's own draw for the same path
 (``fold_in`` chains from the seed; BOHB's two-way split). ``pair(name)``
 builds a JAX algorithm and its port over one four-parameter space, and
 ``score`` is the fixed function of a trial's params and budget that the
@@ -21,6 +21,7 @@ import mpi_opt_tpu.algorithms as jalg
 import mpi_opt_tpu.ops.tpe as jtpe
 import mpi_opt_tpu.space as jspace
 import mpi_opt_tpu_torch.algorithms as talg
+import mpi_opt_tpu_torch.corpus.serve as tserve
 import mpi_opt_tpu_torch.ops.tpe as ttpe
 import mpi_opt_tpu_torch.space as tspace
 from mpi_opt_tpu.ops.pbt import PBTConfig as JPBTConfig
@@ -115,3 +116,7 @@ def install(monkeypatch):
     monkeypatch.setattr(talg.TPE, "_draw_tpe", tpe)
     monkeypatch.setattr(talg.BOHB, "_draw_tpe", tpe)
     monkeypatch.setattr(talg.PBT, "_draw_exploit", pbt)
+    # the suggestion server draws as the TPE algorithm does (JAX:
+    # fold_in(key(seed), suggested) for both branches)
+    monkeypatch.setattr(tserve.SuggestServer, "_draw_unit", unit)
+    monkeypatch.setattr(tserve.SuggestServer, "_draw_tpe", tpe)
