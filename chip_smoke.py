@@ -277,12 +277,27 @@ Phases, in order; any failure exits non-zero and prints no result:
    completed by ``suggest-client stop`` (done): its records equal those
    of one unparked server fed the same requests. (c) and (e) run
    together;
-22. processes: none of the phases' may be left running (the script is
+22. the static-analysis suite (``--phases lint``, the 23rd of
+   ``PHASES``; host only, no GroupNorm): (a) ``python -m
+   mpi_opt_tpu_torch lint --json`` over the port's tree in a subprocess
+   that reports whether it imported torch or jax: exit 0, ok, no
+   errors, the 19 checks in the JAX package's order
+   (``LINT_CHECKS``) and ``project-table``, neither torch nor jax
+   imported; files scanned, the wall, each check's ``wall_s`` and the
+   project pass's counts; (b) a copy of the tree with one planted fault
+   for each per-file check (``LINT_PLANTS``, torch's host syncs, draws,
+   seeds and CUDA OOM catch among them): exactly the planted (check,
+   file, line) set, exit 1; ``--write-baseline`` exit 0, then
+   ``--baseline`` exit 0 with every planted finding baselined; (c)
+   ``digits_image`` and ``diabetes`` at seed 0 on the card's host, which
+   has no scikit-learn: shapes, dtypes, and each array's sha256 equal to
+   ``DATASET_SHA256`` (the JAX package's arrays);
+23. processes: none of the phases' may be left running (the script is
    its descendants' subreaper, so an orphan counts too); the fork
    server the CPU backend's pools share is stopped and waited for, and
    the port stops multiprocessing's resource tracker at exit. Whatever
    was left is killed, and the run fails;
-23. the script's wall, the ``kernels`` line (JSON), then the device line
+24. the script's wall, the ``kernels`` line (JSON), then the device line
    (JSON, last).
 
 Each path (4, 6, 8, 9, 10a, 10d, 11b, 12b, 13b, 14c, 15b, 15d, 16c, 17d, 18a, 18d, 19, 20a,
@@ -1181,7 +1196,7 @@ C5_P = 1024  # BASELINE.json config 5: PBT over 1024 ResNet-18 members
 # the phases after the build, in order (``--phases`` picks some)
 PHASES = ("kernels", "slice", "north_star", "mlp", "durability", "waves", "oom", "oom_chunk", "drain",
           "sha", "config5", "hyperband", "tpe", "bohb", "mo", "driver", "warm", "cpu", "windows", "mesh",
-          "service", "suggest")
+          "service", "suggest", "lint")
 
 # a launcher for the port's CLI: caps this process's CUDA allocator at a
 # fraction of the card (0: no cap), runs the CLI, and writes the
@@ -4567,6 +4582,221 @@ def suggest_phase(gn, smi):
     return out, launches, None
 
 
+# phase 23: the checks of both packages' `lint --json`, in the JAX
+# package's order, then the project pass's synthetic entry
+LINT_CHECKS = ("exit-code", "journal-order", "ledger-gate", "atomic-write", "ledger-fsync",
+               "drain-swallow", "key-reuse", "host-sync", "event-registry", "lease-write",
+               "coord-write", "corpus-index-write", "resource-funnel", "fsync-before-rename",
+               "http-handler-contained", "guarded-by", "beat-path-nonblocking", "signal-safety",
+               "lock-order")
+# phase 23 (c): sha256 of each array at seed 0, equal to the JAX package's
+# arrays under scikit-learn 1.9 (tests/port/test_torch_data.py holds them)
+DATASET_SHA256 = {
+    "digits_image": {
+        "train_x": "d0e52c7d72be80615ca9da810e1e9d8cc50577fa92b089031854b6a070446bf1",
+        "train_y": "7b44826d30d9028635dd890a8b3d5783bc8184a19c1104dafad53512e2232371",
+        "val_x": "2a9d39b8a808f7f67fde3d74038cdfd47501c8866a2e48337712ad7cff241132",
+        "val_y": "92ec73515af8e038fd138d25fde5e1efa50ae11aff56613e2d1f42f2fccf20df",
+    },
+    "diabetes": {
+        "train_x": "9cba0da496eee70ba0f314807123dfdedd63f17909c83cc9ef04cdf4d644df95",
+        "train_y": "60d4274b40e3746b63d3839864c39963d66f16f164ddf7d2e75b520be4ad1c99",
+        "val_x": "f46ecad4dc4004bea12ddaa0cfd3e7a6f0b390395a0b317844813ad2bad72639",
+        "val_y": "26c25412e19f24fd4f00a35322632b52ad6952687ae21eaed573b103e0319bc4",
+    },
+}
+# phase 23 (b): one planted fault for each per-file check (three shapes of
+# key-reuse, two of resource-funnel), each a new file at a path in its
+# check's scope; a line ending in "# planted <check>" is where its
+# finding must land. Held as strings: no planted fault is code of the repo
+LINT_PLANTS = {
+    "mpi_opt_tpu_torch/planted_exit_code.py": (
+        "import sys\n\n\ndef planted_bail():\n    sys.exit(75)  # planted exit-code\n"),
+    "mpi_opt_tpu_torch/train/planted_journal.py": (
+        "def planted_boundaries(snap, journal):\n    for g in range(3):\n"
+        "        snap.save(g, sweep={})  # planted journal-order\n"
+        "        journal_boundary(journal, g, [], [], [], step=1)\n"),
+    "mpi_opt_tpu_torch/planted_ledger_gate.py": (
+        "def planted_open(path):\n    return SweepLedger(path)  # planted ledger-gate\n"),
+    "mpi_opt_tpu_torch/planted_atomic.py": (
+        "def planted_status(path):\n"
+        "    with open(path + \".json\", \"w\") as f:  # planted atomic-write\n"
+        "        f.write(\"{}\")\n"),
+    "mpi_opt_tpu_torch/ledger/planted_fsync.py": (
+        "class PlantedJournal:\n    def planted_append(self, rec):\n"
+        "        self._file.write(rec + \"\\n\")  # planted ledger-fsync\n"
+        "        self._file.flush()\n"),
+    "mpi_opt_tpu_torch/planted_drain.py": (
+        "def planted_step(step):\n    try:\n        step()\n"
+        "    except KeyboardInterrupt:  # planted drain-swallow\n        pass\n"),
+    "mpi_opt_tpu_torch/planted_draws.py": (
+        "import torch\n\n\ndef planted_noise(n, seed):\n"
+        "    torch.manual_seed(seed)  # planted key-reuse\n"
+        "    a, b = torch.Generator(), torch.Generator()\n"
+        "    a.manual_seed(seed)\n"
+        "    b.manual_seed(seed)  # planted key-reuse\n"
+        "    return torch.randn(n)  # planted key-reuse\n"),
+    "mpi_opt_tpu_torch/train/fused_planted.py": (
+        "def planted_hot(scores):\n    return scores.tolist()  # planted host-sync\n"),
+    "mpi_opt_tpu_torch/planted_event.py": (
+        "def planted_emit(metrics):\n"
+        "    metrics.log(\"planted_unregistered_event\", n=1)  # planted event-registry\n"),
+    "mpi_opt_tpu_torch/service/planted_lease.py": (
+        "import os\n\n\ndef planted_drop(d):\n"
+        "    os.unlink(d + \"/lease.json\")  # planted lease-write\n"),
+    "mpi_opt_tpu_torch/planted_coord.py": (
+        "import os\n\n\ndef planted_scrub(coord_dir):\n"
+        "    os.unlink(coord_dir + \"/READY.json\")  # planted coord-write\n"),
+    "mpi_opt_tpu_torch/planted_corpus.py": (
+        "import os\n\n\ndef planted_sneak(tmp, d):\n"
+        "    os.replace(tmp, d + \"/corpus-index.json\")  # planted corpus-index-write\n"),
+    "mpi_opt_tpu_torch/planted_oom.py": (
+        "import errno\n\nimport torch\n\n\ndef planted_run(step):\n    try:\n        return step()\n"
+        "    except torch.cuda.OutOfMemoryError:  # planted resource-funnel\n        return None\n\n\n"
+        "def planted_full(e):\n    return e.errno == errno.ENOSPC  # planted resource-funnel\n"),
+    "mpi_opt_tpu_torch/service/planted_status.py": (
+        "import json\nimport os\n\n\ndef planted_publish(path, obj):\n    tmp = path + \".tmp\"\n"
+        "    with open(tmp, \"w\") as f:\n        json.dump(obj, f)\n"
+        "    os.replace(tmp, path)  # planted fsync-before-rename\n"),
+    "mpi_opt_tpu_torch/service/planted_http.py": (
+        "from http.server import BaseHTTPRequestHandler\n\n\n"
+        "class PlantedRequestHandler(BaseHTTPRequestHandler):\n"
+        "    def do_GET(self):  # planted http-handler-contained\n        self.send_response(200)\n"),
+}
+# runs `python -m mpi_opt_tpu_torch lint ARGS` in this process and then
+# reports, on the last line of stderr, its exit code and whether torch or
+# jax was imported
+_LINT_PROBE = """
+import json, runpy, sys
+sys.argv = ["mpi_opt_tpu_torch", "lint", *sys.argv[1:]]
+try:
+    runpy.run_module("mpi_opt_tpu_torch", run_name="__main__", alter_sys=True)
+    rc = 0
+except SystemExit as e:
+    rc = e.code
+print(json.dumps({"rc": rc, "torch": "torch" in sys.modules, "jax": "jax" in sys.modules}),
+      file=sys.stderr)
+sys.exit(rc)
+"""
+
+
+def plant_lint_faults(root: str) -> set:
+    """Write ``LINT_PLANTS`` under ``root``; the planted (check, relpath,
+    line) set."""
+    want = set()
+    for rel, src in LINT_PLANTS.items():
+        path = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            f.write(src)
+        for i, line in enumerate(src.splitlines(), start=1):
+            if "# planted " in line:
+                want.add((line.rsplit("# planted ", 1)[1].strip(), rel, i))
+    return want
+
+
+def run_lint(*args):
+    """``python -m mpi_opt_tpu_torch lint ARGS`` in a subprocess from the
+    repo root: (exit code, stdout, the probe's record, wall seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _LINT_PROBE, *args], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    tail = proc.stderr.strip().splitlines()
+    probe = json.loads(tail[-1]) if tail and tail[-1].startswith("{") else {}
+    return proc.returncode, proc.stdout, probe, wall
+
+
+def lint_phase(smi):
+    """Phase 23: (a) the port's lint over its own tree, (b) over a copy
+    of the tree with ``LINT_PLANTS`` planted, then with a baseline of
+    them, (c) the two tabular datasets ported last, by digest. Returns
+    (record, problem)."""
+    import shutil
+    import tempfile
+
+    from mpi_opt_tpu_torch.data import load_dataset
+
+    t_phase = time.perf_counter()
+    out = {"card": smi}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lint_")
+    try:
+        tree = os.path.join(tmp, "tree")
+        shutil.copytree(os.path.join(ROOT, "mpi_opt_tpu_torch"), os.path.join(tree, "mpi_opt_tpu_torch"),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tree)
+        want = plant_lint_faults(tree)
+        (rc, stdout, probe, wall), (rc_p, stdout_p, _, wall_p) = _together(
+            lambda: run_lint("--json"), lambda: run_lint(tree, "--json"))
+
+        # (a) the port's tree: clean, the 19 checks and the project pass,
+        # without torch or jax
+        rep = json.loads(stdout)
+        ids = [c["id"] for c in rep["checks"]]
+        table = rep["project"] or {}
+        a = {"rc": rc, "ok": rep["ok"], "files_scanned": rep["files_scanned"], "wall_s": wall,
+             "checks_wall_s": sum(c["wall_s"] for c in rep["checks"]),
+             "check_wall_s": {c["id"]: c["wall_s"] for c in rep["checks"]},
+             "findings": len(rep["findings"]), "errors": rep["errors"],
+             "imported_torch": probe.get("torch"), "imported_jax": probe.get("jax"),
+             "project": {k: len(table.get(k) or ()) for k in
+                         ("locks", "thread_entries", "signal_handlers", "beat_entries")}}
+        a["project"]["lock_order_edges"] = len((table.get("lock_order") or {}).get("edges") or ())
+        a["project"]["lock_order_cycles"] = len((table.get("lock_order") or {}).get("cycles") or ())
+        out["tree"] = a
+        print(f"lint ({smi}): {a['files_scanned']} files in {wall} s (checks {a['checks_wall_s']} s), "
+              f"{a['findings']} findings, torch imported {a['imported_torch']}; per check "
+              f"{json.dumps(a['check_wall_s'])}; project {json.dumps(a['project'])}")
+        if rc != 0 or not rep["ok"] or rep["errors"] or rep["findings"]:
+            return out, f"lint (a): exit {rc}, ok {rep['ok']}, {len(rep['findings'])} findings, errors {rep['errors']}"
+        if ids != [*LINT_CHECKS, "project-table"]:
+            return out, f"lint (a): checks {ids}"
+        if probe.get("torch") is not False or probe.get("jax") is not False:
+            return out, f"lint (a): the lint process imported torch/jax: {probe}"
+
+        # (b) the planted tree: exactly the planted findings, exit 1; then
+        # a baseline of them: exit 0, every one baselined
+        def found(rows):
+            return {(f["check"], os.path.relpath(os.path.join(ROOT, f["file"]), tree), f["line"])
+                    for f in rows}
+
+        rep_p = json.loads(stdout_p)
+        got = found(rep_p["findings"])
+        base = os.path.join(tmp, "baseline.json")
+        rc_w, _, _, wall_w = run_lint(tree, "--write-baseline", base)
+        rc_b, stdout_b, _, wall_b = run_lint(tree, "--baseline", base, "--json")
+        rep_b = json.loads(stdout_b)
+        b = {"planted": len(want), "rc": rc_p, "found": len(got), "missed": sorted(want - got),
+             "unexpected": sorted(got - want), "files_scanned": rep_p["files_scanned"], "wall_s": wall_p,
+             "write_baseline_rc": rc_w, "baseline_rc": rc_b, "baselined": len(rep_b["baselined"]),
+             "after_baseline_findings": len(rep_b["findings"]), "baseline_walls_s": [wall_w, wall_b]}
+        out["planted"] = b
+        print(f"lint-planted ({smi}): {json.dumps(b)}")
+        if rc_p != 1 or got != want:
+            return out, f"lint (b): exit {rc_p}, missed {b['missed']}, unexpected {b['unexpected']}"
+        if rc_w != 0 or rc_b != 0 or rep_b["findings"] or found(rep_b["baselined"]) != want:
+            return out, (f"lint (b): --write-baseline exit {rc_w}, --baseline exit {rc_b}, "
+                         f"{len(rep_b['findings'])} findings, {len(rep_b['baselined'])} baselined")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (c) the datasets ported last, on the card's host (no scikit-learn)
+    out["datasets"] = {}
+    for name, pinned in DATASET_SHA256.items():
+        d = load_dataset(name, seed=0)
+        rec = {k: {"shape": list(d[k].shape), "dtype": str(d[k].dtype),
+                   "sha256": hashlib.sha256(d[k].tobytes()).hexdigest()} for k in pinned}
+        rec["n_classes"] = d["n_classes"]
+        out["datasets"][name] = rec
+        print(f"dataset {name} ({smi}): {json.dumps(rec)}")
+        bad = [k for k in pinned if rec[k]["sha256"] != pinned[k]]
+        if bad:
+            return out, f"lint (c): {name} {bad} differ from the JAX package's arrays"
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"lint phase wall ({smi}): {out['wall_s']} s")
+    return out, None
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline-cu", default=None,
@@ -4896,7 +5126,16 @@ def main() -> int:
         if bad:
             return fail(bad)
 
-    # 22. no process left running
+    if "lint" in phases:
+        # 22. the static-analysis suite and the datasets ported last: the
+        # port's lint over its own tree and over planted faults (with a
+        # baseline), and the two tabular sets by digest (host only)
+        lint_out, bad = lint_phase(smi)
+        done("lint", lint_out)
+        if bad:
+            return fail(bad)
+
+    # 23. no process left running
     left = stop_processes()
     if left:
         return fail(f"processes left running after the phases (killed now): {left}")
@@ -4905,7 +5144,7 @@ def main() -> int:
         print(f"chip_smoke: partial run ({','.join(phases)}): no result line")
         return 0
 
-    # 23. the kernels line (a population step of each path, summed; launches
+    # 24. the kernels line (a population step of each path, summed; launches
     # summed over every path), then the device line
     src = "mpi_opt_tpu_torch/csrc/group_norm.cu"
     kernels = []

@@ -76,8 +76,9 @@ events), and so are the exit codes: 0 done; 1 the driver's failure-rate
 breaker tripped; 2 usage; 65 a data dead-end (no verified snapshot, or a ledger
 that diverges from or lags the sweep); 74 a device OOM or a full disk;
 75 a graceful drain on SIGTERM/SIGINT, with the snapshot flushed: rerun
-with ``--resume``. The one subcommand of the JAX CLI that the port
-does not take yet, ``lint``, is a usage error that says so.
+with ``--resume``. Every subcommand of the JAX CLI runs here too,
+``lint`` (``analysis/``, the port's sweeplint over the port's tree)
+among them.
 """
 
 from __future__ import annotations
@@ -103,8 +104,6 @@ from mpi_opt_tpu_torch.workloads import _REGISTRY, get_workload
 
 # the JAX CLI's algorithms; the port runs every one, fused and driver
 ALGORITHMS = ("asha", "bohb", "hyperband", "pbt", "random", "tpe")
-# the JAX CLI's subcommand that the port does not run yet
-_SUBCOMMANDS = ("lint",)
 #: the environment variable the sweep service sets around a traced
 #: slice: the tenant tag stamped into the slice's span records (env, not
 #: a flag, so the argv the tenant submitted stays exactly its own)
@@ -1249,9 +1248,13 @@ def main(argv=None, *, _workload=None) -> int:
         from mpi_opt_tpu_torch.corpus.client import client_main
 
         return client_main(argv[1:])
+    # `lint [PATHS]` machine-checks the engine's invariants (analysis/,
+    # the sweeplint suite); imports neither torch nor jax
+    if argv and argv[0] == "lint":
+        from mpi_opt_tpu_torch.analysis.cli import lint_main
+
+        return lint_main(argv[1:])
     parser = build_parser()
-    if argv and argv[0] in _SUBCOMMANDS:
-        parser.error(f"the {argv[0]!r} subcommand is not ported yet")
     args = parser.parse_args(argv)
     if args.resume and not (args.checkpoint_dir or args.ledger):
         parser.error("--resume requires --checkpoint-dir or --ledger")

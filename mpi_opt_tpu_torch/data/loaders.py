@@ -1,14 +1,15 @@
-"""Dataset registry of the port: the synthetic image sets and three UCI
-tabular sets.
+"""Dataset registry of the port: the synthetic image sets and the
+tabular sets of ``mpi_opt_tpu/data/loaders.py``, every key of its
+``DATASETS``.
 
-The same generator and arguments as ``mpi_opt_tpu/data/loaders.py``, so
-the arrays are byte-equal to the JAX package's (NHWC float32 images,
-int32 labels). ``breast_cancer``, ``wine`` and ``digits`` are read from
-the UCI files the port ships in ``data/uci/`` (copied from
+The same generator and arguments as the JAX package's, so the arrays
+are byte-equal to its own (NHWC float32 images, int32 labels).
+``breast_cancer``, ``wine``, ``digits`` (and ``digits_image``, the same
+rows as ``[n, 8, 8, 1]`` images) and the regression set ``diabetes``
+are read from the files the port ships in ``data/uci/`` (copied from
 scikit-learn's bundled data, BSD-3, see ``data/uci/LICENSE.txt``) and
-parsed, split and standardised as the JAX package's sklearn loader
-does, in numpy: scikit-learn itself is not needed. ``digits_image`` and
-``diabetes`` are not ported yet.
+parsed, scaled, split and standardised as the JAX package's sklearn
+loader does, in numpy: scikit-learn itself is not needed.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ from mpi_opt_tpu_torch.data.synthetic import make_image_classification
 _CACHE: dict = {}
 UCI_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "uci")
 UCI_FILES = {"breast_cancer": "breast_cancer.csv", "wine": "wine_data.csv",
-             "digits": "digits.csv.gz"}
+             "digits": "digits.csv.gz", "diabetes_data": "diabetes_data_raw.csv.gz",
+             "diabetes_target": "diabetes_target.csv.gz"}
 
 
 def _uci_path(name: str) -> str:
@@ -43,6 +45,31 @@ def read_digits():
     with gzip.open(_uci_path("digits"), "rt") as f:
         data = np.loadtxt(f, delimiter=",")
     return data[:, :-1], data[:, -1].astype(np.int64)
+
+
+def read_diabetes():
+    """(data float64[442, 10], target float64[442]) as scikit-learn's
+    ``load_diabetes()`` gives them (``scaled=True``): the gzipped,
+    whitespace-separated files parsed by ``np.loadtxt``, each column
+    centred and scaled by ``sklearn.preprocessing.scale`` (nan-aware
+    mean and std, with its second centring passes when a mean is not
+    close to zero after the first), then divided by sqrt(n_samples)."""
+    with gzip.open(_uci_path("diabetes_data"), "rt") as f:
+        x = np.loadtxt(f)
+    with gzip.open(_uci_path("diabetes_target"), "rt") as f:
+        target = np.loadtxt(f)
+    mean_, scale_ = np.nanmean(x, 0), np.nanstd(x, 0)
+    x -= mean_
+    mean_1 = np.nanmean(x, axis=0)
+    if not np.allclose(mean_1, 0):
+        x -= mean_1
+    # scikit-learn's _handle_zeros_in_scale: a near-constant column is divided by 1
+    x /= np.where(scale_ < 10 * np.finfo(scale_.dtype).eps, 1.0, scale_)
+    mean_2 = np.nanmean(x, axis=0)
+    if not np.allclose(mean_2, 0):
+        x -= mean_2
+    x /= x.shape[0] ** 0.5
+    return x, target
 
 
 def read_uci_csv(name: str):
@@ -103,27 +130,58 @@ def stratified_split(y, test_size: float, seed: int):
     return rng.permutation(train), rng.permutation(test)
 
 
+def shuffle_split(n: int, test_size: float, seed: int):
+    """(train, test) row indices of scikit-learn's ``train_test_split(...,
+    test_size=test_size, random_state=seed)`` without ``stratify``: the
+    first split of ``ShuffleSplit``, one ``RandomState(seed)``
+    permutation whose first ``ceil(test_size * n)`` rows are the test
+    set and the rest the train set."""
+    n_test = math.ceil(test_size * n)
+    perm = np.random.RandomState(seed).permutation(n)
+    return perm[n_test:], perm[:n_test]
+
+
 def _uci_tabular(name: str, seed: int = 0, val_frac: float = 0.25):
-    """A UCI classification set as the JAX package's ``_sklearn_tabular``
-    gives it: f32 features standardised over the whole set, int32
-    labels, a stratified split."""
-    data, target = read_digits() if name == "digits" else read_uci_csv(name)
+    """A tabular set as the JAX package's ``_sklearn_tabular`` gives it:
+    f32 features standardised over the whole set; a classification set
+    (integer targets) with int32 labels and a stratified split, a
+    regression set (``diabetes``) with f32 targets, ``n_classes`` 0 and
+    an unstratified split."""
+    if name == "diabetes":
+        data, target = read_diabetes()
+    else:
+        data, target = read_digits() if name == "digits" else read_uci_csv(name)
     x = np.asarray(data, dtype=np.float32)
     x = (x - x.mean(0)) / (x.std(0) + 1e-8)
-    y = target.astype(np.int32)
-    train, test = stratified_split(y, val_frac, seed)
+    classification = target.dtype.kind in "iu"
+    if classification:
+        y = target.astype(np.int32)
+        train, test = stratified_split(y, val_frac, seed)
+    else:
+        y = target.astype(np.float32)
+        train, test = shuffle_split(len(y), val_frac, seed)
     return {
         "train_x": x[train],
         "train_y": y[train],
         "val_x": x[test],
         "val_y": y[test],
-        "n_classes": int(y.max()) + 1,
+        "n_classes": int(y.max()) + 1 if classification else 0,
     }
+
+
+def _digits_images(seed: int = 0):
+    """The ``digits`` rows reshaped to ``[n, 8, 8, 1]`` images."""
+    d = _uci_tabular("digits", seed)
+    for k in ("train_x", "val_x"):
+        d[k] = d[k].reshape(-1, 8, 8, 1)
+    return d
 
 DATASETS = {
     "digits": lambda seed=0: _uci_tabular("digits", seed),
+    "digits_image": _digits_images,
     "wine": lambda seed=0: _uci_tabular("wine", seed),
     "breast_cancer": lambda seed=0: _uci_tabular("breast_cancer", seed),
+    "diabetes": lambda seed=0: _uci_tabular("diabetes", seed),  # regression
     "fashion_mnist": lambda seed=0, n_train=16384, n_val=2048, **kw: make_image_classification(
         n_train, n_val, 28, 28, 1, 10, seed=seed, **kw
     ),

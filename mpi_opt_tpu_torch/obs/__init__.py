@@ -7,4 +7,6 @@
 - ``bubbles``: device-idle gaps by cause, staging overlap and the
   roofline verdict;
 - ``memory``: device-memory readings from the CUDA caching allocator.
+- ``events``: the event/span name registry, the metrics stream's
+  schema (the tables ``lint``'s ``event-registry`` check reads).
 """

@@ -362,7 +362,7 @@ def fused_pbt(  # sweeplint: barrier(resident host loop: launch boundaries, expl
             is_last = i + 1 == n_launches
             due = (i + 1) % snapshot_every == 0
 
-            def save_now(i=i):
+            def save_now(i=i):  # sweeplint: barrier(snapshot save: the host curves and the population's state go to disk)
                 snap.save_population_sweep(
                     i + 1, state, unit, gen, scores_np,
                     meta_extra={
@@ -618,7 +618,7 @@ def _fused_pbt_waves(  # sweeplint: barrier(wave host loop: stages pools, gather
             is_last = g + 1 == generations
             due = (g + 1) % snapshot_every == 0
 
-            def save_boundary(g=g, n_waves=n_waves):
+            def save_boundary(g=g, n_waves=n_waves):  # sweeplint: barrier(generation-boundary snapshot: the unit goes to disk)
                 snap.save((g + 1) * n_waves, sweep={
                     "front": pool_front, "perm": torch.as_tensor(perm), "unit": unit.cpu(),
                     "rng_state": gen.get_state(), "scores": torch.as_tensor(post_scores),

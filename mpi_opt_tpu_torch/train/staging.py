@@ -232,7 +232,8 @@ class StagingEngine:
         w = len(rows)
         idx = torch.as_tensor(rows, dtype=torch.long)
         if self._slice_free is not None:
-            self._slice_free.synchronize()  # the previous wave's copy left the slice
+            # sweeplint: barrier(the pinned slice is reused: the main thread waits for the previous wave's copy to leave it)
+            self._slice_free.synchronize()
         if self._slice is None or tree_leaves(self._slice)[0].shape[0] < w:
             self._slice = tree_map(
                 lambda leaf: torch.empty((w,) + tuple(leaf.shape[1:]), dtype=leaf.dtype, pin_memory=True),

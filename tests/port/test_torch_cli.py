@@ -234,9 +234,10 @@ def test_cli_flags_not_ported_are_usage_errors(tmp_path, flag, extra, message, c
 
 
 @pytest.mark.parametrize("argv,message", [
-    # report and fsck run now (test_torch_report.py, test_torch_fsck.py);
-    # the subcommands still refused keep the cases' ids
-    pytest.param(["lint", "mpi_opt_tpu_torch"], "'lint' subcommand is not ported yet",
+    # report, fsck and lint run now (test_torch_report.py,
+    # test_torch_fsck.py, test_torch_analysis.py); lint refuses a path that
+    # is not there, as the JAX lint does (the case keeps its id)
+    pytest.param(["lint", "no-such-path"], "'no-such-path' does not exist",
                  id="argv0-'report' subcommand is not ported yet"),
     # the sweep service's subcommands and suggest-client run now
     # (test_torch_service.py, test_torch_suggest.py); suggest-client's
@@ -279,11 +280,13 @@ def test_cli_refusals_are_usage_errors(argv, message, capsys):
     assert message in capsys.readouterr().err
 
 
-# lint is still refused; suggest-client runs now (test_torch_suggest.py),
-# and its cases keep their ids with the JAX client's usage errors
+# lint and suggest-client run now (test_torch_analysis.py,
+# test_torch_suggest.py); their cases keep their ids with the JAX lint's and
+# the JAX client's usage errors: a baseline that cannot be read (missing,
+# a directory)
 @pytest.mark.parametrize("argv,message", [
-    (["lint"], "the 'lint' subcommand is not ported yet"),
-    (["lint", "mpi_opt_tpu_torch"], "the 'lint' subcommand is not ported yet"),
+    (["lint", "--baseline", "no-such-baseline.json"], "--baseline: [Errno 2] No such file or directory"),
+    (["lint", "--baseline", os.path.dirname(cli.__file__)], "--baseline: [Errno 21] Is a directory"),
     (["suggest-client"], "the following arguments are required: op"),
     (["suggest-client", "bench"], "need --dir SDIR (filesystem spool) or --url URL (HTTP)"),
 ], ids=["argv0", "argv1", "argv2", "argv3"])
