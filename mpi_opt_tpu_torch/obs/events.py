@@ -4,7 +4,8 @@ name (the port's copy of ``mpi_opt_tpu/obs/events.py``).
 The metrics stream is a schema consumed by the ``trace`` CLI, the
 bench, the launch supervisor's relay and outside log aggregation, and
 both packages' ``trace`` CLIs read the same streams, so the tables here
-equal the JAX package's name for name. Every ``metrics.log("name",
+equal the JAX package's name for name, but for one named set of the
+port's own spans (``PORT_SPANS``). Every ``metrics.log("name",
 ...)`` event, every ``integrity.notify("name", ...)``, every supervisor
 ``_event("name", ...)`` and every ``trace.span("name", ...)`` must use a
 name registered here: the ``event-registry`` checker of ``lint``
@@ -127,8 +128,9 @@ EVENTS = frozenset(
     }
 )
 
-#: every legal ``span`` name (the ``span`` field of a ``span`` event)
-SPANS = frozenset(
+#: the JAX package's ``span`` names (the ``span`` field of a ``span``
+#: event)
+_JAX_SPANS = frozenset(
     {
         "setup",  # workload data load + trainer/backend construction
         "compile",  # a program compile (the JAX package's XLA listener; read by trace)
@@ -146,6 +148,22 @@ SPANS = frozenset(
         "slice_setup",  # service program-cache acquire + log open
     }
 )
+
+#: the port's own ``span`` names: the phases of a training step and the
+#: eval (``train/population.py``), which the device trace's idle gaps and
+#: launches are put down to. The JAX package traces none of them
+PORT_SPANS = frozenset(
+    {
+        "batch",  # a step's batch and augmentation draws and row gather
+        "forward",  # a member chunk's parameter views, inputs, logits, loss
+        "backward",  # a member chunk's gradients (and their data-mean)
+        "update",  # a member chunk's per-leaf optimiser step
+        "eval",  # one eval_population call
+    }
+)
+
+#: every legal ``span`` name
+SPANS = _JAX_SPANS | PORT_SPANS
 
 
 #: every legal span ATTRIBUTE key — the kwargs of ``trace.span(...)``

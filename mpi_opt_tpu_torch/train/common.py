@@ -173,7 +173,8 @@ def momentum_dtype_str() -> str:
 def launch_boundary(stage: str, *, final: bool, snapshot=None, **progress) -> None:
     """The fused host loop's per-launch service point, called once at
     the end of every launch, after its results were fetched and
-    journaled: the ``boundary_fault`` seam, the heartbeat, then a
+    journaled: the span records held in memory are written
+    (``trace.flush``), then the ``boundary_fault`` seam, the heartbeat, then a
     pending graceful-shutdown request is honoured by flushing the
     boundary snapshot via ``snapshot()`` (None when the cadence save
     already ran or the sweep does not checkpoint) and raising
@@ -197,6 +198,9 @@ def launch_boundary(stage: str, *, final: bool, snapshot=None, **progress) -> No
     from mpi_opt_tpu_torch.parallel import coord
     from mpi_opt_tpu_torch.utils import resources
 
+    # the spans held in memory reach the sink before any hook runs: a
+    # slice hook's reader sees the slice's spans
+    trace.flush()
     if coord.active_plane() is not None:
         stage = f"boundary:{stage}"
     resources.boundary_fault(stage)

@@ -46,6 +46,13 @@ scores (an all_gather over ``pop``), ``gather_members`` moves only the
 rows another rank owns, and over ``data`` a rank trains on its share of
 each minibatch and averages gradients and losses with its data peers
 before the update.
+
+Each step is traced in phases (``obs/trace.py``): a ``batch`` span
+draws the batch and the augmentation and gathers the rows, and each
+member chunk runs a ``forward`` (parameter views, inputs, logits, loss),
+a ``backward`` (the gradients, averaged over ``data`` under a mesh) and
+an ``update`` (the per-leaf optimiser step); each ``eval_population``
+call is an ``eval`` span. Untraced, a span is a frame pushed and popped.
 """
 
 from __future__ import annotations
@@ -58,6 +65,7 @@ from torch.func import functional_call
 
 from mpi_opt_tpu_torch.device import resolve_device
 from mpi_opt_tpu_torch.models.resnet import fold_members, init_layers
+from mpi_opt_tpu_torch.obs import trace
 
 
 @dataclasses.dataclass
@@ -303,20 +311,25 @@ class PopulationTrainer:
         budgets."""
         losses = []
         for a, b, w in self._chunks(state.step.shape[0]):
-            params = {k: _rows(v, a, b, w).detach().requires_grad_() for k, v in state.params.items()}
-            loss = _member_loss(self.logits(params, self._inputs(bx, aug, a, b, w)), by)
-            grads = torch.autograd.grad(loss.sum(), list(params.values()))
-            if self.mesh is not None and self.mesh.shape["data"] > 1:
-                # the batch is split over ``data``: the full batch's mean
-                # loss and gradient are the data peers' average
-                loss = loss.detach().clone()
-                self.mesh.data_mean_([*grads, loss])
-            lr, mu, wd = hp.lr[a:b], hp.momentum[a:b], hp.weight_decay[a:b]
-            frozen = None
-            if active is not None:
-                frozen = ~active[a:b]
-                lr, mu, wd = lr.masked_fill(frozen, 0.0), mu.masked_fill(frozen, 1.0), wd.masked_fill(frozen, 0.0)
-            with torch.no_grad():
+            # sweeplint: disable=event-registry -- port-only span, registered in obs/events.py::PORT_SPANS
+            with trace.span("forward"):
+                params = {k: _rows(v, a, b, w).detach().requires_grad_() for k, v in state.params.items()}
+                loss = _member_loss(self.logits(params, self._inputs(bx, aug, a, b, w)), by)
+            # sweeplint: disable=event-registry -- port-only span, registered in obs/events.py::PORT_SPANS
+            with trace.span("backward"):
+                grads = torch.autograd.grad(loss.sum(), list(params.values()))
+                if self.mesh is not None and self.mesh.shape["data"] > 1:
+                    # the batch is split over ``data``: the full batch's mean
+                    # loss and gradient are the data peers' average
+                    loss = loss.detach().clone()
+                    self.mesh.data_mean_([*grads, loss])
+            # sweeplint: disable=event-registry -- port-only span, registered in obs/events.py::PORT_SPANS
+            with trace.span("update"), torch.no_grad():
+                lr, mu, wd = hp.lr[a:b], hp.momentum[a:b], hp.weight_decay[a:b]
+                frozen = None
+                if active is not None:
+                    frozen = ~active[a:b]
+                    lr, mu, wd = lr.masked_fill(frozen, 0.0), mu.masked_fill(frozen, 1.0), wd.masked_fill(frozen, 0.0)
                 for k, g in zip(params, grads):
                     # the stand-ins' gradients are dropped here
                     g = g[:b - a]
@@ -331,7 +344,7 @@ class PopulationTrainer:
                     p.sub_(lr.view(shape) * m32)
                     if m32 is not m:
                         m.copy_(m32)
-            losses.append(loss.detach()[:b - a])
+                losses.append(loss.detach()[:b - a])
         state.step += 1 if active is None else active.to(state.step.dtype)
         return torch.cat(losses)
 
@@ -361,13 +374,15 @@ class PopulationTrainer:
         c, d = (0, self.batch_size) if self.mesh is None else self.mesh.batch_rows(self.batch_size)
         losses = []
         for t in range(steps):
-            idx = draw_batch(generator, train_x.shape[0], self.batch_size)
-            bx, by = train_x[idx[c:d]], train_y[idx[c:d]]
-            aug = None
-            if self.augment and bx.dim() == 4:
-                aug = draw_augment(generator, hp_full.flip_prob, hp_full.shift, self.batch_size)
-                aug = (aug[0][offset:offset + w, c:d], aug[1][offset:offset + w],
-                       aug[2][offset:offset + w])
+            # sweeplint: disable=event-registry -- port-only span, registered in obs/events.py::PORT_SPANS
+            with trace.span("batch"):
+                idx = draw_batch(generator, train_x.shape[0], self.batch_size)
+                bx, by = train_x[idx[c:d]], train_y[idx[c:d]]
+                aug = None
+                if self.augment and bx.dim() == 4:
+                    aug = draw_augment(generator, hp_full.flip_prob, hp_full.shift, self.batch_size)
+                    aug = (aug[0][offset:offset + w, c:d], aug[1][offset:offset + w],
+                           aug[2][offset:offset + w])
             if rem is None:
                 losses.append(self._pop_update(state, hp, aug, bx, by).mean())
             else:
@@ -404,7 +419,9 @@ class PopulationTrainer:
         ``member_chunk`` slices); the tail chunk is padded and masked,
         not dropped, so every chunk has one shape.
         """
-        return self.gather_rows(self._eval_rows(state, val_x, val_y, eval_chunk), state)
+        # sweeplint: disable=event-registry -- port-only span, registered in obs/events.py::PORT_SPANS
+        with trace.span("eval"):
+            return self.gather_rows(self._eval_rows(state, val_x, val_y, eval_chunk), state)
 
     def _eval_rows(self, state: PopState, val_x, val_y, eval_chunk: int):
         n_val = val_x.shape[0]

@@ -6,6 +6,7 @@ driver paths read), ``null_logger``, and the wall-clock-to-target helpers ``wall
 
 from __future__ import annotations
 
+import collections
 import json
 import sys
 import threading
@@ -13,14 +14,29 @@ import time
 from typing import IO, Optional
 
 
+#: past this many held records ``MetricsLogger.hold`` writes them out:
+#: a sweep with no launch boundary for a long time keeps bounded memory
+MAX_HELD = 1 << 16
+
+
 class MetricsLogger:
     """One JSON object per event to a file and/or a stream, plus the
-    run's counters, reported by ``summary``."""
+    run's counters, reported by ``summary``.
+
+    ``log`` writes its record at once. ``hold`` keeps a record in
+    memory (the tracer's spans, ``obs/trace.py``: no JSON work and no
+    write inside a training step) until ``flush`` writes every held
+    record in one write: ``log`` flushes before its own record and
+    ``close`` before closing, so the stream keeps the order in which
+    things were recorded; the tracer flushes at every launch boundary."""
 
     def __init__(self, path: Optional[str] = None, stream: Optional[IO] = None, n_chips: int = 1):
         self._file = open(path, "a") if path else None
         self._stream = stream
         self._sink_lock = threading.Lock()  # whole lines, never interleaved
+        # records ``hold`` keeps for ``flush``. A deque's append and
+        # popleft are atomic: any thread holds, any thread flushes
+        self._held: collections.deque = collections.deque()
         self.n_chips = max(1, n_chips)
         self.t_start = time.perf_counter()
         self.trials_done = 0
@@ -62,22 +78,48 @@ class MetricsLogger:
         self.takeovers = 0
 
     def log(self, event: str, **fields) -> dict:
-        # ``t`` is this process's clock; ``ts`` the absolute epoch
-        rec = {
+        if self._held:
+            self.flush()
+        rec = self._record(time.perf_counter(), time.time(), event, fields)
+        if self._file or self._stream:
+            self._write(json.dumps(rec))
+        return rec
+
+    def hold(self, event: str, **fields) -> None:
+        """Keep a record, stamped as ``log`` would stamp it now, for the
+        next ``flush``."""
+        self._held.append((time.perf_counter(), time.time(), event, fields))
+        if len(self._held) >= MAX_HELD:
+            self.flush()
+
+    def flush(self) -> None:
+        """Write every held record, in the order held, in one write."""
+        held = []
+        try:
+            while True:
+                held.append(self._held.popleft())
+        except IndexError:
+            pass
+        if held and (self._file or self._stream):
+            self._write("\n".join(json.dumps(self._record(*h)) for h in held))
+
+    def _record(self, t: float, ts: float, event: str, fields: dict) -> dict:
+        # ``t`` is this process's clock; ``ts`` the absolute epoch (a
+        # field of the same name wins: a span brings its own end)
+        return {
             "event": event,
-            "t": round(time.perf_counter() - self.t_start, 4),
-            "ts": round(time.time(), 4),
+            "t": round(t - self.t_start, 4),
+            "ts": round(ts, 4),
             **fields,
         }
-        if self._file or self._stream:
-            line = json.dumps(rec)
-            with self._sink_lock:
-                if self._file:
-                    self._file.write(line + "\n")
-                    self._file.flush()
-                if self._stream:
-                    print(line, file=self._stream, flush=True)
-        return rec
+
+    def _write(self, lines: str) -> None:
+        with self._sink_lock:
+            if self._file:
+                self._file.write(lines + "\n")
+                self._file.flush()
+            if self._stream:
+                print(lines, file=self._stream, flush=True)
 
     def count_trials(self, n: int):
         self.trials_done += n
@@ -181,6 +223,7 @@ class MetricsLogger:
         )
 
     def close(self):
+        self.flush()
         if self._file:
             self._file.close()
             self._file = None

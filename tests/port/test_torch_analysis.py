@@ -414,7 +414,10 @@ def test_a_planted_tree_gives_equal_findings_for_the_shared_ids(tmp_path):
 
 def test_the_registry_tables_equal_the_jax_tables():
     assert events.EVENTS == jax_events.EVENTS
-    assert events.SPANS == jax_events.SPANS
+    # the JAX tables plus the port's own step-phase spans, none of them a
+    # JAX name
+    assert events.SPANS == jax_events.SPANS | events.PORT_SPANS
+    assert events.PORT_SPANS and events.PORT_SPANS.isdisjoint(jax_events.SPANS)
     assert events.SPAN_ATTRS == jax_events.SPAN_ATTRS
     assert events.is_event("summary") and not events.is_event("no_such")
     assert events.is_span("train") and events.is_span_attr("launch")

@@ -5,7 +5,7 @@ the JAX sweep: the same bracket summaries, rung sizes and budgets, ledger
 records with the JAX keys and the same (boundary, boundary size, trial
 id, step) sequence, members in each bracket's range (one ledger spans the
 brackets), accepted by the JAX ledger reader, and the same spans as a multiset of (span, op,
-parent), less ``compile``. Scores differ between the packages (their
+parent), less ``compile`` and the port's own step-phase spans. Scores differ between the packages (their
 random streams differ), so the sweep comparison is structural: which
 trials survive a cut differs. Both sides' FLOP hints are filled in
 beforehand (the JAX probe compiles a program a rung shape;
@@ -33,7 +33,7 @@ from mpi_opt_tpu_torch import cli, get_workload
 from mpi_opt_tpu_torch.algorithms.base import best_finite
 from mpi_opt_tpu_torch.algorithms.hyperband import bracket_plan
 from mpi_opt_tpu_torch.ledger import SweepLedger, validate_ledger
-from mpi_opt_tpu_torch.obs import trace
+from mpi_opt_tpu_torch.obs import events, trace
 from mpi_opt_tpu_torch.train.fused_asha import fused_hyperband
 from mpi_opt_tpu_torch.utils import resources
 
@@ -78,8 +78,10 @@ class Sink:
         self.recs.append(dict(event=event, _parent=st[-1][0] if st else None, **fields))
 
     def multiset(self):
+        """(span, op, parent) counts, less ``compile`` and the port's own
+        step-phase spans (``obs/events.py::PORT_SPANS``)."""
         return collections.Counter((r["span"], r.get("op"), r["_parent"]) for r in self.recs
-                                   if r["span"] != "compile")
+                                   if r["span"] != "compile" and r["span"] not in events.PORT_SPANS)
 
 
 def _header(space, seed=0):

@@ -2,8 +2,9 @@
 ``obs/bubbles.py``) against the JAX package's: the tracer's contract
 (nesting and self time per thread, null mode, the heartbeat's phase),
 the spans a traced fused PBT sweep emits, equal to the JAX sweep's as a
-multiset of (span, op, parent) (the port has no XLA compile, so no
-``compile`` spans), and the attribution: the JAX ``attribute`` and
+multiset of (span, op, parent) once the port's own step-phase spans
+(``obs/events.py::PORT_SPANS``) are dropped (the port has no XLA
+compile, so no ``compile`` spans), and the attribution: the JAX ``attribute`` and
 ``bench_attribution`` and the port's copies give equal dicts on one
 recorded stream."""
 
@@ -25,7 +26,7 @@ from mpi_opt_tpu.workloads import get_workload as jax_get_workload
 from mpi_opt_tpu_torch import cli, get_workload
 from mpi_opt_tpu_torch.health import heartbeat
 from mpi_opt_tpu_torch.ledger import SweepLedger
-from mpi_opt_tpu_torch.obs import report, trace
+from mpi_opt_tpu_torch.obs import events, report, trace
 from mpi_opt_tpu_torch.train import engine, staging
 from mpi_opt_tpu_torch.train.fused_asha import fused_sha
 from mpi_opt_tpu_torch.train.fused_pbt import fused_pbt
@@ -56,7 +57,7 @@ class Sink:
 
     def multiset(self):
         return collections.Counter((r["span"], r.get("op"), r["_parent"]) for r in self.recs
-                                   if r["span"] != "compile")
+                                   if r["span"] != "compile" and r["span"] not in events.PORT_SPANS)
 
 
 def test_spans_nest_and_self_times_sum_per_thread():
